@@ -1,0 +1,428 @@
+"""Smoke run of the PyTorch port (score_based_channels_torch) on one NVIDIA
+card: the quickest proof that the port builds, is right and runs its main
+path on the GPU.
+
+    python3 chip_smoke.py        # from the repository root, one card
+
+Phases (any failure propagates and the exit code is non-zero):
+  1. device: the card's name and power limit;
+  2. build: the CUDA kernels of csrc/, from the sources in the checkout;
+  3. kernels: every conv and InstanceNorm++ variant of one full-width
+     NCSNv2-Deepest forward (found by hooks on a census forward), at batch
+     256 in float32 and bfloat16, held against its plain PyTorch version on
+     the card, and timed (CUDA events, median) beside its plain version,
+     its bound and, for the conv, the one-call cuDNN yardstick F.conv2d;
+  4. main path: the full-width 5,890,082-parameter network from a seed;
+     its kernel forward against the plain forward; `run_estimation` (the
+     `estimate` entry point) on a small file dataset written here, with
+     the launch counts of that run; the bench.py workload (batch 256, 38
+     pilots, 10 dB, alpha 3e-11, beta 0.01, bf16 network, f32 state) on a
+     truncated schedule, with a profiler window;
+  5. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
+
+Details too long for the output go to chiprun_out/chip_smoke.json.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent
+BATCH = 256
+SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's boost clock
+PEAK_BYTES = 3.35e12                      # H100 SXM HBM3, bytes/s
+PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
+            torch.float32: 67e12}         # FP32 outside the tensor cores
+TOL = {  # relative to max|plain|, or (rtol, atol)
+    ("conv", torch.float32): 1e-5, ("conv", torch.bfloat16): 2e-2,
+    ("norm", torch.float32): (2e-4, 2e-5), ("norm", torch.bfloat16): 2e-2,
+}
+SOURCES = {
+    "conv2d_taps": ("score_based_channels_torch/csrc/conv2d_taps.cu",
+                    "score_based_channels_tpu/kernels/conv_probe.py:105"),
+    "instance_norm_plus": (
+        "score_based_channels_torch/csrc/instance_norm_plus.cu",
+        "score_based_channels_tpu/kernels/instance_norm.py:91"),
+}
+
+
+def cuda_ms(fn, reps=20, warmup=3):
+    """Median device time of fn() in ms, by CUDA events around each call.
+
+    A spin kernel holds the device while the host queues the calls, so the
+    calls run back to back and the events time the device, not the host's
+    launch overhead (which the bench phase measures end to end)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    events = []
+    for _ in range(reps):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def card_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def census(model):
+    """{variant: calls per forward} of the convs and norms of one forward."""
+    from score_based_channels_torch.models.layers import (
+        Conv2d, InstanceNorm2dPlus,
+    )
+
+    convs, norms, handles = {}, {}, []
+
+    def conv_hook(mod, args, kwargs):
+        x = args[0]
+        key = (x.shape[2], x.shape[3], x.shape[1], mod.weight.shape[0],
+               mod.weight.shape[-1], mod.dilation, mod.bias is not None,
+               bool(kwargs.get("elu", False)))
+        convs[key] = convs.get(key, 0) + 1
+
+    def norm_hook(mod, args, kwargs):
+        x = args[0]
+        key = (x.shape[2], x.shape[3], x.shape[1], bool(kwargs.get("elu")))
+        norms[key] = norms.get(key, 0) + 1
+
+    for m in model.modules():
+        if isinstance(m, Conv2d):
+            handles.append(m.register_forward_pre_hook(conv_hook,
+                                                       with_kwargs=True))
+        elif isinstance(m, InstanceNorm2dPlus):
+            handles.append(m.register_forward_pre_hook(norm_hook,
+                                                       with_kwargs=True))
+    with torch.no_grad():
+        model(torch.zeros(2, 64, 16, 2, device="cuda"), 1.0)
+    for h in handles:
+        h.remove()
+    return convs, norms
+
+
+def check_convs(convs, g):
+    from score_based_channels_torch.kernels import conv
+
+    rows = []
+    for (H, W, Cin, Cout, k, d, bias, elu), per_fwd in sorted(convs.items()):
+        T = len(conv.live_taps(k, d, H, W))
+        for dt in (torch.float32, torch.bfloat16):
+            bound = 1.0 / np.sqrt(Cin * k * k)
+            x = torch.randn(BATCH, Cin, H, W, generator=g).to(
+                "cuda", dt).contiguous(memory_format=torch.channels_last)
+            w = conv.kernel_layout(((torch.rand(Cout, Cin, k, k, generator=g)
+                                     * 2 - 1) * bound).to("cuda", dt))
+            b = ((torch.rand(Cout, generator=g) * 2 - 1) * bound).to(
+                "cuda", dt) if bias else None
+            got = conv.conv2d(x, w, b, d, elu)
+            torch.cuda.synchronize()
+            want = conv.conv2d_plain(x, w, b, d, elu)
+            err = (got.float() - want.float()).abs().max().item()
+            ref = want.float().abs().max().item()
+            tol = TOL[("conv", dt)]
+            assert err <= tol * ref, (
+                f"conv {(H, W, Cin, Cout, k, d, bias, elu)} {dt}: max err "
+                f"{err:.3e} > {tol} * {ref:.3e}")
+            pad = d * (k // 2)
+            es = x.element_size()
+            # x, the live taps' weights and the bias read once, out written
+            nbytes = (x.numel() + T * Cin * Cout + BATCH * H * W * Cout
+                      + (Cout if bias else 0)) * es
+            flops = 2 * BATCH * H * W * T * Cin * Cout
+            rows.append(dict(
+                kind="conv", shape=[H, W, Cin, Cout, k, d], bias=bias, elu=elu,
+                dtype=str(dt).split(".")[1], per_forward=per_fwd, taps=T,
+                max_abs_err=err, rel_err=err / ref, tol=tol,
+                ms=cuda_ms(lambda: conv.conv2d(x, w, b, d, elu)),
+                plain_ms=cuda_ms(lambda: conv.conv2d_plain(x, w, b, d, elu)),
+                library_ms=cuda_ms(lambda: F.conv2d(x, w, b, padding=pad,
+                                                    dilation=d)),
+                bytes_ms=nbytes / PEAK_BYTES * 1e3,
+                ops_ms=flops / PEAK_OPS[dt] * 1e3))
+            r = rows[-1]
+            print(f"conv {H}x{W} {Cin}->{Cout} k{k} d{d} bias={int(bias)} "
+                  f"elu={int(elu)} {r['dtype']:8s} x{per_fwd:<2d} rel_err "
+                  f"{r['rel_err']:.2e} (tol {tol})  kernel {r['ms']:.4f} ms  "
+                  f"plain {r['plain_ms']:.4f}  cudnn {r['library_ms']:.4f}  "
+                  f"bound {max(r['bytes_ms'], r['ops_ms']):.4f}", flush=True)
+    return rows
+
+
+def check_norms(norms, g):
+    from score_based_channels_torch.kernels import instance_norm as inorm
+
+    rows = []
+    for (H, W, C, elu), per_fwd in sorted(norms.items()):
+        for dt in (torch.float32, torch.bfloat16):
+            x = (torch.randn(BATCH, C, H, W, generator=g) * 2 + 0.5).to(
+                "cuda", dt).contiguous(memory_format=torch.channels_last)
+            a, gm = (1 + 0.02 * torch.randn(2, C, generator=g)).to("cuda", dt)
+            bt = (0.1 * torch.randn(C, generator=g)).to("cuda", dt)
+            got = inorm.instance_norm_plus(x, a, gm, bt, elu)
+            torch.cuda.synchronize()
+            want = inorm.instance_norm_plus_plain(x, a, gm, bt, elu)
+            err = (got.float() - want.float()).abs().max().item()
+            tol = TOL[("norm", dt)]
+            if dt == torch.float32:
+                torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
+            else:
+                ref = want.float().abs().max().item()
+                assert err <= tol * ref, (
+                    f"norm {(H, W, C)} bf16: max err {err:.3e} > {tol} * {ref}")
+            es = x.element_size()
+            nbytes = (2 * x.numel() + 3 * C) * es
+            rows.append(dict(
+                kind="norm", shape=[H, W, C], elu=elu,
+                dtype=str(dt).split(".")[1], per_forward=per_fwd,
+                max_abs_err=err, tol=tol,
+                ms=cuda_ms(lambda: inorm.instance_norm_plus(x, a, gm, bt, elu)),
+                plain_ms=cuda_ms(
+                    lambda: inorm.instance_norm_plus_plain(x, a, gm, bt, elu)),
+                library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3,
+                ops_ms=12 * x.numel() / PEAK_OPS[torch.float32] * 1e3))
+            r = rows[-1]
+            print(f"norm {H}x{W} c{C} elu={int(elu)} {r['dtype']:8s} "
+                  f"x{per_fwd:<2d} max_abs_err {err:.2e} (tol {tol})  kernel "
+                  f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f}  bound "
+                  f"{max(r['bytes_ms'], r['ops_ms']):.4f}", flush=True)
+    return rows
+
+
+def per_forward(rows, dtype):
+    """Sum over one bf16 (or f32) forward's calls of each timing."""
+    sel = [r for r in rows if r["dtype"] == dtype]
+    tot = lambda k: sum(r[k] * r["per_forward"] for r in sel)
+    lib = (None if any(r["library_ms"] is None for r in sel)
+           else tot("library_ms"))
+    bound = sum(max(r["bytes_ms"], r["ops_ms"]) * r["per_forward"]
+                for r in sel)
+    return dict(ms=tot("ms"), plain_ms=tot("plain_ms"), library_ms=lib,
+                bound_ms=bound, bound_by="bytes"
+                if tot("bytes_ms") >= tot("ops_ms") else "operations")
+
+
+def write_channels(data_dir, seed, n, rng):
+    """Channel file in the reference naming: (n, 1 subcarrier, Nr, Nt),
+    spatially correlated so the LMMSE warm start has structure to use."""
+    corr_t = np.exp(-0.3 * np.abs(np.subtract.outer(np.arange(64),
+                                                    np.arange(64))))
+    lt = np.linalg.cholesky(corr_t + 1e-6 * np.eye(64))
+    g = (rng.standard_normal((n, 16, 64))
+         + 1j * rng.standard_normal((n, 16, 64))) / np.sqrt(2)
+    h = (g @ lt.T)[:, None].astype(np.complex64)
+    np.savez(os.path.join(data_dir, f"CDL-C_Nt64_Nr16_ULA0.50_seed{seed}.npz"),
+             output_h=h)
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device; this script runs on the card")
+    from score_based_channels_torch import cplx, kernels, physics
+    from score_based_channels_torch.config import Config, DataConfig, ModelConfig
+    from score_based_channels_torch.diffusion.sampling import (
+        annealed_langevin_posterior_c2,
+    )
+    from score_based_channels_torch.diffusion.sigmas import get_sigmas
+    from score_based_channels_torch.eval.estimate import (
+        run_estimation, score_fn_from_params,
+    )
+    from score_based_channels_torch.kernels import _build
+    from score_based_channels_torch.models import make_score_model
+
+    t_start = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(f"# device: {torch.cuda.get_device_name(0)} "
+          f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
+    print(card, flush=True)
+
+    # -- build --------------------------------------------------------------
+    _build.library()
+    print(f"# build: {_build.build_seconds:.1f} s" if _build.build_seconds
+          is not None else "# build: library already built for these sources")
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print("#   " + line.strip())
+
+    # -- kernels at every main-path shape -------------------------------------
+    g = torch.Generator().manual_seed(0)
+    model = make_score_model(ModelConfig(), device="cuda", generator=g)
+    n_params = sum(p.numel() for p in model.parameters())
+    assert n_params == 5_890_082, n_params
+    convs, norms = census(model)
+    n_conv, n_norm = sum(convs.values()), sum(norms.values())
+    print(f"# census of one forward: {n_conv} convs in "
+          f"{len({k[:6] for k in convs})} shapes, {n_norm} norms in "
+          f"{len(norms)} shapes")
+    assert (n_conv, n_norm) == (113, 25), (n_conv, n_norm)
+    conv_rows = check_convs(convs, g)
+    norm_rows = check_norms(norms, g)
+
+    # -- main path ------------------------------------------------------------
+    x = torch.randn(16, 64, 16, 2, generator=g)
+    sig = torch.rand(16, generator=g) * 2 + 0.05
+    cpu_model = make_score_model(ModelConfig(), device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        want = cpu_model(x, sig)
+        got32 = model(x.cuda(), sig.cuda()).cpu()
+    got16 = score_fn_from_params(model, torch.bfloat16)(x.cuda(), sig.cuda())
+    fwd_err32 = ((got32 - want).abs().max() / want.abs().max()).item()
+    fwd_err16 = (torch.linalg.norm(got16.cpu() - want)
+                 / torch.linalg.norm(want)).item()
+    print(f"# forward, kernels on the card vs plain on the CPU, batch 16: f32 "
+          f"max rel err {fwd_err32:.2e} (tol 2e-4), bf16 rel norm err "
+          f"{fwd_err16:.2e} (tol 5e-2)")
+    assert fwd_err32 < 2e-4 and fwd_err16 < 5e-2
+    assert got16.dtype == torch.float32 and torch.isfinite(got16).all()
+
+    score_bf16 = score_fn_from_params(model, torch.bfloat16)
+    nfe = [0]
+
+    def counted_score(xx, s):
+        nfe[0] += 1
+        return score_bf16(xx, s)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(0)
+        write_channels(tmp, 1234, 1200, rng)  # train: stats, full-rank cov
+        write_channels(tmp, 4321, 32, rng)    # test channels
+        cfg = Config(data=DataConfig(source="file", data_dir=tmp))
+        stride = 64
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        res = run_estimation(counted_score, cfg, snr_range=np.array([0., 20.]),
+                             num_channels=32, level_stride=stride, init="auto",
+                             sigma_start=0.05, chunk_size=64, device="cuda")
+        torch.cuda.synchronize()
+        est_s = time.perf_counter() - t0
+        launches = kernels.counts()
+    n_levels = len(get_sigmas(39.15, cfg.model.sigma_end, 2311)[::stride]) + 1
+    print(f"# run_estimation: {res.nmse_log.shape} trace, {nfe[0]} forwards "
+          f"at batch 64 in {est_s:.1f} s; best NMSE dB "
+          f"{np.round(res.best_nmse_db().ravel(), 2).tolist()}; launches "
+          f"{launches}")
+    assert res.nmse_log.shape == (1, 1, 2, n_levels * 3, 32)
+    assert np.isfinite(res.nmse_log).all()
+    assert nfe[0] == n_levels * 3
+    assert launches["conv2d_taps"] == {"launches": 113 * nfe[0], "plain": 0}
+    assert launches["instance_norm_plus"] == {"launches": 25 * nfe[0],
+                                              "plain": 0}
+
+    # bench.py workload on a truncated schedule
+    levels = 24
+    mcfg = ModelConfig(num_classes=levels)
+    sigmas = get_sigmas(mcfg.sigma_begin, mcfg.sigma_end, levels)
+    gb = torch.Generator().manual_seed(1)
+    X = cplx.randn(gb, (BATCH, 64, 16)).cuda()
+    A = cplx.conj_transpose(cplx.qpsk_pilots(gb, BATCH, 64, 38)).cuda()
+    noise_power = float(physics.snr_to_noise_power(10.0, 64))
+    Y = physics.measure_c2(gb, A.cpu(), X.cpu(), noise_power).cuda()
+    x0 = cplx.randn(gb, (BATCH, 64, 16)).cuda()
+
+    def bench(sig_sched):
+        return annealed_langevin_posterior_c2(
+            score_bf16, A, Y, sig_sched, noise_power, x0,
+            generator=torch.Generator(device="cuda").manual_seed(2),
+            alpha_step=3e-11, beta_noise=0.01, steps_each=3, oracle=X)
+
+    bench(sigmas[:2])  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    _, trace = bench(sigmas)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    bench_counts = kernels.counts()
+    assert torch.isfinite(trace).all()
+    assert bench_counts["conv2d_taps"]["launches"] == 113 * levels * 3
+    est_per_s = BATCH / dt * levels / 2311.0
+    print(f"# bench workload: {dt:.3f} s for {BATCH} estimates x {levels} "
+          f"levels ({BATCH * levels * 3 / dt:.0f} NFE/s, {est_per_s:.4f} "
+          f"full-schedule est/s) on {card}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bench(sigmas[:2])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # CPU-side ops repeat the time of the kernels they launch
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t:
+            by_name[e.key] = by_name.get(e.key, 0.0) + t / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"# profile, 2 levels (6 forwards) at batch 256: wall {wall_ms:.1f} "
+          f"ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall_ms:.1f}%)" if busy else
+          "# profile: no device time reported (not measured)")
+    for name, ms in top:
+        print(f"#   {ms:9.3f} ms  {name[:90]}")
+    # each kernel's device time inside the path, per forward (6 in the window)
+    path_ms = {k: sum(ms for n, ms in by_name.items() if k + "_kernel" in n) / 6
+               for k in SOURCES}
+    print(f"# in-path ms per forward: {path_ms}")
+
+    kernel_json = []
+    for name, rows in (("conv2d_taps", conv_rows),
+                       ("instance_norm_plus", norm_rows)):
+        src, rep = SOURCES[name]
+        pf = per_forward(rows, "bfloat16")
+        kernel_json.append(dict(
+            name=name, route="cuda", source=src, replaces=rep,
+            launches=launches[name]["launches"],
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            ms=pf["ms"], plain_ms=pf["plain_ms"], bound_ms=pf["bound_ms"],
+            bound_by=pf["bound_by"], library_ms=pf["library_ms"]))
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
+        card=card, torch=torch.__version__, cuda=torch.version.cuda,
+        build_seconds=_build.build_seconds, kernels=kernel_json,
+        per_forward_f32={n: per_forward(r, "float32") for n, r in
+                         (("conv2d_taps", conv_rows),
+                          ("instance_norm_plus", norm_rows))},
+        rows=conv_rows + norm_rows, forward_rel_err_f32=fwd_err32,
+        forward_rel_err_bf16=fwd_err16, estimation_seconds=est_s,
+        estimation_forwards=nfe[0], estimation_best_nmse_db=
+        res.best_nmse_db().ravel().tolist(), bench_seconds=dt,
+        bench_levels=levels, bench_est_per_s_full=est_per_s,
+        profile_wall_ms=wall_ms, profile_busy_ms=busy, profile_top=top,
+        profile_ms_per_forward=path_ms,
+        total_seconds=time.perf_counter() - t_start), indent=1))
+    print(f"# total {time.perf_counter() - t_start:.1f} s; details in "
+          f"chiprun_out/chip_smoke.json")
+    print(json.dumps({"kernels": kernel_json}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

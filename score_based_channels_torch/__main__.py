@@ -1,0 +1,26 @@
+"""CLI: `python -m score_based_channels_torch <command> [args]`.
+
+Commands ported so far:
+  estimate   test_score.py — annealed-Langevin SNR sweep (incl. OOD);
+             runs on the card by default, `--device cpu` for the plain
+             PyTorch path
+"""
+
+import sys
+
+
+def main() -> None:
+    if len(sys.argv) < 2:
+        print(__doc__)
+        raise SystemExit(2)
+    cmd, argv = sys.argv[1], sys.argv[2:]
+    if cmd == "estimate":
+        from .eval.estimate import main as m
+    else:
+        print(__doc__)
+        raise SystemExit(f"unknown or not yet ported command: {cmd}")
+    m(argv)
+
+
+if __name__ == "__main__":
+    main()

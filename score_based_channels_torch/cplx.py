@@ -1,0 +1,86 @@
+"""Real-pair complex algebra ("c2"), the counterpart of
+the JAX package's cplx.py.
+
+A c2 tensor is float32 of shape (..., 2) holding (Re, Im); matrices are
+(..., M, N, 2). The Langevin state in this layout is the score network's
+(B, Nt, Nr, 2) input, so the sampler feeds the network without conversion.
+Random draws take an explicit `torch.Generator`; the draws are made on the
+generator's device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+_SQRT_HALF = math.sqrt(0.5)
+
+
+def from_complex(x) -> torch.Tensor:
+    """complex numpy array -> c2 float32 tensor on the CPU."""
+    x = np.asarray(x)
+    return torch.from_numpy(
+        np.stack([x.real, x.imag], axis=-1).astype(np.float32))
+
+
+def to_complex(x: torch.Tensor) -> np.ndarray:
+    """c2 tensor on any device -> host complex64 ndarray."""
+    x = x.detach().float().cpu().numpy()
+    return (x[..., 0] + 1j * x[..., 1]).astype(np.complex64)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., M, K, 2) @ (..., K, N, 2) -> (..., M, N, 2), four real matmuls."""
+    ar, ai = a[..., 0], a[..., 1]
+    br, bi = b[..., 0], b[..., 1]
+    return torch.stack([ar @ br - ai @ bi, ar @ bi + ai @ br], dim=-1)
+
+
+def conj(a: torch.Tensor) -> torch.Tensor:
+    return a * torch.tensor([1.0, -1.0], dtype=a.dtype, device=a.device)
+
+
+def conj_transpose(a: torch.Tensor) -> torch.Tensor:
+    """Hermitian transpose of (..., M, N, 2) -> (..., N, M, 2)."""
+    return conj(a.transpose(-2, -3))
+
+
+def abs2(a: torch.Tensor) -> torch.Tensor:
+    """|z|^2 elementwise: (..., 2) -> (...)."""
+    return a[..., 0] ** 2 + a[..., 1] ** 2
+
+
+def sum_abs2(a: torch.Tensor, dim) -> torch.Tensor:
+    return abs2(a).sum(dim=dim)
+
+
+def scale(a: torch.Tensor, s) -> torch.Tensor:
+    """Multiply by a REAL scalar or array broadcast over the complex axis."""
+    s = torch.as_tensor(s, dtype=a.dtype, device=a.device)
+    return a * s[..., None]
+
+
+def randn(generator: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    """Unit-power circular complex Gaussian in c2 (E|z|^2 = 1): each
+    component has variance 1/2. Drawn on the generator's device."""
+    return torch.randn(tuple(shape) + (2,), generator=generator,
+                       device=generator.device) * _SQRT_HALF
+
+
+def qpsk_pilots(generator: torch.Generator, batch: int, num_tx: int,
+                num_pilots: int) -> torch.Tensor:
+    """Per-sample QPSK pilots in c2, entries (+-1 +-j)/sqrt(2):
+    (batch, num_tx, num_pilots, 2) float32 on the generator's device."""
+    bits = torch.randint(0, 2, (batch, num_tx, num_pilots, 2),
+                         generator=generator, device=generator.device)
+    return (2.0 * bits.float() - 1.0) * _SQRT_HALF
+
+
+def nmse(estimate: torch.Tensor, oracle: torch.Tensor) -> torch.Tensor:
+    """Per-sample NMSE over the trailing (matrix, complex) dims."""
+    err = sum_abs2(estimate - oracle, dim=(-1, -2))
+    ref = sum_abs2(oracle, dim=(-1, -2))
+    return err / ref

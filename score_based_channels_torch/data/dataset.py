@@ -1,0 +1,95 @@
+"""Channel dataset read from files, the counterpart of
+the JAX package's data/dataset.py:45-146 for `source="file"`.
+
+Semantics kept from the reference loader (loaders.py:8-107): only
+subcarrier 0 of each file is used; 'global' norm is mean 0 and the std of
+the whole complex train tensor, 'entrywise' is per-entry mean/std, and an
+explicit [mean, std] passes the TRAIN stats to a val/test set; the network
+sees the normalised Hermitian H^H. The built-in CDL generator
+(`source="cdl"`) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..config import Config, DataConfig
+from .io import load_output_h
+
+NormSpec = Union[None, str, Tuple[np.ndarray, np.ndarray], list]
+
+
+def channel_filename(data_dir: str, profile: str, num_tx: int, num_rx: int,
+                     spacing: float, seed: int, ext: str = "npz") -> str:
+    """Reference artifact naming (loaders.py:23-24)."""
+    return os.path.join(
+        data_dir,
+        f"{profile}_Nt{num_tx}_Nr{num_rx}_ULA{spacing:.2f}_seed{seed}.{ext}")
+
+
+class ChannelDataset:
+    """Channel realizations for one (profile, seed) across spacings."""
+
+    def __init__(self, seed: int, config: Union[Config, DataConfig],
+                 norm: NormSpec = None, num_pilots: Optional[int] = None):
+        data = config.data if isinstance(config, Config) else config
+        if data.source != "file":
+            raise NotImplementedError(
+                f"data source {data.source!r} is not ported yet (ROADMAP: "
+                "CDL data generation); write the channels to files and use "
+                "source='file'")
+        self.config = data
+        self.num_pilots = int(num_pilots if num_pilots is not None
+                              else data.num_pilots)
+        chans = []
+        for spacing in data.spacing_list:
+            cands = [channel_filename(data.data_dir, data.channel, data.num_tx,
+                                      data.num_rx, spacing, seed, ext)
+                     for ext in ("npz", "mat", "h5")]
+            path = next((c for c in cands if os.path.exists(c)), None)
+            if path is None:
+                raise FileNotFoundError(
+                    f"no channel file for {data.channel} spacing {spacing} "
+                    f"seed {seed} under {data.data_dir}")
+            chans.append(np.asarray(load_output_h(path)[:, 0], np.complex64))
+        self.channels = np.reshape(
+            np.asarray(chans), (-1, chans[0].shape[-2], chans[0].shape[-1]))
+
+        if isinstance(norm, (tuple, list)):
+            self.mean, self.std = norm[0], norm[1]
+        elif norm == "entrywise":
+            self.mean = np.mean(self.channels, axis=0)
+            self.std = np.std(self.channels, axis=0)
+        elif norm == "global":
+            self.mean = 0.0
+            self.std = float(np.std(self.channels))
+        elif norm is None:
+            self.mean, self.std = 0.0, 1.0
+        else:
+            raise ValueError(f"unknown norm {norm!r}")
+
+    def __len__(self) -> int:
+        return self.channels.shape[0]
+
+    @property
+    def norm_stats(self):
+        return (self.mean, self.std)
+
+    def normalized(self) -> np.ndarray:
+        """(N, Nr, Nt) complex64, (H - mean)/std."""
+        return ((self.channels - self.mean) / self.std).astype(np.complex64)
+
+    def hermitian(self, normalized: bool = True) -> np.ndarray:
+        """H^H -> (N, Nt, Nr) complex64."""
+        h = self.normalized() if normalized else self.channels
+        return np.conj(np.swapaxes(h, -1, -2))
+
+    def hermitian_c2(self, normalized: bool = True) -> torch.Tensor:
+        """H^H in c2 -> (N, Nt, Nr, 2) float32 CPU tensor."""
+        from .. import cplx
+
+        return cplx.from_complex(self.hermitian(normalized=normalized))

@@ -1,0 +1,44 @@
+"""Noise (sigma) schedules, the counterpart of
+the JAX package's diffusion/sigmas.py (get_sigmas:13,
+sigmas_from_config:33, subsample_schedule:40)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def get_sigmas(sigma_begin: float, sigma_end: float, num: int,
+               dist: str = "geometric") -> torch.Tensor:
+    """sigma-schedule as a float32 CPU tensor.
+
+    'geometric': exp(linspace(log s0, log sN)); 'uniform': linspace(s0, sN)
+    (ncsnv2/models/__init__.py:4-17). Computed in float64 with numpy, then
+    rounded once, as the JAX package does.
+    """
+    if dist == "geometric":
+        s = np.exp(np.linspace(np.log(sigma_begin), np.log(sigma_end), num))
+    elif dist == "uniform":
+        s = np.linspace(sigma_begin, sigma_end, num)
+    else:
+        raise NotImplementedError(f"sigma distribution {dist!r} not supported")
+    return torch.from_numpy(s.astype(np.float32))
+
+
+def sigmas_from_config(model_cfg) -> torch.Tensor:
+    return get_sigmas(model_cfg.sigma_begin, model_cfg.sigma_end,
+                      model_cfg.num_classes, model_cfg.sigma_dist)
+
+
+def subsample_schedule(sigmas: torch.Tensor, stride: int):
+    """Keep every `stride`-th sigma-level (always keeping sigma_end).
+
+    Returns (sub_sigmas, alpha_scale): the Langevin step alpha_step scales
+    by the stride to cover the same ground.
+    """
+    if stride <= 1:
+        return sigmas, 1.0
+    sub = sigmas[::stride]
+    if float(sub[-1]) != float(sigmas[-1]):
+        sub = torch.cat([sub, sigmas[-1:]])
+    return sub, float(stride)

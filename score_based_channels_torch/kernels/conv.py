@@ -1,0 +1,201 @@
+"""k x k dilated conv over the live taps (csrc/conv2d_taps.cu) and its plain
+PyTorch version.
+
+Replaces the JAX package's kernels/conv_probe.py::conv_pertap: a
+stride-1 conv with "same" zero padding, computed as a sum over the LIVE
+taps only (a dilated tap whose offset reaches past the whole image only
+ever multiplies padding; models/layers.py Conv2d prunes it), f32
+accumulation, then optional bias and ELU and one rounding to the
+activation dtype.
+
+Bound on an H100: the larger of bytes and operations, per call. One
+NCSNv2-Deepest forward at batch 256 is ~203 GFLOP of convs, >= 0.21 ms on
+the bf16 tensor cores; its bf16 activations, read once and written once,
+take >= 0.35 ms at 3.35 TB/s, so in bf16 the bytes bound it. On the FP32
+FMA units that this first kernel uses the operations take >= 3 ms
+(design notes in the source).
+
+The kernel reads the weight in place: an (O, I, k, k) tensor laid out in
+memory as (k, k, I, O), one (I, O) matrix per tap (`kernel_layout`), which
+is how models/layers.py Conv2d stores its parameter. It reads the live
+taps' matrices only, so no packed copy of the weight is kept that could go
+stale when the parameter changes.
+
+`conv2d` dispatches on the tensor's device: a CPU tensor goes to
+`conv2d_plain`; a CUDA tensor launches the kernel or raises. Both count
+their calls in COUNTS.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import List, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+COUNTS = {"launches": 0, "plain": 0}
+
+RP, RC, CK = 4, 4, 8       # must match csrc/conv2d_taps.cu
+MAX_THREADS = 256
+MAX_SMEM = 48 * 1024       # static limit, no opt-in attribute needed
+MAX_CHANNELS = 128
+
+
+def live_taps(k: int, dilation: int, H: int, W: int) -> List[Tuple[int, int, int, int]]:
+    """(iy, ix, dy, dx) of the taps that can touch real data, row-major.
+
+    A tap with d*|iy - k//2| >= H or d*|ix - k//2| >= W only multiplies
+    padding zeros and is skipped (conv_probe.py::live_taps).
+    """
+    c = k // 2
+    return [(iy, ix, (iy - c) * dilation, (ix - c) * dilation)
+            for iy in range(k) if abs((iy - c) * dilation) < H
+            for ix in range(k) if abs((ix - c) * dilation) < W]
+
+
+def kernel_layout(weight: torch.Tensor) -> torch.Tensor:
+    """The (O, I, k, k) weight laid out in memory as (k, k, I, O)."""
+    return weight.permute(2, 3, 1, 0).contiguous().permute(3, 2, 0, 1)
+
+
+def has_kernel_layout(weight: torch.Tensor) -> bool:
+    O, I, k, _ = weight.shape
+    return weight.stride() == (1, O, k * I * O, I * O)
+
+
+class Plan(NamedTuple):
+    SB: int        # samples per block
+    TH: int        # output rows per block
+    py: int        # staged halo rows
+    px: int        # staged halo columns
+    threads: int
+    smem: int      # dynamic shared bytes; grid (ceil(H/TH), ceil(B/SB))
+
+
+def plan(B: int, H: int, W: int, Cin: int, Cout: int, dy, dx) -> Plan:
+    """Tile plan of one launch; raises on a shape the kernel does not take."""
+    if not (1 <= Cin <= MAX_CHANNELS and 1 <= Cout <= MAX_CHANNELS):
+        raise ValueError(f"conv2d_taps takes 1..{MAX_CHANNELS} channels, got "
+                         f"Cin={Cin} Cout={Cout}")
+    if not 1 <= len(dy) <= 9:
+        raise ValueError(f"conv2d_taps takes 1..9 live taps, got {len(dy)}")
+    ncg = -(-Cout // RC)
+    py, px = max(abs(v) for v in dy), max(abs(v) for v in dx)
+
+    def items(sb, th):
+        return ncg * -(-(sb * th * W) // RP)
+
+    def smem(sb, th):
+        staged = sb * (th + 2 * py) * (W + 2 * px) * (CK + 1)
+        return 4 * (-(-staged // 4) * 4 + len(dy) * CK * ncg * RC)
+
+    if items(1, H) <= MAX_THREADS:
+        TH = H
+        SB = 1
+        while (SB < B and items(SB + 1, H) <= MAX_THREADS
+               and smem(SB + 1, H) <= MAX_SMEM):
+            SB += 1
+    else:
+        SB, TH = 1, 0
+        while TH < H and items(1, TH + 1) <= MAX_THREADS:
+            TH += 1
+        if TH == 0:
+            raise ValueError(f"conv2d_taps: image width {W} too wide for "
+                             f"Cout={Cout}")
+    while smem(SB, TH) > MAX_SMEM and TH > 1:
+        TH = -(-TH // 2)
+    if smem(SB, TH) > MAX_SMEM:
+        raise ValueError("conv2d_taps: tile does not fit in shared memory")
+    threads = -(-items(SB, TH) // 32) * 32
+    return Plan(SB, TH, py, px, threads, smem(SB, TH))
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_args(B: int, H: int, W: int, Cin: int, Cout: int, k: int,
+                 dilation: int) -> tuple:
+    """Plan and ctypes tap arrays of one launch shape, made once."""
+    taps = live_taps(k, dilation, H, W)
+    dy, dx = [t[2] for t in taps], [t[3] for t in taps]
+    T = len(taps)
+    arr = ctypes.c_int * T
+    return (plan(B, H, W, Cin, Cout, dy, dx), T, arr(*dy), arr(*dx),
+            arr(*[iy * k + ix for iy, ix, _, _ in taps]))
+
+
+def conv2d_plain(x: torch.Tensor, weight: torch.Tensor,
+                 bias: Optional[torch.Tensor], dilation: int = 1,
+                 elu: bool = False) -> torch.Tensor:
+    """F.conv2d on the pruned weight with the pruned padding
+    (the JAX package's models/layers.py:86-105), f32 accumulation,
+    then bias, optional ELU, one rounding to x's dtype."""
+    COUNTS["plain"] += 1
+    H, W = x.shape[-2:]
+    k = weight.shape[-1]
+    c = k // 2
+    keep_h = [i for i in range(k) if dilation * abs(i - c) < H]
+    keep_w = [i for i in range(k) if dilation * abs(i - c) < W]
+    w = weight[:, :, keep_h[0]:keep_h[-1] + 1, keep_w[0]:keep_w[-1] + 1]
+    # pruning is symmetric about the centre tap, so the padding stays so
+    pad = (dilation * (c - keep_h[0]), dilation * (c - keep_w[0]))
+    y = F.conv2d(x.float(), w.float(), None, padding=pad, dilation=dilation)
+    if bias is not None:
+        y = y + bias.float().view(1, -1, 1, 1)
+    if elu:
+        y = F.elu(y)
+    return y.to(x.dtype)
+
+
+def _check_cuda(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> None:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"conv2d_taps takes float32 or bfloat16, got {x.dtype}")
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t is not None and (t.dtype != x.dtype or t.device != x.device):
+            raise TypeError(f"conv2d_taps: {name} is {t.dtype} on {t.device}, "
+                            f"x is {x.dtype} on {x.device}")
+    if x.dim() != 4 or weight.dim() != 4 or x.shape[1] != weight.shape[1]:
+        raise ValueError(f"conv2d_taps: x {tuple(x.shape)} does not match "
+                         f"weight {tuple(weight.shape)}")
+    if weight.shape[-1] != weight.shape[-2] or weight.shape[-1] not in (1, 3):
+        raise ValueError("conv2d_taps takes square k=1 or k=3 weights")
+    if not has_kernel_layout(weight):
+        raise ValueError("conv2d_taps takes the weight in kernel_layout")
+    if bias is not None and (bias.shape != weight.shape[:1]
+                             or not bias.is_contiguous()):
+        raise ValueError("conv2d_taps takes a contiguous (Cout,) bias")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("conv2d_taps takes channels-last contiguous x")
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, dilation: int = 1,
+           elu: bool = False) -> torch.Tensor:
+    """Conv of NCHW x (channels-last on the card) with (O, I, k, k) weight.
+
+    On the card the weight is in `kernel_layout` and weight, bias and x
+    share one dtype.
+    """
+    if x.device.type == "cpu":
+        return conv2d_plain(x, weight, bias, dilation, elu)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"conv2d_taps: no kernel for device {x.device}")
+    _check_cuda(x, weight, bias)
+    B, Cin, H, W = x.shape
+    Cout, k = weight.shape[0], weight.shape[-1]
+    p, T, dy, dx, wi = _launch_args(B, H, W, Cin, Cout, k, dilation)
+    out = torch.empty((B, Cout, H, W), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    from . import _build
+
+    rc = _build.library().sbc_conv2d_taps(
+        x.data_ptr(), weight.data_ptr(),
+        bias.data_ptr() if bias is not None else None,
+        out.data_ptr(), B, H, W, Cin, Cout, T, dy, dx, wi,
+        p.SB, p.TH, p.py, p.px, p.threads, p.smem, int(elu),
+        int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("conv2d_taps", rc)
+    COUNTS["launches"] += 1
+    return out

@@ -1,0 +1,240 @@
+"""RefineNet building blocks in PyTorch, the counterpart of
+the JAX package's models/layers.py:49-496.
+
+Tensors are NCHW in torch.channels_last memory, which is the JAX package's
+NHWC layout; every conv and InstanceNorm++ goes through the kernel
+wrappers of `..kernels`, which launch the Hopper kernels on the card and
+run their plain versions on the CPU. Module and parameter names follow the
+reference state dict (`res1.0.conv1.weight`, RCU's `{i}_{j}_conv`), so a
+converted JAX parameter tree loads with strict=True.
+
+Fusions: every InstanceNorm++ of the path is followed by ELU, so the norm
+takes `elu=True`; in an RCU the first conv of a stage pair takes the ELU
+that follows it as its epilogue.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import conv as conv_kernel
+from ..kernels import instance_norm as norm_kernel
+
+
+class Conv2d(nn.Module):
+    """Stride-1 k x k conv, padding d*(k//2), torch's default init
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias. Dead dilated
+    taps are pruned (layers.py:86-97) by the kernel and its plain version.
+
+    The (O, I, k, k) weight is stored in the kernel's layout, (k, k, I, O)
+    in memory (`conv.kernel_layout`), which load_state_dict, .to() and
+    deepcopy keep, so the kernel reads the parameter itself.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 dilation: int = 1, bias: bool = True):
+        super().__init__()
+        self.dilation = dilation
+        self.weight = nn.Parameter(conv_kernel.kernel_layout(
+            torch.empty(out_ch, in_ch, kernel_size, kernel_size)))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight[0].numel())
+        with torch.no_grad():
+            for p in (self.weight, self.bias):
+                if p is not None:
+                    # drawn in (O, I, k, k) order, whatever the memory layout
+                    draw = torch.empty(p.shape, dtype=p.dtype, device=p.device)
+                    p.copy_(draw.uniform_(-bound, bound, generator=generator))
+
+    def forward(self, x: torch.Tensor, elu: bool = False) -> torch.Tensor:
+        return conv_kernel.conv2d(x, self.weight, self.bias, self.dilation,
+                                  elu)
+
+
+class InstanceNorm2dPlus(nn.Module):
+    """InstanceNorm++ (reference normalization.py:150-176); alpha, gamma ~
+    N(1, 0.02^2), beta = 0. Statistics in f32 whatever the parameter and
+    activation dtype."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.ones(features))
+        self.gamma = nn.Parameter(torch.ones(features))
+        self.beta = nn.Parameter(torch.zeros(features))
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            for p in (self.alpha, self.gamma):
+                p.normal_(1.0, 0.02, generator=generator)
+            self.beta.zero_()
+
+    def forward(self, x: torch.Tensor, elu: bool = False) -> torch.Tensor:
+        return norm_kernel.instance_norm_plus(x, self.alpha, self.gamma,
+                                              self.beta, elu=elu)
+
+
+# -----------------------------------------------------------------------------
+# pooling / resampling
+# -----------------------------------------------------------------------------
+
+
+def max_pool_5x5(x: torch.Tensor) -> torch.Tensor:
+    """MaxPool2d(kernel=5, stride=1, padding=2) (layers.py:240)."""
+    return F.max_pool2d(x, 5, stride=1, padding=2)
+
+
+def mean_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """4-phase 2x mean-downsample (layers.py:254); needs even H, W."""
+    if x.shape[-2] % 2 or x.shape[-1] % 2:
+        raise ValueError("mean_pool_2x2 requires even spatial dims")
+    return F.avg_pool2d(x, 2)
+
+
+def resize_bilinear_align_corners(x: torch.Tensor,
+                                  out_hw: Tuple[int, int]) -> torch.Tensor:
+    """F.interpolate(bilinear, align_corners=True) (layers.py:281)."""
+    if tuple(x.shape[-2:]) == tuple(out_hw):
+        return x
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                         align_corners=True)
+
+
+class ConvMeanPool(nn.Module):
+    """conv (stride 1) -> 2x2 mean downsample (layers.py:303)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3):
+        super().__init__()
+        self.conv = Conv2d(in_ch, out_ch, kernel_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mean_pool_2x2(self.conv(x))
+
+
+# -----------------------------------------------------------------------------
+# RefineNet blocks
+# -----------------------------------------------------------------------------
+
+
+class CRPBlock(nn.Module):
+    """Chained residual pooling (layers.py:352): ELU, then n_stages of
+    maxpool -> conv (no bias), each added to the running sum."""
+
+    def __init__(self, features: int, n_stages: int = 2):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            [Conv2d(features, features, 3, bias=False) for _ in range(n_stages)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.elu(x)
+        path = x
+        for conv in self.convs:
+            path = conv(max_pool_5x5(path))
+            x = path + x
+        return x
+
+
+class RCUBlock(nn.Module):
+    """Residual conv units (layers.py:372), parameters named `{i}_{j}_conv`.
+    Each stage is ELU -> conv (no bias); the ELU opening a stage that
+    follows a conv is that conv's fused epilogue."""
+
+    def __init__(self, features: int, n_blocks: int, n_stages: int):
+        super().__init__()
+        self.n_blocks, self.n_stages = n_blocks, n_stages
+        for i in range(n_blocks):
+            for j in range(n_stages):
+                self.add_module(f"{i + 1}_{j + 1}_conv",
+                                Conv2d(features, features, 3, bias=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_blocks):
+            residual = x
+            x = F.elu(x)
+            for j in range(self.n_stages):
+                conv = getattr(self, f"{i + 1}_{j + 1}_conv")
+                x = conv(x, elu=j + 1 < self.n_stages)
+            x = x + residual
+        return x
+
+
+class MSFBlock(nn.Module):
+    """Multi-scale fusion: conv each input, resize, sum (layers.py:396)."""
+
+    def __init__(self, in_planes: Sequence[int], features: int):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            [Conv2d(c, features, 3, bias=True) for c in in_planes])
+
+    def forward(self, xs: Sequence[torch.Tensor],
+                out_hw: Tuple[int, int]) -> torch.Tensor:
+        total = None
+        for conv, x in zip(self.convs, xs):
+            h = resize_bilinear_align_corners(conv(x), out_hw)
+            total = h if total is None else total + h
+        return total
+
+
+class RefineBlock(nn.Module):
+    """RCU adapters -> MSF -> CRP -> output RCUs (layers.py:411)."""
+
+    def __init__(self, in_planes: Sequence[int], features: int,
+                 end: bool = False):
+        super().__init__()
+        self.adapt_convs = nn.ModuleList(
+            [RCUBlock(c, n_blocks=2, n_stages=2) for c in in_planes])
+        self.msf = MSFBlock(in_planes, features) if len(in_planes) > 1 else None
+        self.crp = CRPBlock(features, n_stages=2)
+        self.output_convs = RCUBlock(features, n_blocks=3 if end else 1,
+                                     n_stages=2)
+
+    def forward(self, xs: Sequence[torch.Tensor],
+                out_hw: Tuple[int, int]) -> torch.Tensor:
+        hs: List[torch.Tensor] = [rcu(x) for rcu, x in zip(self.adapt_convs, xs)]
+        h = self.msf(hs, out_hw) if self.msf is not None else hs[0]
+        return self.output_convs(self.crp(h))
+
+
+class ResidualBlock(nn.Module):
+    """Pre-norm residual block (layers.py:439). resample='down' without
+    dilation halves H and W through ConvMeanPool; with dilation the size is
+    kept and every conv is dilated (the reference's res4/res5)."""
+
+    def __init__(self, input_dim: int, output_dim: int,
+                 resample: Optional[str] = None,
+                 dilation: Optional[int] = None):
+        super().__init__()
+        if resample not in (None, "down"):
+            raise ValueError("invalid resample value")
+        d = dilation or 1
+        mid = input_dim if resample == "down" else output_dim
+        self.normalize1 = InstanceNorm2dPlus(input_dim)
+        self.conv1 = Conv2d(input_dim, mid, 3, dilation=d)
+        self.normalize2 = InstanceNorm2dPlus(mid)
+        if resample == "down" and dilation is None:
+            self.conv2 = ConvMeanPool(mid, output_dim, 3)
+        else:
+            self.conv2 = Conv2d(mid, output_dim, 3, dilation=d)
+
+        if output_dim == input_dim and resample is None:
+            self.shortcut = None
+        elif resample == "down" and dilation is None:
+            self.shortcut = ConvMeanPool(input_dim, output_dim, 1)
+        elif dilation is not None:
+            self.shortcut = Conv2d(input_dim, output_dim, 3, dilation=d)
+        else:
+            self.shortcut = Conv2d(input_dim, output_dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.normalize1(x, elu=True)
+        h = self.conv1(h)
+        h = self.normalize2(h, elu=True)
+        h = self.conv2(h)
+        shortcut = x if self.shortcut is None else self.shortcut(x)
+        return shortcut + h

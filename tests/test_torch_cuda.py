@@ -1,0 +1,124 @@
+"""The port's CUDA kernels and main path on the card, against their plain
+PyTorch versions. Skipped without a card; on the card, run
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(--noconftest: tests/conftest.py sets up JAX, which the card's machine
+need not have; this file imports no JAX).
+"""
+
+import pytest
+import torch
+
+from score_based_channels_torch.config import ModelConfig
+from score_based_channels_torch.diffusion.sampling import (
+    annealed_langevin_posterior_c2,
+)
+from score_based_channels_torch.diffusion.sigmas import get_sigmas
+from score_based_channels_torch.eval.estimate import score_fn_from_params
+from score_based_channels_torch.kernels import conv, counts, instance_norm, reset_counts
+from score_based_channels_torch.models import make_score_model
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("H,W,Cin,Cout,k,d,bias,elu", [
+    (64, 16, 32, 32, 3, 1, True, False), (8, 2, 128, 128, 3, 4, True, False),
+    (16, 4, 64, 64, 3, 1, False, True), (64, 16, 32, 64, 1, 1, True, False),
+    (64, 16, 32, 2, 3, 1, True, False), (8, 2, 64, 128, 3, 2, True, False)])
+def test_conv_kernel_matches_plain(card, H, W, Cin, Cout, k, d, bias, elu,
+                                   dtype, tol):
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(32, Cin, H, W, generator=g).to(card, dtype).contiguous(
+        memory_format=torch.channels_last)
+    w = conv.kernel_layout((torch.randn(Cout, Cin, k, k, generator=g)
+                            / (k * k * Cin) ** 0.5).to(card, dtype))
+    b = torch.randn(Cout, generator=g).to(card, dtype) if bias else None
+    got = conv.conv2d(x, w, b, d, elu)
+    want = conv.conv2d_plain(x, w, b, d, elu)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,C", [(64, 16, 32), (32, 8, 64), (8, 2, 128)])
+def test_norm_kernel_matches_plain(card, H, W, C, dtype):
+    g = torch.Generator().manual_seed(1)
+    x = (torch.randn(32, C, H, W, generator=g) * 2 + 0.5).to(
+        card, dtype).contiguous(memory_format=torch.channels_last)
+    a, gm, bt = (1 + 0.1 * torch.randn(3, C, generator=g)).to(card, dtype)
+    got = instance_norm.instance_norm_plus(x, a, gm, bt, elu=True)
+    want = instance_norm.instance_norm_plus_plain(x, a, gm, bt, elu=True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    else:
+        err = (got.float() - want.float()).abs().max()
+        assert err <= 2e-2 * want.float().abs().max()
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(card):
+    x = torch.randn(2, 8, 8, 2, device=card)  # NCHW contiguous, not NHWC
+    w = conv.kernel_layout(torch.randn(4, 8, 3, 3, device=card))
+    with pytest.raises(ValueError, match="channels-last"):
+        conv.conv2d(x, w)
+    xl = x.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="kernel_layout"):
+        conv.conv2d(xl, w.contiguous())
+    with pytest.raises(TypeError):
+        conv.conv2d(xl.half().contiguous(memory_format=torch.channels_last),
+                    w.half())
+    with pytest.raises(TypeError):
+        conv.conv2d(xl.bfloat16().contiguous(memory_format=torch.channels_last),
+                    w)
+
+
+def test_kernels_see_parameters_changed_in_place(card):
+    """The kernels read the parameters themselves: an update through .data
+    (the optimizer / EMA idiom) shows in the next launch."""
+    model = make_score_model(ModelConfig(ngf=8), device=card)
+    cpu = make_score_model(ModelConfig(ngf=8), device="cpu")
+    x = torch.randn(4, 64, 16, 2)
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        model(x.to(card), 0.7)
+        for (name, p), q in zip(model.named_parameters(), cpu.parameters()):
+            new = q + 0.05 * torch.randn(q.shape, generator=g)
+            q.data.copy_(new)
+            p.data.copy_(new.to(card))
+        got = model(x.to(card), 0.7).cpu()
+        want = cpu(x, 0.7)
+    assert (got - want).abs().max() / want.abs().max() < 2e-4
+
+
+def test_forward_and_sampler_on_the_card(card):
+    model = make_score_model(ModelConfig(ngf=8), device=card)
+    cpu = make_score_model(ModelConfig(ngf=8), device="cpu")
+    x = torch.randn(4, 64, 16, 2)
+    reset_counts()
+    with torch.no_grad():
+        got = model(x.to(card), 0.7).cpu()
+        want = cpu(x, 0.7)
+    assert counts()["conv2d_taps"]["launches"] == 113
+    assert counts()["instance_norm_plus"]["launches"] == 25
+    assert (got - want).abs().max() / want.abs().max() < 2e-4
+    A = torch.randn(4, 38, 64, 2, device=card) * 0.7
+    X = torch.randn(4, 64, 16, 2, device=card) * 0.7
+    Y = torch.zeros(4, 38, 16, 2, device=card)
+    xf, tr = annealed_langevin_posterior_c2(
+        score_fn_from_params(model, torch.bfloat16), A, Y,
+        get_sigmas(39.15, 1.0, 4), 0.64, torch.zeros_like(X),
+        generator=torch.Generator(device=card).manual_seed(0), oracle=X)
+    assert xf.shape == X.shape and tr.shape == (12, 4)
+    assert torch.isfinite(tr).all()

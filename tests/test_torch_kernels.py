@@ -1,0 +1,221 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU the wrappers run their plain versions; the same inputs, made
+with numpy from a seed, go through the Pallas kernel in interpret mode and
+the flax/lax oracles. Bars are the JAX package's own
+(tests/test_kernels.py): InstanceNorm++ rtol 2e-4 / atol 2e-5, conv 1e-5.
+The CUDA kernels themselves are held against these plain versions on the
+card by chip_smoke.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from score_based_channels_tpu.kernels.conv_probe import (
+    conv_oracle, conv_pertap, live_taps as jax_live_taps,
+)
+from score_based_channels_tpu.kernels.instance_norm import (
+    instance_norm_plus_pallas,
+)
+from score_based_channels_tpu.models.layers import InstanceNorm2dPlus
+from score_based_channels_torch.kernels import conv, counts, instance_norm, reset_counts
+
+torch.set_num_threads(1)
+
+
+def _nchw(x_nhwc: np.ndarray) -> torch.Tensor:
+    """NHWC numpy -> NCHW tensor in channels_last memory (no copy)."""
+    return torch.from_numpy(np.ascontiguousarray(x_nhwc)).permute(0, 3, 1, 2)
+
+
+def _nhwc(t: torch.Tensor) -> np.ndarray:
+    return t.permute(0, 2, 3, 1).numpy()
+
+
+def _norm_inputs(shape, seed):
+    rng = np.random.RandomState(seed)
+    c = shape[-1]
+    x = (rng.randn(*shape) * 2.0 + 0.5).astype(np.float32)
+    alpha, gamma = (1 + 0.1 * rng.randn(2, c)).astype(np.float32)
+    beta = (0.1 * rng.randn(c)).astype(np.float32)
+    return x, alpha, gamma, beta
+
+
+@pytest.mark.parametrize("elu", [False, True])
+@pytest.mark.parametrize("shape", [(3, 64, 16, 32), (2, 8, 2, 128)])
+def test_instance_norm_matches_pallas(shape, elu):
+    x, alpha, gamma, beta = _norm_inputs(shape, 0)
+    want = instance_norm_plus_pallas(
+        jnp.asarray(x), jnp.asarray(alpha), jnp.asarray(gamma),
+        jnp.asarray(beta), fuse_elu=elu, interpret=True)
+    got = instance_norm.instance_norm_plus(
+        _nchw(x), *map(torch.from_numpy, (alpha, gamma, beta)), elu=elu)
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want),
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(3, 64, 16, 32), (2, 8, 2, 128)])
+def test_instance_norm_matches_flax_module(shape):
+    x = _norm_inputs(shape, 1)[0]
+    module = InstanceNorm2dPlus(shape[-1])
+    params = module.init(jax.random.key(0), jnp.asarray(x))["params"]
+    params = {k: v * 1.1 + 0.05 for k, v in params.items()}  # beta != 0
+    want = module.apply({"params": params}, jnp.asarray(x))
+    got = instance_norm.instance_norm_plus(
+        _nchw(x), *(torch.tensor(np.asarray(params[k]))
+                    for k in ("alpha", "gamma", "beta")))
+    np.testing.assert_allclose(_nhwc(got), np.asarray(want),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_instance_norm_bf16_keeps_dtype_and_f32_statistics():
+    x, alpha, gamma, beta = _norm_inputs((2, 16, 4, 64), 2)
+    xb = _nchw(x).to(torch.bfloat16)
+    p = [torch.from_numpy(v) for v in (alpha, gamma, beta)]
+    got = instance_norm.instance_norm_plus(xb, *p, elu=True)
+    want = instance_norm.instance_norm_plus(xb.float(), *p, elu=True)
+    assert got.dtype == torch.bfloat16
+    assert (got.float() - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+CONV_CASES = [
+    # (H, W, Cin, Cout, k, d, bias, elu): tests/test_kernels.py:72-77 plus a
+    # 1x1 case and a no-bias + ELU case
+    (8, 2, 16, 16, 3, 1, True, False),
+    (8, 2, 16, 16, 3, 4, True, False),
+    (16, 4, 8, 16, 3, 2, True, False),
+    (4, 4, 8, 8, 3, 1, True, False),
+    (8, 2, 16, 32, 1, 1, True, False),
+    (16, 4, 8, 8, 3, 1, False, True),
+]
+
+
+def _conv_inputs(H, W, Cin, Cout, k, seed, B=8):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(B, H, W, Cin).astype(np.float32)
+    w_hwio = (rng.randn(k, k, Cin, Cout) / (3 * Cin)).astype(np.float32)
+    b = np.linspace(-1, 1, Cout, dtype=np.float32)
+    return x, w_hwio, b
+
+
+def _to_sbc(x):
+    B, H, W, C = x.shape
+    return jnp.asarray(x.transpose(1, 2, 0, 3).reshape(H * W, B, C))
+
+
+def _from_sbc(y, B, H, W):
+    return np.asarray(y).reshape(H, W, B, -1).transpose(2, 0, 1, 3)
+
+
+@pytest.mark.parametrize("H,W,Cin,Cout,k,d,bias,elu", CONV_CASES)
+def test_conv_matches_pallas_and_oracle(H, W, Cin, Cout, k, d, bias, elu):
+    x, w_hwio, b = _conv_inputs(H, W, Cin, Cout, k, H * W * Cin + d)
+    bj = jnp.asarray(b) if bias else None
+    want_p = _from_sbc(conv_pertap(_to_sbc(x), jnp.asarray(w_hwio), bj, H, W,
+                                   d, act=elu, interpret=True), 8, H, W)
+    want_o = _from_sbc(conv_oracle(_to_sbc(x), jnp.asarray(w_hwio), bj, H, W,
+                                   d, act=elu), 8, H, W)
+    weight = torch.from_numpy(w_hwio.transpose(3, 2, 0, 1).copy())
+    got = _nhwc(conv.conv2d(_nchw(x), weight,
+                            torch.from_numpy(b) if bias else None, d, elu))
+    np.testing.assert_allclose(got, want_p, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want_o, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,d,H,W", [(3, 1, 8, 2), (3, 4, 8, 2), (3, 2, 8, 2),
+                                     (3, 2, 16, 4), (1, 1, 8, 2), (3, 4, 4, 4)])
+def test_live_taps_match_pallas(k, d, H, W):
+    assert [t[:4] for t in jax_live_taps(k, d, H, W)] == [
+        (iy, ix, dy, dx) for iy, ix, dy, dx in conv.live_taps(k, d, H, W)]
+
+
+def _taps_sum(x, weight, bias, d):
+    """What the kernel computes from the weight's memory: the sum over the
+    live taps of the zero-padded input shifted by (dy, dx) times the
+    (Cin, Cout) matrix at offset wi * Cin * Cout, wi = iy * k + ix."""
+    B, C, H, W = x.shape
+    Cout, _, k, _ = weight.shape
+    mem = weight.as_strided((weight.numel(),), (1,))
+    taps = conv.live_taps(k, d, H, W)
+    py, px = max(abs(t[2]) for t in taps), max(abs(t[3]) for t in taps)
+    xp = F.pad(x, (px, px, py, py))
+    acc = torch.zeros(B, H, W, Cout)
+    for iy, ix, dy, dx in taps:
+        wi = iy * k + ix
+        w_t = mem[wi * C * Cout:(wi + 1) * C * Cout].view(C, Cout)
+        win = xp[:, :, py + dy:py + dy + H, px + dx:px + dx + W]
+        acc += torch.einsum("bchw,co->bhwo", win, w_t)
+    if bias is not None:
+        acc = acc + bias
+    return acc.permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("H,W,Cin,Cout,k,d,bias,elu", CONV_CASES + [
+    (64, 16, 4, 2, 3, 1, True, False)])  # Cout=2 pads to 4 (end_conv)
+def test_tap_sum_over_kernel_layout_equals_plain_conv(H, W, Cin, Cout, k, d,
+                                                      bias, elu):
+    x, w_hwio, b = _conv_inputs(H, W, Cin, Cout, k, 7, B=2)
+    weight = conv.kernel_layout(
+        torch.from_numpy(w_hwio.transpose(3, 2, 0, 1).copy()))
+    assert conv.has_kernel_layout(weight)
+    assert not conv.has_kernel_layout(weight.contiguous()) or k == 1 == Cout
+    bt = torch.from_numpy(b) if bias else None
+    got = _taps_sum(_nchw(x), weight, bt, d)
+    want = conv.conv2d_plain(_nchw(x), weight, bt, d, elu=False)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("H,W,k,d,wi", [(8, 2, 3, 4, [1, 4, 7]),
+                                        (8, 2, 3, 1, list(range(9))),
+                                        (16, 4, 1, 1, [0])])
+def test_launch_args_are_made_once_per_shape(H, W, k, d, wi):
+    args = conv._launch_args(256, H, W, 64, 64, k, d)
+    assert conv._launch_args(256, H, W, 64, 64, k, d) is args
+    plan, T, dy, dx, wis = args
+    assert T == len(wi) and list(wis) == wi
+    taps = conv.live_taps(k, d, H, W)
+    assert list(dy) == [t[2] for t in taps] and list(dx) == [t[3] for t in taps]
+    assert plan == conv.plan(256, H, W, 64, 64, list(dy), list(dx))
+
+
+# the 19 conv shapes of one NCSNv2-Deepest forward (H, W, Cin, Cout, k, d)
+MAIN_PATH_CONVS = [
+    (8, 2, 64, 64, 3, 1), (64, 16, 32, 32, 3, 1), (16, 4, 64, 64, 3, 1),
+    (8, 2, 128, 128, 3, 1), (32, 8, 32, 32, 3, 1), (32, 8, 64, 64, 3, 1),
+    (8, 2, 128, 128, 3, 4), (8, 2, 64, 128, 3, 2), (8, 2, 128, 128, 3, 2),
+    (8, 2, 128, 64, 3, 1), (64, 16, 2, 32, 3, 1), (64, 16, 32, 64, 3, 1),
+    (64, 16, 32, 64, 1, 1), (32, 8, 64, 64, 1, 1), (16, 4, 64, 64, 1, 1),
+    (8, 2, 64, 64, 3, 2), (32, 8, 64, 32, 3, 1), (16, 4, 64, 32, 3, 1),
+    (64, 16, 32, 2, 3, 1)]
+
+
+@pytest.mark.parametrize("H,W,Cin,Cout,k,d", MAIN_PATH_CONVS)
+def test_conv_plan_fits_the_card(H, W, Cin, Cout, k, d):
+    taps = conv.live_taps(k, d, H, W)
+    p = conv.plan(256, H, W, Cin, Cout, [t[2] for t in taps],
+                  [t[3] for t in taps])
+    assert p.threads % 32 == 0 and 32 <= p.threads <= conv.MAX_THREADS
+    assert p.smem <= conv.MAX_SMEM
+    assert 1 <= p.TH <= H and 1 <= p.SB <= 256
+    assert p.SB == 1 or p.TH == H
+    ncg = -(-Cout // conv.RC)
+    assert ncg * -(-(p.SB * p.TH * W) // conv.RP) <= p.threads
+
+
+def test_wrappers_count_and_refuse_other_devices():
+    reset_counts()
+    x = torch.randn(2, 8, 8, 2).contiguous(memory_format=torch.channels_last)
+    conv.conv2d(x, torch.randn(4, 8, 3, 3))
+    ones = torch.ones(8)
+    instance_norm.instance_norm_plus(x, ones, ones, ones, elu=True)
+    c = counts()
+    assert c["conv2d_taps"] == {"launches": 0, "plain": 1}
+    assert c["instance_norm_plus"] == {"launches": 0, "plain": 1}
+    with pytest.raises(RuntimeError, match="no kernel"):
+        conv.conv2d(x.to("meta"), torch.randn(4, 8, 3, 3, device="meta"))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        instance_norm.instance_norm_plus(x.to("meta"), *[ones.to("meta")] * 3)
