@@ -12,13 +12,21 @@ Phases (any failure propagates and the exit code is non-zero):
      256 in float32 and bfloat16, held against its plain PyTorch version on
      the card, and timed (CUDA events, median) beside its plain version,
      its bound and, for the conv, the one-call cuDNN yardstick F.conv2d;
-  4. main path: the full-width 5,890,082-parameter network from a seed;
-     its kernel forward against the plain forward; `run_estimation` (the
-     `estimate` entry point) on a small file dataset written here, with
-     the launch counts of that run; the bench.py workload (batch 256, 38
+     the LDPC min-sum iteration against its plain version, bit for bit
+     over 25 iterations at 1, 5, 100 and 256 packets of the 802.11n
+     (648, 324) code, timed at 100 and 256;
+  4. estimate path: the full-width 5,890,082-parameter network from a
+     seed; its kernel forward against the plain forward; `run_estimation`
+     (the `estimate` entry point) on a small file dataset written here,
+     with the launch counts of that run, saving its channel estimates;
+     the `link` command on that file; the bench.py workload (batch 256, 38
      pilots, 10 dB, alpha 3e-11, beta 0.01, bf16 network, f32 state) on a
      truncated schedule, with a profiler window;
-  5. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
+  5. link path: `run_link_simulation` at the reference's full width (256
+     packets, Nr 16, Nt 64, 4 QPSK streams, exact-ML LLRs, 25 BP
+     iterations, 9 SNRs, ideal and estimated CSI at -10 dB NMSE) with its
+     launch counts and BER/BLER, and a profiler window of one SNR point;
+  6. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
 
 Details too long for the output go to chiprun_out/chip_smoke.json.
 """
@@ -52,7 +60,12 @@ SOURCES = {
     "instance_norm_plus": (
         "score_based_channels_torch/csrc/instance_norm_plus.cu",
         "score_based_channels_tpu/kernels/instance_norm.py:91"),
+    "ldpc_minsum": ("score_based_channels_torch/csrc/ldpc_minsum.cu",
+                    "score_based_channels_tpu/kernels/ldpc_minsum.py:79"),
 }
+LINK_PACKETS = 256
+LINK_SNRS = np.arange(-10, 12.5, 2.5)  # the reference's grid
+BP_ITERS = 25
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -204,6 +217,170 @@ def check_norms(norms, g):
     return rows
 
 
+def check_ldpc(g):
+    """Kernel against plain version, bit for bit (torch.equal: -0.0 equals
+    +0.0), after each of 25 iterations and on post and bits, from zero
+    messages with LLRs of noisy codewords and from random masked
+    messages; timed at 100 and 256 packets."""
+    from score_based_channels_torch.comms.ldpc import make_wifi_ldpc
+    from score_based_channels_torch.kernels import ldpc_minsum as lm
+
+    code = make_wifi_ldpc()
+    mask = torch.as_tensor(code.H, dtype=torch.float32, device="cuda")
+    t = lm.edge_tables(mask)
+    E = t.num_edges
+    rng = np.random.default_rng(0)
+    rows = []
+    for B in (1, 5, 100, LINK_PACKETS):
+        cw = code.encode(rng.integers(0, 2, (B, code.k), np.uint8))
+        llr = torch.from_numpy((1 - 2 * cw.astype(np.float32)) * 2.0 + 1.5
+                               * rng.standard_normal(cw.shape).astype(
+                                   np.float32)).cuda()
+        starts = {"zeros": torch.zeros(B, code.m, code.n, device="cuda"),
+                  "random": torch.randn(B, code.m, code.n, generator=g)
+                  .cuda() * 3.0 * mask}
+        for start, c0 in starts.items():
+            ck, cp = c0, c0
+            for it in range(BP_ITERS):
+                ck = lm.bp_iteration(ck, llr, mask, 0.75, t)
+                cp = lm.bp_iteration_plain(cp, llr, mask, 0.75, t)
+                assert torch.equal(ck, cp), (
+                    f"ldpc B={B} {start}: kernel != plain after iteration "
+                    f"{it + 1}: max diff {(ck - cp).abs().max().item():.3e}")
+            post_k = llr + lm.column_sums(ck, t)
+            post_p = llr + lm.column_sums(cp, t)
+            assert torch.equal(post_k, post_p)
+            assert torch.equal(post_k < 0, post_p < 0)
+            if start == "zeros":
+                ber = float(((post_k < 0).cpu().numpy() != cw).mean())
+        row = dict(B=B, max_abs_err=0.0, ber=ber)
+        if B >= 100:
+            c = starts["random"]
+            nbytes = 4 * (B * code.m * code.n + B * E + B * code.n) \
+                + t.nbytes()
+            row.update(
+                ms=cuda_ms(lambda: lm.bp_iteration(c, llr, mask, 0.75, t)),
+                plain_ms=cuda_ms(lambda: lm.bp_iteration_plain(
+                    c, llr, mask, 0.75, t)),
+                library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3,
+                # per edge: 2 adds, sub, abs, 2 compares, mul, select
+                ops_ms=10 * B * E / PEAK_OPS[torch.float32] * 1e3)
+        rows.append(row)
+        print(f"ldpc_minsum B={B:3d}: kernel == plain bit for bit over "
+              f"{BP_ITERS} iterations from zero and random messages"
+              + f" (decoded BER {ber:.2e})"
+              + (f"  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f}"
+                 f"  bound {max(row['bytes_ms'], row['ops_ms']):.4f} ms per "
+                 "iteration" if "ms" in row else ""), flush=True)
+    return rows
+
+
+def device_ms_by_name(prof):
+    """{kernel name: device ms} of a profiler window."""
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # CPU-side ops repeat the time of the kernels they launch
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t:
+            by_name[e.key] = by_name.get(e.key, 0.0) + t / 1e3
+    return by_name
+
+
+def link_phase():
+    """`run_link_simulation` at the reference's full width on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from score_based_channels_torch import cplx, kernels
+    from score_based_channels_torch.comms import link
+    from score_based_channels_torch.comms.ldpc import make_wifi_ldpc
+    from score_based_channels_torch.comms.mimo import mimo_ml_llr
+
+    rng = np.random.default_rng(3)
+    shape = (LINK_PACKETS, 16, 64)
+    cn = lambda: (rng.standard_normal(shape) + 1j * rng.standard_normal(
+        shape)) / np.sqrt(2)
+    H = cn().astype(np.complex64)  # i.i.d. Rayleigh, unit power
+    H_est = (H + np.sqrt(0.1) * cn()).astype(np.complex64)  # -10 dB NMSE
+    Ht, He = cplx.from_complex(H).cuda(), cplx.from_complex(H_est).cuda()
+    code = make_wifi_ldpc()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    link.simulate_packets(gen, Ht, He, 0.0, code)  # warm-up
+    torch.cuda.synchronize()
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    res = link.run_link_simulation(H, H_est, snr_range=LINK_SNRS,
+                                   num_bp_iters=BP_ITERS, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = kernels.counts()
+    print(f"# link: {LINK_PACKETS} packets x {len(LINK_SNRS)} SNRs, ML, "
+          f"{BP_ITERS} BP iterations, ideal and estimated CSI: {dt:.3f} s, "
+          f"{LINK_PACKETS * len(LINK_SNRS) / dt:.1f} packets/s (each "
+          f"detected and decoded twice); launches {n}")
+    for i, snr in enumerate(res.snr_range):
+        print(f"#   SNR {snr:6.1f} dB  BER ideal {res.ber_ideal[i]:.5f} est "
+              f"{res.ber_est[i]:.5f}  BLER ideal {res.bler_ideal[i]:.4f} est "
+              f"{res.bler_est[i]:.4f}")
+    assert n["ldpc_minsum"] == {"launches": BP_ITERS * 2 * len(LINK_SNRS),
+                                "plain": 0}, n
+    assert all(v["launches"] == v["plain"] == 0 for k, v in n.items()
+               if k != "ldpc_minsum"), n
+    i10 = int(np.argmin(np.abs(res.snr_range - 10.0)))
+    assert res.ber_ideal[i10] <= 0.05, res.ber_ideal  # tests/test_comms.py:158
+    assert res.ber_est[i10] >= res.ber_ideal[i10], (res.ber_est, res.ber_ideal)
+    assert np.isfinite(res.ber_est).all() and np.isfinite(res.bler_est).all()
+
+    # profiler window: one SNR point (2 detections, 2 decodes of 25 iterations)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        link.simulate_packets(gen, Ht, He, 10.0, code)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_ms_by_name(prof)
+    busy = sum(by_name.values())
+    ldpc_ms = sum(ms for k, ms in by_name.items() if "ldpc_minsum_kernel" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"# link profile, one SNR point at {LINK_PACKETS} packets: wall "
+          f"{wall_ms:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / wall_ms:.1f}%), LDPC kernel {ldpc_ms:.2f} ms "
+          f"({100 * ldpc_ms / wall_ms:.1f}% of wall; "
+          f"{ldpc_ms / (2 * BP_ITERS):.4f} ms per iteration in the path)"
+          if busy else "# link profile: no device time reported (not "
+          "measured)")
+    for name, ms in top:
+        print(f"#   {ms:9.3f} ms  {name[:90]}")
+
+    # the ML detector of the same point, alone (2 calls per SNR point)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    V = cplx.randn(g, (LINK_PACKETS, 64, 4)) / 8.0
+    Heff = cplx.matmul(Ht, V)
+    Y = cplx.matmul(cplx.randn(g, (LINK_PACKETS, 81, 4)),
+                    cplx.transpose(Heff))
+    ml_ms = cuda_ms(lambda: mimo_ml_llr(Y, Heff, 0.05), reps=5)
+    # the host's numpy encoder of one SNR point (the JAX package's, copied)
+    bits = np.random.default_rng(4).integers(0, 2, (LINK_PACKETS, code.k),
+                                             dtype=np.uint8)
+    t0 = time.perf_counter()
+    code.encode(bits)
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    print(f"# ML LLR alone: {ml_ms:.3f} ms per call ({LINK_PACKETS} packets "
+          f"x 81 slots x 256 hypotheses), 2 per SNR point: "
+          f"{100 * 2 * ml_ms / wall_ms:.1f}% of the window's wall; host "
+          f"encoder {enc_ms:.1f} ms per SNR point")
+    return dict(seconds=dt, packets_per_s=LINK_PACKETS * len(LINK_SNRS) / dt,
+                counts=n, ber_ideal=res.ber_ideal.tolist(),
+                ber_est=res.ber_est.tolist(), bler_ideal=res.bler_ideal.tolist(),
+                bler_est=res.bler_est.tolist(), profile_wall_ms=wall_ms,
+                profile_busy_ms=busy, profile_ldpc_ms=ldpc_ms,
+                profile_top=top, ml_llr_ms=ml_ms, host_encode_ms=enc_ms,
+                ms_per_iteration_in_path=ldpc_ms / (2 * BP_ITERS))
+
+
 def per_forward(rows, dtype):
     """Sum over one bf16 (or f32) forward's calls of each timing."""
     sel = [r for r in rows if r["dtype"] == dtype]
@@ -239,6 +416,7 @@ def main():
         annealed_langevin_posterior_c2,
     )
     from score_based_channels_torch.diffusion.sigmas import get_sigmas
+    from score_based_channels_torch.comms.link import main as link_main
     from score_based_channels_torch.eval.estimate import (
         run_estimation, score_fn_from_params,
     )
@@ -274,6 +452,7 @@ def main():
     assert (n_conv, n_norm) == (113, 25), (n_conv, n_norm)
     conv_rows = check_convs(convs, g)
     norm_rows = check_norms(norms, g)
+    ldpc_rows = check_ldpc(g)
 
     # -- main path ------------------------------------------------------------
     x = torch.randn(16, 64, 16, 2, generator=g)
@@ -308,12 +487,21 @@ def main():
         stride = 64
         kernels.reset_counts()
         t0 = time.perf_counter()
+        chan = os.path.join(tmp, "channels.npz")
         res = run_estimation(counted_score, cfg, snr_range=np.array([0., 20.]),
                              num_channels=32, level_stride=stride, init="auto",
-                             sigma_start=0.05, chunk_size=64, device="cuda")
+                             sigma_start=0.05, chunk_size=64, device="cuda",
+                             save_channels_to=chan)
         torch.cuda.synchronize()
         est_s = time.perf_counter() - t0
         launches = kernels.counts()
+        # the `link` command on the saved estimates, on the card by default
+        link_out = os.path.join(tmp, "link.npz")
+        link_main(["--channels", chan, "--output", link_out])
+        with np.load(link_out) as f:
+            assert f["ber_est"].shape == (2,)
+            assert np.isfinite(f["ber_est"]).all()
+            assert np.isfinite(f["ber_ideal"]).all()
     n_levels = len(get_sigmas(39.15, cfg.model.sigma_end, 2311)[::stride]) + 1
     print(f"# run_estimation: {res.nmse_log.shape} trace, {nfe[0]} forwards "
           f"at batch 64 in {est_s:.1f} s; best NMSE dB "
@@ -365,15 +553,7 @@ def main():
         bench(sigmas[:2])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # CPU-side ops repeat the time of the kernels they launch
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0)
-        if t:
-            by_name[e.key] = by_name.get(e.key, 0.0) + t / 1e3
+    by_name = device_ms_by_name(prof)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"# profile, 2 levels (6 forwards) at batch 256: wall {wall_ms:.1f} "
@@ -384,8 +564,11 @@ def main():
         print(f"#   {ms:9.3f} ms  {name[:90]}")
     # each kernel's device time inside the path, per forward (6 in the window)
     path_ms = {k: sum(ms for n, ms in by_name.items() if k + "_kernel" in n) / 6
-               for k in SOURCES}
+               for k in ("conv2d_taps", "instance_norm_plus")}
     print(f"# in-path ms per forward: {path_ms}")
+
+    # -- link path ------------------------------------------------------------
+    link_res = link_phase()
 
     kernel_json = []
     for name, rows in (("conv2d_taps", conv_rows),
@@ -398,6 +581,16 @@ def main():
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=pf["ms"], plain_ms=pf["plain_ms"], bound_ms=pf["bound_ms"],
             bound_by=pf["bound_by"], library_ms=pf["library_ms"]))
+    big = ldpc_rows[-1]  # the link path's 256 packets
+    kernel_json.append(dict(
+        name="ldpc_minsum", route="cuda", source=SOURCES["ldpc_minsum"][0],
+        replaces=SOURCES["ldpc_minsum"][1],
+        launches=link_res["counts"]["ldpc_minsum"]["launches"],
+        max_abs_err=max(r["max_abs_err"] for r in ldpc_rows), ms=big["ms"],
+        plain_ms=big["plain_ms"],
+        bound_ms=max(big["bytes_ms"], big["ops_ms"]),
+        bound_by="bytes" if big["bytes_ms"] >= big["ops_ms"] else "operations",
+        library_ms=None))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -407,7 +600,8 @@ def main():
         per_forward_f32={n: per_forward(r, "float32") for n, r in
                          (("conv2d_taps", conv_rows),
                           ("instance_norm_plus", norm_rows))},
-        rows=conv_rows + norm_rows, forward_rel_err_f32=fwd_err32,
+        rows=conv_rows + norm_rows, ldpc_rows=ldpc_rows, link=link_res,
+        forward_rel_err_f32=fwd_err32,
         forward_rel_err_bf16=fwd_err16, estimation_seconds=est_s,
         estimation_forwards=nfe[0], estimation_best_nmse_db=
         res.best_nmse_db().ravel().tolist(), bench_seconds=dt,

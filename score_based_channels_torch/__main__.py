@@ -4,6 +4,9 @@ Commands ported so far:
   estimate   test_score.py — annealed-Langevin SNR sweep (incl. OOD);
              runs on the card by default, `--device cpu` for the plain
              PyTorch path
+  link       test_end_to_end.m + testPackets.m: LDPC-coded BER/BLER with
+             estimated vs ideal CSI from `estimate --save_channels`; runs
+             on the card by default, `--device cpu` for the plain path
 """
 
 import sys
@@ -16,6 +19,8 @@ def main() -> None:
     cmd, argv = sys.argv[1], sys.argv[2:]
     if cmd == "estimate":
         from .eval.estimate import main as m
+    elif cmd == "link":
+        from .comms.link import main as m
     else:
         print(__doc__)
         raise SystemExit(f"unknown or not yet ported command: {cmd}")

@@ -48,6 +48,18 @@ def conj_transpose(a: torch.Tensor) -> torch.Tensor:
     return conj(a.transpose(-2, -3))
 
 
+def transpose(a: torch.Tensor) -> torch.Tensor:
+    """Plain (non-conjugate) transpose of (..., M, N, 2) -> (..., N, M, 2)."""
+    return a.transpose(-2, -3)
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise complex multiply of c2 tensors (broadcasting)."""
+    ar, ai = a[..., 0], a[..., 1]
+    br, bi = b[..., 0], b[..., 1]
+    return torch.stack([ar * br - ai * bi, ar * bi + ai * br], dim=-1)
+
+
 def abs2(a: torch.Tensor) -> torch.Tensor:
     """|z|^2 elementwise: (..., 2) -> (...)."""
     return a[..., 0] ** 2 + a[..., 1] ** 2

@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels of the port, each beside its plain version."""
 
-from . import conv, instance_norm
+from . import conv, instance_norm, ldpc_minsum
 
-KERNEL_MODULES = {"conv2d_taps": conv, "instance_norm_plus": instance_norm}
+KERNEL_MODULES = {"conv2d_taps": conv, "instance_norm_plus": instance_norm,
+                  "ldpc_minsum": ldpc_minsum}
 
 
 def reset_counts() -> None:

@@ -10,13 +10,18 @@ need not have; this file imports no JAX).
 import pytest
 import torch
 
+import numpy as np
+
+from score_based_channels_torch.comms.ldpc import make_wifi_ldpc, minsum_decode
 from score_based_channels_torch.config import ModelConfig
 from score_based_channels_torch.diffusion.sampling import (
     annealed_langevin_posterior_c2,
 )
 from score_based_channels_torch.diffusion.sigmas import get_sigmas
 from score_based_channels_torch.eval.estimate import score_fn_from_params
-from score_based_channels_torch.kernels import conv, counts, instance_norm, reset_counts
+from score_based_channels_torch.kernels import (
+    conv, counts, instance_norm, ldpc_minsum, reset_counts,
+)
 from score_based_channels_torch.models import make_score_model
 
 pytestmark = pytest.mark.cuda
@@ -122,3 +127,61 @@ def test_forward_and_sampler_on_the_card(card):
         generator=torch.Generator(device=card).manual_seed(0), oracle=X)
     assert xf.shape == X.shape and tr.shape == (12, 4)
     assert torch.isfinite(tr).all()
+
+
+def _ldpc_inputs(B, card, seed=0):
+    code = make_wifi_ldpc()
+    rng = np.random.default_rng(seed)
+    cw = code.encode(rng.integers(0, 2, (B, code.k), np.uint8))
+    llr = torch.from_numpy((1 - 2 * cw.astype(np.float32)) * 2.0 + 1.5
+                           * rng.standard_normal(cw.shape).astype(np.float32))
+    return code, llr.to(card), torch.as_tensor(code.H, dtype=torch.float32,
+                                               device=card)
+
+
+@pytest.mark.parametrize("start", ["zeros", "random"])
+@pytest.mark.parametrize("B", [1, 5, 100])
+def test_ldpc_kernel_matches_plain_bitexact(card, B, start):
+    """Both add each column in ascending row order: equal after every
+    iteration (torch.equal, under which -0.0 equals +0.0)."""
+    code, llr, mask = _ldpc_inputs(B, card)
+    t = ldpc_minsum.edge_tables(mask)
+    g = torch.Generator().manual_seed(B)
+    ck = cp = (torch.zeros(B, code.m, code.n, device=card) if start == "zeros"
+               else torch.randn(B, code.m, code.n, generator=g).to(card)
+               * 3.0 * mask)
+    reset_counts()
+    for _ in range(25):
+        ck = ldpc_minsum.bp_iteration(ck, llr, mask, 0.75, t)
+        cp = ldpc_minsum.bp_iteration_plain(cp, llr, mask, 0.75, t)
+        torch.cuda.synchronize()
+        assert torch.equal(ck, cp)
+    assert counts()["ldpc_minsum"] == {"launches": 25, "plain": 25}
+    assert torch.equal(ldpc_minsum.column_sums(ck, t),
+                       ldpc_minsum.column_sums(cp, t))
+    assert (ck[:, mask == 0] == 0).all()
+
+
+def test_minsum_decode_on_the_card_matches_the_cpu(card):
+    code, llr, _ = _ldpc_inputs(64, card, seed=1)
+    reset_counts()
+    bits, post = minsum_decode(llr, code.H, num_iters=25)
+    assert counts()["ldpc_minsum"] == {"launches": 25, "plain": 0}
+    cbits, cpost = minsum_decode(llr.cpu(), code.H, num_iters=25)
+    assert torch.equal(bits.cpu(), cbits)
+    torch.testing.assert_close(post.cpu(), cpost, rtol=0, atol=1e-5)
+
+
+def test_ldpc_wrapper_refuses_what_the_kernel_does_not_take(card):
+    code, llr, mask = _ldpc_inputs(2, card)
+    c2v = torch.zeros(2, code.m, code.n, device=card)
+    with pytest.raises(TypeError):
+        ldpc_minsum.bp_iteration(c2v.double(), llr.double(), mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        ldpc_minsum.bp_iteration(c2v.transpose(1, 2).contiguous()
+                                 .transpose(1, 2), llr, mask)
+    with pytest.raises(ValueError, match="one device"):
+        ldpc_minsum.bp_iteration(c2v, llr, mask,
+                                 tables=ldpc_minsum.edge_tables(code.H))
+    with pytest.raises(ValueError):
+        ldpc_minsum.bp_iteration(c2v[:, :10], llr, mask)
