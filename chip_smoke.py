@@ -26,14 +26,20 @@ Phases (any failure propagates and the exit code is non-zero):
      packets, Nr 16, Nt 64, 4 QPSK streams, exact-ML LLRs, 25 BP
      iterations, 9 SNRs, ideal and estimated CSI at -10 dB NMSE) with its
      launch counts and BER/BLER, and a profiler window of one SNR point;
-  6. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
+  6. conv probe: `conv_im2col` against its plain version at the 5 probe
+     cases (with and without bias and ELU) and at every conv shape of the
+     forward (timed beside `conv2d_taps`), `conv_chain` at 8x2 c128 for
+     n = 4, 8 and a dilated chain, all at batch 256 in float32 and
+     bfloat16; the harness `kernels.conv_probe.main` at full width with its
+     launch counts; `fused_forward` at batch 256 in bfloat16 against the
+     module forward, with its launch counts;
+  7. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
 
 Details too long for the output go to chiprun_out/chip_smoke.json.
 """
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -46,13 +52,14 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 BATCH = 256
-SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's boost clock
 PEAK_BYTES = 3.35e12                      # H100 SXM HBM3, bytes/s
 PEAK_OPS = {torch.bfloat16: 989e12,       # dense tensor-core bf16
             torch.float32: 67e12}         # FP32 outside the tensor cores
 TOL = {  # relative to max|plain|, or (rtol, atol)
     ("conv", torch.float32): 1e-5, ("conv", torch.bfloat16): 2e-2,
     ("norm", torch.float32): (2e-4, 2e-5), ("norm", torch.bfloat16): 2e-2,
+    # tests/test_kernels.py:111
+    ("chain", torch.float32): (1e-4, 1e-5), ("chain", torch.bfloat16): 2e-2,
 }
 SOURCES = {
     "conv2d_taps": ("score_based_channels_torch/csrc/conv2d_taps.cu",
@@ -62,31 +69,23 @@ SOURCES = {
         "score_based_channels_tpu/kernels/instance_norm.py:91"),
     "ldpc_minsum": ("score_based_channels_torch/csrc/ldpc_minsum.cu",
                     "score_based_channels_tpu/kernels/ldpc_minsum.py:79"),
+    "conv_im2col": ("score_based_channels_torch/csrc/conv_im2col.cu",
+                    "score_based_channels_tpu/kernels/conv_probe.py:135"),
+    "conv_chain": ("score_based_channels_torch/csrc/conv_chain.cu",
+                   "score_based_channels_tpu/kernels/conv_probe.py:178"),
 }
 LINK_PACKETS = 256
 LINK_SNRS = np.arange(-10, 12.5, 2.5)  # the reference's grid
 BP_ITERS = 25
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median device time of fn() in ms, by CUDA events around each call.
+def cuda_ms(fn, reps=20):
+    """Median device time of fn() in ms: CUDA events around each call while
+    a spin kernel holds the device, so the events time the device, not the
+    host's launch overhead (which the bench phase measures end to end)."""
+    from score_based_channels_torch.kernels.conv_probe import device_ms
 
-    A spin kernel holds the device while the host queues the calls, so the
-    calls run back to back and the events time the device, not the host's
-    launch overhead (which the bench phase measures end to end)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(SPIN_CYCLES)
-    events = []
-    for _ in range(reps):
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    return device_ms(fn, torch.device("cuda"), reps)
 
 
 def card_line():
@@ -381,6 +380,225 @@ def link_phase():
                 ms_per_iteration_in_path=ldpc_ms / (2 * BP_ITERS))
 
 
+def rel_check(got, want, tol, what):
+    """max|got - want| <= tol * max|want|; returns the max abs error."""
+    err = (got.float() - want.float()).abs().max().item()
+    ref = want.float().abs().max().item()
+    assert err <= tol * ref, f"{what}: max err {err:.3e} > {tol} * {ref:.3e}"
+    return err
+
+
+def check_im2col_probe(g):
+    """conv_im2col against its plain version at the probe's 5 cases, each
+    with and without bias and ELU (f32 bias, as the JAX harness passes
+    it), batch 256, float32 and bfloat16."""
+    from score_based_channels_torch.kernels import conv_im2col as ci
+    from score_based_channels_torch.kernels.conv_probe import CASES
+
+    rows = []
+    for name, H, W, Cin, Cout, d in CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(H * W, BATCH, Cin, generator=g).to("cuda", dt)
+            w = (torch.randn(3, 3, Cin, Cout, generator=g)
+                 / (9 * Cin) ** 0.5).to("cuda", dt)
+            b = (0.1 * torch.randn(Cout, generator=g)).cuda()
+            errs = []
+            for bias, act in ((False, False), (True, False), (False, True),
+                              (True, True)):
+                bb = b if bias else None
+                got = ci.conv_im2col(x, w, bb, H, W, d, act)
+                torch.cuda.synchronize()
+                want = ci.conv_im2col_plain(x, w, bb, H, W, d, act)
+                errs.append(rel_check(got, want, TOL[("conv", dt)],
+                                      f"im2col {name} {dt} {bias} {act}"))
+            rows.append(dict(case=name, dtype=str(dt).split(".")[1],
+                             max_abs_err=max(errs), tol=TOL[("conv", dt)]))
+            print(f"conv_im2col probe {name} {rows[-1]['dtype']:8s} "
+                  f"(S, B, C) layout, 4 bias/ELU variants: max abs err "
+                  f"{max(errs):.2e} (tol {TOL[('conv', dt)]} of max|plain|)",
+                  flush=True)
+    return rows
+
+
+def check_im2col_main(convs, conv_rows, g):
+    """conv2d_im2col against its plain version at every conv shape of one
+    forward (channels-last), timed beside conv2d_taps; the plain and cuDNN
+    times are conv2d_taps's rows of the same function and shape."""
+    from score_based_channels_torch.kernels import conv, conv_im2col as ci
+
+    taps_rows = {(tuple(r["shape"]), r["bias"], r["elu"], r["dtype"]): r
+                 for r in conv_rows}
+    rows = []
+    for (H, W, Cin, Cout, k, d, bias, elu), per_fwd in sorted(convs.items()):
+        for dt in (torch.float32, torch.bfloat16):
+            bound = 1.0 / np.sqrt(Cin * k * k)
+            x = torch.randn(BATCH, Cin, H, W, generator=g).to(
+                "cuda", dt).contiguous(memory_format=torch.channels_last)
+            w = conv.kernel_layout(((torch.rand(Cout, Cin, k, k, generator=g)
+                                     * 2 - 1) * bound).to("cuda", dt))
+            b = ((torch.rand(Cout, generator=g) * 2 - 1) * bound).to(
+                "cuda", dt) if bias else None
+            got = ci.conv2d_im2col(x, w, b, d, elu)
+            torch.cuda.synchronize()
+            want = ci.conv2d_im2col_plain(x, w, b, d, elu)
+            shape = (H, W, Cin, Cout, k, d)
+            err = rel_check(got, want, TOL[("conv", dt)], f"im2col {shape}")
+            t = taps_rows[(shape, bias, elu, str(dt).split(".")[1])]
+            rows.append(dict(
+                kind="im2col", shape=list(shape), bias=bias, elu=elu,
+                dtype=t["dtype"], per_forward=per_fwd, max_abs_err=err,
+                rel_err=err / want.float().abs().max().item(),
+                ms=cuda_ms(lambda: ci.conv2d_im2col(x, w, b, d, elu)),
+                taps_ms=t["ms"], plain_ms=t["plain_ms"],
+                library_ms=t["library_ms"], bytes_ms=t["bytes_ms"],
+                ops_ms=t["ops_ms"]))
+            r = rows[-1]
+            print(f"im2col {H}x{W} {Cin}->{Cout} k{k} d{d} bias={int(bias)} "
+                  f"elu={int(elu)} {r['dtype']:8s} x{per_fwd:<2d} rel_err "
+                  f"{r['rel_err']:.2e}  kernel {r['ms']:.4f} ms  conv2d_taps "
+                  f"{r['taps_ms']:.4f}  cudnn {r['library_ms']:.4f}  bound "
+                  f"{max(r['bytes_ms'], r['ops_ms']):.4f}", flush=True)
+    return rows
+
+
+CHAINS = [(4, 1), (8, 1), (4, 2)]  # (n, dilation) at 8x2, 128 channels
+
+
+def check_chains(g):
+    """conv_chain against its plain version at 8x2 c128, batch 256, n = 4
+    and 8 (d 1) and a dilated chain (d 2: 3 live taps), float32 and
+    bfloat16; timed beside the plain version and the library chain
+    n x (F.conv2d + bias + F.elu)."""
+    from score_based_channels_torch.kernels import conv, conv_chain as cc
+
+    H, W, C = 8, 2, 128
+    S = H * W
+    rows = []
+    for n, d in CHAINS:
+        T = len(conv.live_taps(3, d, H, W))
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(S, BATCH, C, generator=g).to("cuda", dt)
+            ws = (torch.randn(n, 3, 3, C, C, generator=g)
+                  / (9 * C) ** 0.5).to("cuda", dt)
+            bs = (0.1 * torch.randn(n, C, generator=g)).cuda()
+            got = cc.conv_chain(x, ws, bs, H, W, d)
+            torch.cuda.synchronize()
+            want = cc.conv_chain_plain(x, ws, bs, H, W, d)
+            tol = TOL[("chain", dt)]
+            err = (got.float() - want.float()).abs().max().item()
+            if dt == torch.float32:
+                torch.testing.assert_close(got, want, rtol=tol[0], atol=tol[1])
+            else:
+                rel_check(got, want, tol, f"chain n={n} d={d} bf16")
+            x_cl = cc.sbc_as_nchw(x, H, W).contiguous(
+                memory_format=torch.channels_last)
+            w_lib = [ws[i].permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last) for i in range(n)]
+            bs_x = bs.to(dt)
+
+            def library_chain():
+                y = x_cl
+                for i in range(n):
+                    y = F.elu(F.conv2d(y, w_lib[i], bs_x[i], padding=d,
+                                       dilation=d))
+                return y
+
+            es = x.element_size()
+            rows.append(dict(
+                n=n, d=d, taps=T, dtype=str(dt).split(".")[1],
+                max_abs_err=err, tol=tol,
+                ms=cuda_ms(lambda: cc.conv_chain(x, ws, bs, H, W, d)),
+                plain_ms=cuda_ms(lambda: cc.conv_chain_plain(x, ws, bs, H, W,
+                                                             d)),
+                library_chain_ms=cuda_ms(library_chain),
+                bytes_ms=((2 * x.numel() + n * T * C * C) * es + 4 * bs.numel())
+                / PEAK_BYTES * 1e3,
+                ops_ms=2 * S * BATCH * T * C * C * n / PEAK_OPS[dt] * 1e3))
+            r = rows[-1]
+            print(f"conv_chain 8x2 c128 n={n} d={d} ({T} taps) {r['dtype']:8s}"
+                  f" max abs err {err:.2e} (tol {tol})  kernel {r['ms']:.4f} "
+                  f"ms  plain {r['plain_ms']:.4f}  library chain "
+                  f"{r['library_chain_ms']:.4f}  bound "
+                  f"{max(r['bytes_ms'], r['ops_ms']):.4f}", flush=True)
+    # the plan's samples per block (B // BLOCKS), against its neighbours,
+    # on the n = 8 bf16 chain: every block streams all the weights
+    x = torch.randn(S, BATCH, C, generator=g).to("cuda", torch.bfloat16)
+    ws = (torch.randn(8, 3, 3, C, C, generator=g) / (9 * C) ** 0.5).to(
+        "cuda", torch.bfloat16)
+    bs = torch.zeros(8, C, device="cuda")
+    sweep = {}
+    for blocks in (256, 128, 64, 32):
+        cc.BLOCKS = blocks
+        cc._launch_args.cache_clear()
+        sb = cc.plan(BATCH, H, W, C, torch.bfloat16).SB
+        sweep[sb] = cuda_ms(lambda: cc.conv_chain(x, ws, bs, H, W, 1))
+    cc.BLOCKS = 128
+    cc._launch_args.cache_clear()
+    print("# conv_chain n=8 bf16 ms by samples per block: "
+          + ", ".join(f"{sb}: {ms:.4f}" for sb, ms in sweep.items()))
+    next(r for r in rows if (r["n"], r["d"], r["dtype"]) == (8, 1, "bfloat16")
+         )["samples_per_block_ms"] = sweep
+    return rows
+
+
+def fused_forward_phase(model, g):
+    """fused_forward on the card at batch 256 in bf16 against the module
+    forward (the same kernels), with its launch counts and time."""
+    import copy
+
+    from score_based_channels_torch import kernels
+    from score_based_channels_torch.kernels.fused_forward import fused_forward
+
+    m16 = copy.deepcopy(model).to(torch.bfloat16)
+    sd = m16.state_dict()
+    x = torch.randn(BATCH, 64, 16, 2, generator=g).to("cuda", torch.bfloat16)
+    sig = (torch.rand(BATCH, generator=g) * 2 + 0.05).cuda()
+    with torch.no_grad():
+        kernels.reset_counts()
+        got = fused_forward(sd, x, sig)
+        torch.cuda.synchronize()
+        n = kernels.counts()
+        want = m16(x, sig)
+        ms = cuda_ms(lambda: fused_forward(sd, x, sig), reps=5)
+        module_ms = cuda_ms(lambda: m16(x, sig), reps=5)
+    assert n["conv2d_taps"] == {"launches": 113, "plain": 0}, n
+    assert n["instance_norm_plus"] == {"launches": 25, "plain": 0}, n
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    equal = torch.equal(got, want)
+    print(f"# fused_forward, batch {BATCH} bf16: launches {n}; equal to the "
+          f"module forward: {equal}; {ms:.3f} ms per forward (module "
+          f"{module_ms:.3f} ms)", flush=True)
+    assert equal, (got - want).abs().max().item()
+    return dict(counts=n, equal=equal, ms=ms, module_ms=module_ms)
+
+
+def conv_probe_phase(convs, conv_rows, model, g):
+    """Phase 6: the two conv-probe kernels, the harness and fused_forward."""
+    from score_based_channels_torch import kernels
+    from score_based_channels_torch.kernels import conv_probe
+
+    probe_rows = check_im2col_probe(g)
+    im2col_rows = check_im2col_main(convs, conv_rows, g)
+    for dt in ("bfloat16", "float32"):
+        pi, pt = per_forward(im2col_rows, dt), per_forward(conv_rows, dt)
+        print(f"# per {dt} forward at batch {BATCH}: conv_im2col "
+              f"{pi['ms']:.3f} ms, conv2d_taps {pt['ms']:.3f} ms, cuDNN "
+              f"{pt['library_ms']:.3f} ms, bound {pt['bound_ms']:.3f} ms")
+    chain_rows = check_chains(g)
+    kernels.reset_counts()
+    harness_rows = conv_probe.main(["--batch", str(BATCH), "--dtype",
+                                    "bfloat16"])
+    torch.cuda.synchronize()
+    n = kernels.counts()
+    print(f"# conv probe harness launches: {n}")
+    for name in ("conv_im2col", "conv_chain"):
+        assert n[name]["launches"] > 0 and n[name]["plain"] == 0, n
+    fused = fused_forward_phase(model, g)
+    return dict(probe_rows=probe_rows, im2col_rows=im2col_rows,
+                chain_rows=chain_rows, harness_rows=harness_rows,
+                harness_counts=n, fused_forward=fused)
+
+
 def per_forward(rows, dtype):
     """Sum over one bf16 (or f32) forward's calls of each timing."""
     sel = [r for r in rows if r["dtype"] == dtype]
@@ -570,6 +788,9 @@ def main():
     # -- link path ------------------------------------------------------------
     link_res = link_phase()
 
+    # -- conv probe -----------------------------------------------------------
+    probe = conv_probe_phase(convs, conv_rows, model, g)
+
     kernel_json = []
     for name, rows in (("conv2d_taps", conv_rows),
                        ("instance_norm_plus", norm_rows)):
@@ -591,6 +812,29 @@ def main():
         bound_ms=max(big["bytes_ms"], big["ops_ms"]),
         bound_by="bytes" if big["bytes_ms"] >= big["ops_ms"] else "operations",
         library_ms=None))
+    # conv_im2col: per bf16 forward at the main path's shapes, as conv2d_taps
+    pf = per_forward(probe["im2col_rows"], "bfloat16")
+    kernel_json.append(dict(
+        name="conv_im2col", route="cuda", source=SOURCES["conv_im2col"][0],
+        replaces=SOURCES["conv_im2col"][1],
+        launches=probe["harness_counts"]["conv_im2col"]["launches"],
+        max_abs_err=max(r["max_abs_err"] for r in
+                        probe["im2col_rows"] + probe["probe_rows"]),
+        ms=pf["ms"], plain_ms=pf["plain_ms"], bound_ms=pf["bound_ms"],
+        bound_by=pf["bound_by"], library_ms=pf["library_ms"]))
+    # conv_chain: the probe's n = 8, d 1 chain in bf16; no single library
+    # call computes a chain (the n-call one is library_chain_ms)
+    ch = next(r for r in probe["chain_rows"]
+              if (r["n"], r["d"], r["dtype"]) == (8, 1, "bfloat16"))
+    kernel_json.append(dict(
+        name="conv_chain", route="cuda", source=SOURCES["conv_chain"][0],
+        replaces=SOURCES["conv_chain"][1],
+        launches=probe["harness_counts"]["conv_chain"]["launches"],
+        max_abs_err=max(r["max_abs_err"] for r in probe["chain_rows"]),
+        ms=ch["ms"], plain_ms=ch["plain_ms"],
+        bound_ms=max(ch["bytes_ms"], ch["ops_ms"]),
+        bound_by="bytes" if ch["bytes_ms"] >= ch["ops_ms"] else "operations",
+        library_ms=None, library_chain_ms=ch["library_chain_ms"]))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -599,8 +843,10 @@ def main():
         build_seconds=_build.build_seconds, kernels=kernel_json,
         per_forward_f32={n: per_forward(r, "float32") for n, r in
                          (("conv2d_taps", conv_rows),
-                          ("instance_norm_plus", norm_rows))},
+                          ("instance_norm_plus", norm_rows),
+                          ("conv_im2col", probe["im2col_rows"]))},
         rows=conv_rows + norm_rows, ldpc_rows=ldpc_rows, link=link_res,
+        conv_probe=probe,
         forward_rel_err_f32=fwd_err32,
         forward_rel_err_bf16=fwd_err16, estimation_seconds=est_s,
         estimation_forwards=nfe[0], estimation_best_nmse_db=

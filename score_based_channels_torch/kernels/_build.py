@@ -31,10 +31,17 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "sbc_conv2d_taps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _IP, _IP,
                         _IP, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sbc_conv_im2col": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L,
+                        _L, _L, _I, _IP, _IP, _IP, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P],
+    "sbc_conv_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L,
+                       _L, _L, _L, _I, _IP, _IP, _IP, _I, _I, _I, _I, _I, _I,
+                       _I, _P],
     "sbc_instance_norm_plus": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sbc_ldpc_minsum": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }

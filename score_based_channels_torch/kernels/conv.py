@@ -127,10 +127,18 @@ def _launch_args(B: int, H: int, W: int, Cin: int, Cout: int, k: int,
 def conv2d_plain(x: torch.Tensor, weight: torch.Tensor,
                  bias: Optional[torch.Tensor], dilation: int = 1,
                  elu: bool = False) -> torch.Tensor:
+    """The plain version of `conv2d`: `pruned_conv`, counted."""
+    COUNTS["plain"] += 1
+    return pruned_conv(x, weight, bias, dilation, elu)
+
+
+def pruned_conv(x: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor], dilation: int = 1,
+                elu: bool = False) -> torch.Tensor:
     """F.conv2d on the pruned weight with the pruned padding
     (the JAX package's models/layers.py:86-105), f32 accumulation,
-    then bias, optional ELU, one rounding to x's dtype."""
-    COUNTS["plain"] += 1
+    then bias (f32 or x's dtype), optional ELU, one rounding to x's dtype.
+    The plain version of every conv kernel of the port; counts nothing."""
     H, W = x.shape[-2:]
     k = weight.shape[-1]
     c = k // 2

@@ -20,8 +20,10 @@ from score_based_channels_torch.diffusion.sampling import (
 from score_based_channels_torch.diffusion.sigmas import get_sigmas
 from score_based_channels_torch.eval.estimate import score_fn_from_params
 from score_based_channels_torch.kernels import (
-    conv, counts, instance_norm, ldpc_minsum, reset_counts,
+    conv, conv_chain, conv_im2col, counts, instance_norm, ldpc_minsum,
+    reset_counts,
 )
+from score_based_channels_torch.kernels.fused_forward import fused_forward
 from score_based_channels_torch.models import make_score_model
 
 pytestmark = pytest.mark.cuda
@@ -185,3 +187,100 @@ def test_ldpc_wrapper_refuses_what_the_kernel_does_not_take(card):
                                  tables=ldpc_minsum.edge_tables(code.H))
     with pytest.raises(ValueError):
         ldpc_minsum.bp_iteration(c2v[:, :10], llr, mask)
+
+
+def _close_to_plain(got, want, dtype):
+    """f32 within 1e-5 of max|plain|, bf16 within 2e-2 (chip_smoke TOL)."""
+    err = (got.float() - want.float()).abs().max()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert err <= tol * want.float().abs().max(), float(err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,Cin,Cout,k,d,bias,act", [
+    (64, 16, 32, 32, 3, 1, True, False), (8, 2, 128, 128, 3, 4, True, True),
+    (16, 4, 8, 16, 3, 2, False, True), (64, 16, 32, 64, 1, 1, True, False),
+    (64, 16, 32, 2, 3, 1, True, False), (64, 16, 2, 32, 3, 1, True, True),
+    (8, 2, 64, 128, 3, 2, False, False), (5, 3, 16, 24, 3, 1, True, True)])
+def test_im2col_kernel_matches_plain(card, H, W, Cin, Cout, k, d, bias, act,
+                                     dtype):
+    """The (S, B, C) entry point, with an f32 bias as the harness passes
+    it, and the channels-last entry point with a bias in x's dtype."""
+    g = torch.Generator().manual_seed(2)
+    B = 16
+    x = torch.randn(H * W, B, Cin, generator=g).to(card, dtype)
+    w = (torch.randn(k, k, Cin, Cout, generator=g)
+         / (k * k * Cin) ** 0.5).to(card, dtype)
+    b = torch.randn(Cout, generator=g).to(card) if bias else None
+    reset_counts()
+    got = conv_im2col.conv_im2col(x, w, b, H, W, d, act)
+    want = conv_im2col.conv_im2col_plain(x, w, b, H, W, d, act)
+    assert got.shape == (H * W, B, Cout) and got.dtype == dtype
+    _close_to_plain(got, want, dtype)
+    xc = torch.randn(B, Cin, H, W, generator=g).to(card, dtype).contiguous(
+        memory_format=torch.channels_last)
+    weight = w.permute(3, 2, 0, 1)
+    bx = b.to(dtype) if bias else None
+    got = conv_im2col.conv2d_im2col(xc, weight, bx, d, act)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    _close_to_plain(got, conv.conv2d(xc, weight, bx, d, act), dtype)
+    assert counts()["conv_im2col"] == {"launches": 2, "plain": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,C,B,n,d", [(8, 2, 128, 256, 4, 1),
+                                         (8, 2, 128, 40, 2, 2),
+                                         (8, 2, 16, 8, 3, 1),
+                                         (8, 2, 64, 300, 2, 1),
+                                         (4, 4, 24, 5, 2, 1)])
+def test_chain_kernel_matches_plain(card, H, W, C, B, n, d, dtype):
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(H * W, B, C, generator=g).to(card, dtype)
+    ws = (torch.randn(n, 3, 3, C, C, generator=g) / (9 * C) ** 0.5).to(
+        card, dtype)
+    bs = (0.1 * torch.randn(n, C, generator=g)).to(card)
+    reset_counts()
+    got = conv_chain.conv_chain(x, ws, bs, H, W, d)
+    want = conv_chain.conv_chain_plain(x, ws, bs, H, W, d)
+    assert counts()["conv_chain"] == {"launches": 1, "plain": 1}
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        err = (got.float() - want.float()).abs().max()
+        assert err <= 2e-2 * want.float().abs().max(), float(err)
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(card):
+    x = torch.randn(16, 2, 8, device=card)
+    with pytest.raises(ValueError, match="kernel_layout"):
+        conv_im2col.conv2d_im2col(
+            x.view(8, 2, 2, 8).permute(2, 3, 0, 1),
+            torch.randn(4, 8, 3, 3, device=card))
+    with pytest.raises(TypeError):
+        conv_im2col.conv_im2col(x.double(), torch.randn(
+            3, 3, 8, 4, device=card, dtype=torch.float64), None, 8, 2)
+    with pytest.raises(ValueError, match="channels"):
+        conv_chain.conv_chain(torch.randn(16, 2, 160, device=card),
+                              torch.randn(1, 3, 3, 160, 160, device=card),
+                              torch.zeros(1, 160, device=card), 8, 2)
+    with pytest.raises(ValueError):
+        conv_chain.conv_chain(x, torch.randn(2, 3, 3, 8, 4, device=card),
+                              torch.zeros(2, 8, device=card), 8, 2)
+
+
+def test_fused_forward_on_the_card_matches_the_module(card):
+    model = make_score_model(ModelConfig(ngf=8), device=card)
+    x = torch.randn(4, 64, 16, 2, device=card)
+    sig = torch.tensor([0.5, 1.0, 2.0, 4.0], device=card)
+    with torch.no_grad():
+        want = model(x, sig)
+        reset_counts()
+        got = fused_forward(model.state_dict(), x, sig)
+        n = counts()
+        # the converter's plain (O, I, k, k) weights are laid out first
+        flat = {k: v.contiguous() for k, v in model.state_dict().items()}
+        again = fused_forward(flat, x, sig)
+    assert n["conv2d_taps"] == {"launches": 113, "plain": 0}
+    assert n["instance_norm_plus"] == {"launches": 25, "plain": 0}
+    assert torch.equal(got, want) and torch.equal(again, want)
