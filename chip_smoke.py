@@ -21,7 +21,7 @@ Phases (any failure propagates and the exit code is non-zero):
      with the launch counts of that run, saving its channel estimates;
      the `link` command on that file; the bench.py workload (batch 256, 38
      pilots, 10 dB, alpha 3e-11, beta 0.01, bf16 network, f32 state) on a
-     truncated schedule, with a profiler window;
+     truncated schedule, timed in BENCH_RUNS runs, with a profiler window;
   5. link path: `run_link_simulation` at the reference's full width (256
      packets, Nr 16, Nt 64, 4 QPSK streams, exact-ML LLRs, 25 BP
      iterations, 9 SNRs, ideal and estimated CSI at -10 dB NMSE) with its
@@ -74,6 +74,8 @@ SOURCES = {
     "conv_chain": ("score_based_channels_torch/csrc/conv_chain.cu",
                    "score_based_channels_tpu/kernels/conv_probe.py:178"),
 }
+ROUTE = {torch.bfloat16: "wgmma", torch.float32: "fma"}  # the convs' routes
+BENCH_RUNS = 5  # timed runs of the bench workload (one level schedule each)
 LINK_PACKETS = 256
 LINK_SNRS = np.arange(-10, 12.5, 2.5)  # the reference's grid
 BP_ITERS = 25
@@ -92,6 +94,37 @@ def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def build_summary(log):
+    """One line per kernel of nvcc's -Xptxas=-v output: registers, stack,
+    spills and shared bytes, named by the kernel's function."""
+    import re
+
+    out, name, spills = [], None, ""
+    for line in log.splitlines():
+        if line.startswith("=="):
+            out.append(line.strip())
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            # the readable part of the mangled name, e.g. ..._cu_<hash>
+            # 24conv2d_taps_wgmma_kernelILi64ELi4E... -> ..._kernel<64, 4>
+            raw = m.group(1)
+            if "_cu_" in raw:
+                raw = re.sub(r"^[0-9a-f]{8}\d+", "", raw.split("_cu_")[-1])
+            raw = re.sub(r"^_Z\d+", "", raw)
+            k = re.match(r"(\w+?_kernel)(I(?:Li\d+E)+|I\w+?E)?", raw)
+            args = k and k.group(2) or ""
+            name = raw[:60] if k is None else k.group(1) + (
+                "<" + ", ".join(re.findall(r"Li(\d+)E", args)) + ">"
+                if "Li" in args else "<bf16>" if "bfloat" in args else
+                "<f32>" if args else "")
+        elif "stack frame" in line and name:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spills}")
+            name = None
+    return out
 
 
 def census(model):
@@ -170,7 +203,7 @@ def check_convs(convs, g):
             r = rows[-1]
             print(f"conv {H}x{W} {Cin}->{Cout} k{k} d{d} bias={int(bias)} "
                   f"elu={int(elu)} {r['dtype']:8s} x{per_fwd:<2d} rel_err "
-                  f"{r['rel_err']:.2e} (tol {tol})  kernel {r['ms']:.4f} ms  "
+                  f"{r['rel_err']:.2e} (tol {tol})  {ROUTE[dt]} {r['ms']:.4f} ms  "
                   f"plain {r['plain_ms']:.4f}  cudnn {r['library_ms']:.4f}  "
                   f"bound {max(r['bytes_ms'], r['ops_ms']):.4f}", flush=True)
     return rows
@@ -455,7 +488,7 @@ def check_im2col_main(convs, conv_rows, g):
             r = rows[-1]
             print(f"im2col {H}x{W} {Cin}->{Cout} k{k} d{d} bias={int(bias)} "
                   f"elu={int(elu)} {r['dtype']:8s} x{per_fwd:<2d} rel_err "
-                  f"{r['rel_err']:.2e}  kernel {r['ms']:.4f} ms  conv2d_taps "
+                  f"{r['rel_err']:.2e}  {ROUTE[dt]} {r['ms']:.4f} ms  conv2d_taps "
                   f"{r['taps_ms']:.4f}  cudnn {r['library_ms']:.4f}  bound "
                   f"{max(r['bytes_ms'], r['ops_ms']):.4f}", flush=True)
     return rows
@@ -653,9 +686,8 @@ def main():
     _build.library()
     print(f"# build: {_build.build_seconds:.1f} s" if _build.build_seconds
           is not None else "# build: library already built for these sources")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("#   " + line.strip())
+    for line in build_summary(_build.build_log):
+        print("#   " + line)
 
     # -- kernels at every main-path shape -------------------------------------
     g = torch.Generator().manual_seed(0)
@@ -750,19 +782,29 @@ def main():
             alpha_step=3e-11, beta_noise=0.01, steps_each=3, oracle=X)
 
     bench(sigmas[:2])  # warm-up
-    torch.cuda.synchronize()
-    kernels.reset_counts()
-    t0 = time.perf_counter()
-    _, trace = bench(sigmas)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    bench_counts = kernels.counts()
-    assert torch.isfinite(trace).all()
-    assert bench_counts["conv2d_taps"]["launches"] == 113 * levels * 3
-    est_per_s = BATCH / dt * levels / 2311.0
-    print(f"# bench workload: {dt:.3f} s for {BATCH} estimates x {levels} "
-          f"levels ({BATCH * levels * 3 / dt:.0f} NFE/s, {est_per_s:.4f} "
-          f"full-schedule est/s) on {card}")
+    bench_runs = []  # the host-bound est/s varies between runs: several
+    for _ in range(BENCH_RUNS):
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        _, trace = bench(sigmas)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        bench_counts = kernels.counts()
+        assert torch.isfinite(trace).all()
+        assert bench_counts["conv2d_taps"] == {"launches": 113 * levels * 3,
+                                               "plain": 0}, bench_counts
+        bench_runs.append(dict(seconds=dt,
+                               est_per_s=BATCH / dt * levels / 2311.0,
+                               ms_per_forward=dt * 1e3 / (levels * 3)))
+        print(f"# bench workload: {dt:.3f} s for {BATCH} estimates x "
+              f"{levels} levels ({BATCH * levels * 3 / dt:.0f} NFE/s, "
+              f"{bench_runs[-1]['ms_per_forward']:.3f} ms per forward, "
+              f"{bench_runs[-1]['est_per_s']:.4f} full-schedule est/s) on "
+              f"{card}")
+    est_per_s = float(np.median([r["est_per_s"] for r in bench_runs]))
+    print(f"# bench median of {BENCH_RUNS} runs: {est_per_s:.4f} full-schedule "
+          f"est/s")
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -781,7 +823,7 @@ def main():
     for name, ms in top:
         print(f"#   {ms:9.3f} ms  {name[:90]}")
     # each kernel's device time inside the path, per forward (6 in the window)
-    path_ms = {k: sum(ms for n, ms in by_name.items() if k + "_kernel" in n) / 6
+    path_ms = {k: sum(ms for n, ms in by_name.items() if k in n) / 6
                for k in ("conv2d_taps", "instance_norm_plus")}
     print(f"# in-path ms per forward: {path_ms}")
 
@@ -850,7 +892,7 @@ def main():
         forward_rel_err_f32=fwd_err32,
         forward_rel_err_bf16=fwd_err16, estimation_seconds=est_s,
         estimation_forwards=nfe[0], estimation_best_nmse_db=
-        res.best_nmse_db().ravel().tolist(), bench_seconds=dt,
+        res.best_nmse_db().ravel().tolist(), bench_runs=bench_runs,
         bench_levels=levels, bench_est_per_s_full=est_per_s,
         profile_wall_ms=wall_ms, profile_busy_ms=busy, profile_top=top,
         profile_ms_per_forward=path_ms,

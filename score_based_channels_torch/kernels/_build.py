@@ -4,7 +4,8 @@ The library is compiled with `nvcc` for `sm_90a` (Hopper) at first use and
 cached under `build/kernels/<source hash>/` at the repository root, so a
 change to any source rebuilds it and an unchanged tree reuses it. Each
 `.cu` file is compiled by its own `nvcc` process, all started together,
-then linked. The library exposes a plain C interface, loaded with `ctypes`.
+then linked; the hash covers the shared headers (`*.cuh`) too. The
+library exposes a plain C interface, loaded with `ctypes`.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a machine without `nvcc`.
@@ -35,15 +36,19 @@ _L = ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "sbc_conv2d_taps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _IP, _IP,
-                        _IP, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                        _IP, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sbc_conv2d_taps_wgmma": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _IP, _IP, _IP, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _P],
     "sbc_conv_im2col": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L,
                         _L, _L, _I, _IP, _IP, _IP, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _P],
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sbc_conv_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L,
                        _L, _L, _L, _I, _IP, _IP, _IP, _I, _I, _I, _I, _I, _I,
                        _I, _P],
     "sbc_instance_norm_plus": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sbc_ldpc_minsum": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "sbc_conv_last_launch": [_IP],
 }
 
 _lock = threading.Lock()
@@ -54,6 +59,10 @@ build_log = ""        # nvcc's output (-Xptxas=-v: registers, spills)
 
 def _sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -68,7 +77,7 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

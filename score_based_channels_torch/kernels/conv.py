@@ -11,9 +11,10 @@ activation dtype.
 Bound on an H100: the larger of bytes and operations, per call. One
 NCSNv2-Deepest forward at batch 256 is ~203 GFLOP of convs, >= 0.21 ms on
 the bf16 tensor cores; its bf16 activations, read once and written once,
-take >= 0.35 ms at 3.35 TB/s, so in bf16 the bytes bound it. On the FP32
-FMA units that this first kernel uses the operations take >= 3 ms
-(design notes in the source).
+take >= 0.35 ms at 3.35 TB/s, so in bf16 the bytes bound it. bf16 runs on
+the tensor cores (wgmma on a TMA-loaded halo tile, tile plan
+`wgmma_plan`); float32 on the FP32 FMA units (tile plan `plan`), where the
+operations take >= 3 ms (design notes in the source).
 
 The kernel reads the weight in place: an (O, I, k, k) tensor laid out in
 memory as (k, k, I, O), one (I, O) matrix per tap (`kernel_layout`), which
@@ -42,6 +43,14 @@ MAX_THREADS = 256
 MAX_SMEM = 48 * 1024       # static limit, no opt-in attribute needed
 MAX_CHANNELS = 128
 
+# bf16 route (wgmma): must match csrc/conv2d_taps.cu, csrc/conv_sm90.cuh
+WG_ROWS = 64               # output pixels of one consumer warpgroup
+MAX_WG = 2
+WGMMA_N = (8, 16, 32, 64, 128)  # the N of the kernels' wgmma instances
+MAX_SMEM_OPTIN = 232_448   # dynamic shared memory a block may opt in to
+MIN_BLOCKS = 128           # output channels are split down to 32 until
+                           # there are this many (tile, channel tile) jobs
+SMS = 132
 
 def live_taps(k: int, dilation: int, H: int, W: int) -> List[Tuple[int, int, int, int]]:
     """(iy, ix, dy, dx) of the taps that can touch real data, row-major.
@@ -112,15 +121,102 @@ def plan(B: int, H: int, W: int, Cin: int, Cout: int, dy, dx) -> Plan:
     return Plan(SB, TH, py, px, threads, smem(SB, TH))
 
 
+class WgmmaPlan(NamedTuple):
+    SB: int        # samples per tile
+    TH: int        # output rows per tile (all W columns)
+    py: int        # halo rows
+    px: int        # halo columns
+    BM: int        # wgmma rows per tile: 64 per consumer warpgroup
+    BN: int        # output channels per block (a wgmma N)
+    KS: int        # 16-deep k-steps per input-channel chunk (1, 2 or 4)
+    nchunks: int   # input-channel chunks of 16 * KS
+    threads: int   # consumer warpgroups + one producer warp
+    smem: int      # dynamic shared bytes
+    tiles: Tuple[int, int, int]  # (row tiles, sample groups, channel tiles)
+
+
+def tile_geometry(B: int, H: int, W: int) -> Tuple[int, int, int]:
+    """(BM, SB, TH) of the bf16 conv kernels' output tiles: SB samples x
+    TH whole rows x W (at most BM pixels); two warpgroups (BM = 128) once
+    the tiles still number two per SM."""
+    if W > MAX_WG * WG_ROWS:
+        raise ValueError(f"conv: image width {W} is wider than a "
+                         f"{MAX_WG * WG_ROWS}-pixel tile")
+    BM = (MAX_WG * WG_ROWS
+          if B * H * W >= MAX_WG * WG_ROWS * 2 * SMS or W > WG_ROWS
+          else WG_ROWS)
+    if H * W <= BM:
+        return BM, min(B, BM // (H * W)), H
+    return BM, 1, BM // W
+
+
+def k_steps(Cin: int) -> int:
+    """16-deep k-steps per chunk of input channels: chunks of 16, 32 or 64."""
+    return 1 if Cin <= 16 else 2 if Cin <= 32 else 4
+
+
+def split_n(Cout: int, jobs_per_tile: int, smem) -> int:
+    """BN: the smallest wgmma N that holds Cout, halved down to 32 while
+    there are fewer than MIN_BLOCKS (tile, channel tile) jobs, and further
+    while the block's shared memory smem(BN) does not fit."""
+    BN = next(n for n in WGMMA_N if n >= min(Cout, WGMMA_N[-1]))
+    while BN > 32 and jobs_per_tile * -(-Cout // BN) < MIN_BLOCKS:
+        BN //= 2
+    while BN > 8 and smem(BN) > MAX_SMEM_OPTIN:
+        BN //= 2
+    if smem(BN) > MAX_SMEM_OPTIN:
+        raise ValueError("conv: tile does not fit in shared memory")
+    return BN
+
+
+def wgmma_smem(SB: int, TR: int, TW: int, KS: int, BN: int, slices: int,
+               BM: int) -> int:
+    """Dynamic shared bytes of the bf16 kernel (csrc TapsLayout): two halo
+    buffers of 1 KB multiples, every weight slice, the staging rows, the
+    barriers, 1 KB of alignment."""
+    hb = -(-(SB * TR * TW * 32 * KS) // 1024) * 1024
+    bar_off = 2 * hb + slices * 32 * KS * BN + BM * (BN + 8) * 2
+    return bar_off + (slices + 4) * 8 + 1024
+
+
+def wgmma_plan(B: int, H: int, W: int, Cin: int, Cout: int, dy,
+               dx) -> WgmmaPlan:
+    """Tile plan of one bf16 launch; raises on a shape the kernel does not
+    take. The kernel is persistent: it launches as many blocks per channel
+    tile as the card holds (at most one per tile), each keeping its weight
+    slices resident over several tiles."""
+    if not (1 <= Cin <= MAX_CHANNELS and 1 <= Cout <= MAX_CHANNELS):
+        raise ValueError(f"conv2d_taps takes 1..{MAX_CHANNELS} channels, got "
+                         f"Cin={Cin} Cout={Cout}")
+    if not 1 <= len(dy) <= 9:
+        raise ValueError(f"conv2d_taps takes 1..9 live taps, got {len(dy)}")
+    py, px = max(abs(v) for v in dy), max(abs(v) for v in dx)
+    BM, SB, TH = tile_geometry(B, H, W)
+    TR, TW = TH + 2 * py, W + 2 * px
+    if TR > 256 or TW > 256:
+        raise ValueError("conv2d_taps: the halo tile exceeds a TMA box")
+    KS = k_steps(Cin)
+    nchunks = -(-Cin // (16 * KS))
+    slices = len(dy) * nchunks
+    tiles = (-(-H // TH), -(-B // SB))
+    smem = lambda bn: wgmma_smem(SB, TR, TW, KS, bn, slices, BM)
+    BN = split_n(Cout, tiles[0] * tiles[1], smem)
+    return WgmmaPlan(SB, TH, py, px, BM, BN, KS, nchunks,
+                     BM // WG_ROWS * 128 + 32, smem(BN),
+                     (*tiles, -(-Cout // BN)))
+
+
 @functools.lru_cache(maxsize=None)
 def _launch_args(B: int, H: int, W: int, Cin: int, Cout: int, k: int,
-                 dilation: int) -> tuple:
-    """Plan and ctypes tap arrays of one launch shape, made once."""
+                 dilation: int, bf16: bool = False) -> tuple:
+    """Plan (`wgmma_plan` for bf16, else `plan`) and ctypes tap arrays of
+    one launch shape, made once."""
     taps = live_taps(k, dilation, H, W)
     dy, dx = [t[2] for t in taps], [t[3] for t in taps]
     T = len(taps)
     arr = ctypes.c_int * T
-    return (plan(B, H, W, Cin, Cout, dy, dx), T, arr(*dy), arr(*dx),
+    p = (wgmma_plan if bf16 else plan)(B, H, W, Cin, Cout, dy, dx)
+    return (p, T, arr(*dy), arr(*dx),
             arr(*[iy * k + ix for iy, ix, _, _ in taps]))
 
 
@@ -159,10 +255,13 @@ def _check_cuda(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor] = None) -> None:
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv2d_taps takes float32 or bfloat16, got {x.dtype}")
-    for name, t in (("weight", weight), ("bias", bias)):
-        if t is not None and (t.dtype != x.dtype or t.device != x.device):
-            raise TypeError(f"conv2d_taps: {name} is {t.dtype} on {t.device}, "
-                            f"x is {x.dtype} on {x.device}")
+    if weight.dtype != x.dtype or weight.device != x.device:
+        raise TypeError(f"conv2d_taps: weight is {weight.dtype} on "
+                        f"{weight.device}, x is {x.dtype} on {x.device}")
+    if bias is not None and (bias.dtype not in (torch.float32, x.dtype)
+                             or bias.device != x.device):
+        raise TypeError(f"conv2d_taps: bias is {bias.dtype} on {bias.device}; "
+                        f"it takes float32 or {x.dtype} on {x.device}")
     if x.dim() != 4 or weight.dim() != 4 or x.shape[1] != weight.shape[1]:
         raise ValueError(f"conv2d_taps: x {tuple(x.shape)} does not match "
                          f"weight {tuple(weight.shape)}")
@@ -182,8 +281,8 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
            elu: bool = False) -> torch.Tensor:
     """Conv of NCHW x (channels-last on the card) with (O, I, k, k) weight.
 
-    On the card the weight is in `kernel_layout` and weight, bias and x
-    share one dtype.
+    On the card the weight is in `kernel_layout` with x's dtype, and the
+    bias is float32 or x's dtype.
     """
     if x.device.type == "cpu":
         return conv2d_plain(x, weight, bias, dilation, elu)
@@ -192,18 +291,27 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
     _check_cuda(x, weight, bias)
     B, Cin, H, W = x.shape
     Cout, k = weight.shape[0], weight.shape[-1]
-    p, T, dy, dx, wi = _launch_args(B, H, W, Cin, Cout, k, dilation)
+    bf16 = x.dtype == torch.bfloat16
+    p, T, dy, dx, wi = _launch_args(B, H, W, Cin, Cout, k, dilation, bf16)
     out = torch.empty((B, Cout, H, W), dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last)
     from . import _build
 
-    rc = _build.library().sbc_conv2d_taps(
-        x.data_ptr(), weight.data_ptr(),
-        bias.data_ptr() if bias is not None else None,
-        out.data_ptr(), B, H, W, Cin, Cout, T, dy, dx, wi,
-        p.SB, p.TH, p.py, p.px, p.threads, p.smem, int(elu),
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _build.library()
+    b_ptr = bias.data_ptr() if bias is not None else None
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if bf16:
+        rc = lib.sbc_conv2d_taps_wgmma(
+            x.data_ptr(), weight.data_ptr(), b_ptr,
+            int(bias is not None and bias.dtype == torch.bfloat16),
+            out.data_ptr(), B, H, W, Cin, Cout, k, T, dy, dx, wi, p.SB, p.TH,
+            p.py, p.px, p.BN, p.KS, p.BM // WG_ROWS, p.smem, int(elu),
+            stream)
+    else:
+        rc = lib.sbc_conv2d_taps(
+            x.data_ptr(), weight.data_ptr(), b_ptr, out.data_ptr(), B, H, W,
+            Cin, Cout, T, dy, dx, wi, p.SB, p.TH, p.py, p.px, p.threads,
+            p.smem, int(elu), stream)
     _build.check("conv2d_taps", rc)
     COUNTS["launches"] += 1
     return out

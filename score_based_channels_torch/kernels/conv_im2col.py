@@ -5,9 +5,10 @@ Replaces the JAX package's kernels/conv_probe.py::conv_im2col: the same
 function as `conv.conv2d` (stride 1, "same" zero padding, dead dilated taps
 skipped, f32 accumulation, optional bias and ELU, one rounding to x's
 dtype), computed as an (M = B*H*W, K = T*Cin) x (K, Cout) product whose
-patch is built in K-chunks in shared memory: on the bf16 tensor cores
-(mma.sync) when x is bf16 and Cin and Cout are multiples of 8, else on the
-FP32 FMA units (`route`). Design notes and the bound are in the source.
+patch is built in K-chunks of packed (tap, channel) columns in shared
+memory: on the bf16 tensor cores (wgmma) when x is bf16, whatever the
+channel counts, else on the FP32 FMA units (`route`; tiles from `plan`).
+Design notes and the bound are in the source.
 
 Two entry points share the kernel, which takes the (batch, row, column)
 strides of x and out with the channel innermost:
@@ -28,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,28 +37,60 @@ from . import conv
 
 COUNTS = {"launches": 0, "plain": 0}
 
-FMA, MMA = 0, 1  # routes: FP32 FMA units, bf16 tensor cores
+FMA, WGMMA = 0, 1  # routes: FP32 FMA units, bf16 tensor cores
+# bf16 route, must match csrc/conv_im2col.cu
+RING = 4                   # patch stages in flight
 
 
-def route(dtype: torch.dtype, Cin: int, Cout: int) -> int:
-    """The bf16 tensor cores when x is bf16 and Cin and Cout are multiples
-    of 8 (16-byte pieces), else the FP32 FMA units."""
-    return (MMA if dtype == torch.bfloat16 and Cin % 8 == 0 and Cout % 8 == 0
-            else FMA)
+class Plan(NamedTuple):
+    route: int
+    BN: int                # output channels per block
+    BM: int                # output pixels per tile (block on the FMA route)
+    SB: int                # wgmma: samples per tile
+    TH: int                # wgmma: output rows per tile (all W columns)
+    KS: int                # wgmma: 16-deep k-steps per TMA box of channels
+    stages: int            # wgmma: patch stages in the ring
+    smem: int              # dynamic shared bytes (0: static only)
+    grid: Tuple[int, int]  # (tiles, channel tiles); FMA: the launch grid
 
 
-def block_n(Cout: int) -> int:
-    """Output channels per block: 32 when Cout <= 32, else 64; must match
-    csrc/conv_im2col.cu."""
-    return 32 if Cout <= 32 else 64
+def route(dtype: torch.dtype) -> int:
+    """The bf16 tensor cores for bf16 x, else the FP32 FMA units."""
+    return WGMMA if dtype == torch.bfloat16 else FMA
 
 
-def grid(B: int, H: int, W: int, Cout: int, r: int = FMA) -> tuple:
-    """The launch grid (pixel tiles, channel tiles): 128-row tiles on the
-    tensor cores; on the FMA units 128 x 32 or 64 x 64 tiles."""
-    bn = block_n(Cout)
-    bm = 128 if r == MMA else 256 * 16 // bn
-    return (-(-(B * H * W) // bm), -(-Cout // bn))
+def layout_bytes(BM: int, RB: int, BN: int, slices: int,
+                 stages: int) -> int:
+    """Dynamic shared bytes of the wgmma kernel (csrc Im2colLayout): the
+    patch ring, every weight slice, the staging rows, the barriers, 1 KB of
+    alignment."""
+    bar_off = stages * BM * RB + slices * RB * BN + BM * (BN + 8) * 2
+    return bar_off + (2 * stages + slices) * 8 + 1024
+
+
+def plan(B: int, H: int, W: int, Cin: int, Cout: int, T: int,
+         dtype: torch.dtype) -> Plan:
+    """Tiles of one launch with T live taps. wgmma: the output tiles of
+    conv.tile_geometry and BN from conv.split_n; its shared memory holds
+    either stage form (TMA boxes of 16 KS channels of one tap when
+    Cin % 8 == 0, else 64 packed columns). FMA: 128 x 32 tiles for
+    Cout <= 32, else 64 x 64."""
+    if route(dtype) == WGMMA:
+        BM, SB, TH = conv.tile_geometry(B, H, W)
+        KS = conv.k_steps(Cin)
+        forms = [(128, -(-(T * Cin) // 64))]  # packed: 64 columns a stage
+        if Cin % 8 == 0:
+            forms.append((32 * KS, T * -(-Cin // (16 * KS))))
+        smem = lambda bn: max(layout_bytes(BM, rb, bn, n, RING)
+                              for rb, n in forms)
+        tiles = -(-H // TH) * -(-B // SB)
+        BN = conv.split_n(Cout, tiles, smem)
+        return Plan(WGMMA, BN, BM, SB, TH, KS, RING, smem(BN),
+                    (tiles, -(-Cout // BN)))
+    bn = 32 if Cout <= 32 else 64
+    bm = 256 * 16 // bn
+    return Plan(FMA, bn, bm, 0, 0, 0, 0, 0,
+                (-(-(B * H * W) // bm), -(-Cout // bn)))
 
 
 def sbc_as_nchw(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
@@ -108,6 +141,12 @@ def _vec(t: torch.Tensor, *strides: int) -> int:
                and all(s % 4 == 0 for s in strides))
 
 
+def _aligned(t: torch.Tensor, nbytes: int, strides=()) -> bool:
+    """t's data and the given element strides are nbytes-aligned."""
+    n = nbytes // t.element_size()
+    return t.data_ptr() % nbytes == 0 and all(s % n == 0 for s in strides)
+
+
 def _check_cuda(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor]) -> None:
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -146,21 +185,22 @@ def _launch(x: torch.Tensor, weight: torch.Tensor,
     T, dy, dx, wi = _taps(k, dilation, H, W)
     xs = (x.stride(0), x.stride(2), x.stride(3))
     os_ = (out.stride(0), out.stride(2), out.stride(3))
-    r = route(x.dtype, Cin, Cout)
-    if r == MMA and (any(t.data_ptr() % 16 for t in (x, weight, out))
-                     or any(s % 8 for s in xs + os_)):
-        raise ValueError("conv_im2col takes bf16 x, weight and out 16-byte "
-                         "aligned, with strides of whole 8-channel groups")
+    p = plan(B, H, W, Cin, Cout, T, x.dtype)
+    if p.route == WGMMA:  # the copy forms are chosen by the C side
+        vecs = (0, 0, int(Cout % 8 == 0 and _aligned(out, 16, os_)))
+    else:
+        vecs = (int(Cin % 4 == 0) & _vec(x, *xs),
+                int(Cout % 4 == 0) & _vec(weight),
+                int(Cout % 4 == 0) & _vec(out, *os_))
     from . import _build
 
     rc = _build.library().sbc_conv_im2col(
         x.data_ptr(), weight.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
-        B, H, W, Cin, Cout, *xs, *os_, T, dy, dx, wi, r, block_n(Cout),
+        B, H, W, Cin, Cout, *xs, *os_, T, dy, dx, wi, k, p.route, p.BN,
         int(elu), int(x.dtype == torch.bfloat16),
-        int(bias is not None and bias.dtype == torch.bfloat16),
-        int(Cin % 4 == 0) & _vec(x, *xs), int(Cout % 4 == 0) & _vec(weight),
-        int(Cout % 4 == 0) & _vec(out, *os_),
+        int(bias is not None and bias.dtype == torch.bfloat16), *vecs,
+        p.SB, p.TH, p.KS, p.BM // conv.WG_ROWS, p.stages, p.smem,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("conv_im2col", rc)
     COUNTS["launches"] += 1

@@ -151,18 +151,24 @@ def test_chain_plan_routes_and_limits():
 
 
 def test_im2col_tiles_and_routes():
-    assert conv_im2col.block_n(2) == conv_im2col.block_n(32) == 32
-    assert conv_im2col.block_n(64) == conv_im2col.block_n(128) == 64
-    assert conv_im2col.grid(256, 64, 16, 32) == (2048, 1)
-    assert conv_im2col.grid(256, 8, 2, 128) == (64, 2)
-    assert conv_im2col.grid(256, 8, 2, 128, conv_im2col.MMA) == (32, 2)
-    bf = torch.bfloat16
-    assert conv_im2col.route(bf, 32, 32) == conv_im2col.MMA
-    assert conv_im2col.route(bf, 8, 16) == conv_im2col.MMA
-    # the begin and end convs (2 channels) and float32 take the FMA units
-    assert conv_im2col.route(bf, 2, 32) == conv_im2col.FMA
-    assert conv_im2col.route(bf, 32, 2) == conv_im2col.FMA
-    assert conv_im2col.route(torch.float32, 32, 32) == conv_im2col.FMA
+    bf, f32 = torch.bfloat16, torch.float32
+    assert conv_im2col.route(bf) == conv_im2col.WGMMA
+    assert conv_im2col.route(f32) == conv_im2col.FMA
+    # wgmma: tiles of whole rows, 128 pixels at 64x16 batch 256; the begin
+    # and end convs (2 channels) too, the end conv on an N = 8 tile
+    p = conv_im2col.plan(256, 64, 16, 32, 32, 9, bf)
+    assert (p.BM, p.SB, p.TH, p.BN, p.grid) == (128, 1, 8, 32, (2048, 1))
+    assert conv_im2col.plan(256, 64, 16, 32, 2, 9, bf).BN == 8
+    assert conv_im2col.plan(256, 64, 16, 2, 32, 9, bf).KS == 1
+    # the 8x2 layers: 4 samples a 64-pixel tile, Cout split until 128 jobs
+    p = conv_im2col.plan(256, 8, 2, 128, 128, 9, bf)
+    assert (p.BM, p.SB, p.BN, p.grid) == (64, 4, 64, (64, 2))
+    assert conv_im2col.plan(256, 8, 2, 64, 64, 9, bf).grid == (64, 2)
+    assert conv_im2col.plan(2, 8, 2, 128, 128, 9, bf).BN == 32
+    # float32: the FMA tiles, 128 x 32 or 64 x 64
+    assert conv_im2col.plan(256, 64, 16, 32, 32, 9, f32).grid == (2048, 1)
+    assert conv_im2col.plan(256, 8, 2, 128, 128, 9, f32).grid == (64, 2)
+    assert conv_im2col.plan(256, 8, 2, 2, 2, 9, f32).BN == 32
 
 
 def test_new_wrappers_count_and_refuse_other_devices():

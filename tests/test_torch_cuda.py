@@ -7,6 +7,8 @@ PyTorch versions. Skipped without a card; on the card, run
 need not have; this file imports no JAX).
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -40,14 +42,23 @@ def card():
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("H,W,Cin,Cout,k,d,bias,elu", [
-    (64, 16, 32, 32, 3, 1, True, False), (8, 2, 128, 128, 3, 4, True, False),
-    (16, 4, 64, 64, 3, 1, False, True), (64, 16, 32, 64, 1, 1, True, False),
-    (64, 16, 32, 2, 3, 1, True, False), (8, 2, 64, 128, 3, 2, True, False)])
-def test_conv_kernel_matches_plain(card, H, W, Cin, Cout, k, d, bias, elu,
+@pytest.mark.parametrize("H,W,Cin,Cout,k,d,bias,elu,B", [
+    (64, 16, 32, 32, 3, 1, True, False, 32),
+    (8, 2, 128, 128, 3, 4, True, False, 32),
+    (16, 4, 64, 64, 3, 1, False, True, 32),
+    (64, 16, 32, 64, 1, 1, True, False, 32),
+    (64, 16, 32, 2, 3, 1, True, False, 32),  # the end conv: N = 8 tile
+    (8, 2, 64, 128, 3, 2, True, False, 32),
+    (64, 16, 2, 32, 3, 1, True, True, 32),   # the begin conv: K padded to 16
+    (8, 2, 64, 64, 3, 2, True, True, 3),     # ragged batch: 3 of 4 samples
+    (16, 4, 32, 32, 3, 4, False, False, 3),  # dilation 4, 3 live taps
+    (12, 5, 24, 40, 3, 1, True, True, 3),    # 60 of a 64-pixel tile
+    (16, 4, 3, 5, 3, 1, True, True, 5),      # odd channels: plain loads
+    (8, 2, 128, 128, 3, 1, True, True, 256)])  # 2 chunks, 18 stages
+def test_conv_kernel_matches_plain(card, H, W, Cin, Cout, k, d, bias, elu, B,
                                    dtype, tol):
     g = torch.Generator().manual_seed(0)
-    x = torch.randn(32, Cin, H, W, generator=g).to(card, dtype).contiguous(
+    x = torch.randn(B, Cin, H, W, generator=g).to(card, dtype).contiguous(
         memory_format=torch.channels_last)
     w = conv.kernel_layout((torch.randn(Cout, Cin, k, k, generator=g)
                             / (k * k * Cin) ** 0.5).to(card, dtype))
@@ -91,22 +102,102 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
                     w)
 
 
-def test_kernels_see_parameters_changed_in_place(card):
-    """The kernels read the parameters themselves: an update through .data
-    (the optimizer / EMA idiom) shows in the next launch."""
-    model = make_score_model(ModelConfig(ngf=8), device=card)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_see_parameters_changed_in_place(card, dtype):
+    """The kernels read the parameters themselves (the bf16 kernel through
+    tensor maps made at each launch): an update through .data (the
+    optimizer / EMA idiom) shows in the next launch."""
+    model = make_score_model(ModelConfig(ngf=8), device=card).to(dtype)
     cpu = make_score_model(ModelConfig(ngf=8), device="cpu")
     x = torch.randn(4, 64, 16, 2)
     g = torch.Generator().manual_seed(3)
     with torch.no_grad():
-        model(x.to(card), 0.7)
+        model(x.to(card, dtype), 0.7)
         for (name, p), q in zip(model.named_parameters(), cpu.parameters()):
-            new = q + 0.05 * torch.randn(q.shape, generator=g)
+            new = (q + 0.05 * torch.randn(q.shape, generator=g)).to(dtype)
             q.data.copy_(new)
             p.data.copy_(new.to(card))
-        got = model(x.to(card), 0.7).cpu()
-        want = cpu(x, 0.7)
-    assert (got - want).abs().max() / want.abs().max() < 2e-4
+        got = model(x.to(card, dtype), 0.7).float().cpu()
+        want = cpu(x.to(dtype).float(), 0.7)
+    if dtype == torch.float32:
+        assert (got - want).abs().max() / want.abs().max() < 2e-4
+    else:
+        assert torch.linalg.norm(got - want) / torch.linalg.norm(want) < 5e-2
+
+
+def test_bf16_model_forward_matches_the_cpu(card):
+    """An ngf = 8 network in bf16 on the card (every conv on the wgmma
+    kernel) against the plain f32 forward on the CPU, within 5% (the bar of
+    tests/test_bf16.py)."""
+    model = make_score_model(ModelConfig(ngf=8), device="cpu")
+    score = score_fn_from_params(model.to(card), torch.bfloat16)
+    x = torch.randn(6, 64, 16, 2)
+    sig = torch.tensor([0.3, 0.7, 1.0, 2.0, 5.0, 20.0])
+    reset_counts()
+    got = score(x.to(card), sig.to(card)).cpu()
+    assert counts()["conv2d_taps"] == {"launches": 113, "plain": 0}
+    with torch.no_grad():
+        want = model.cpu()(x, sig)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert torch.linalg.norm(got - want) / torch.linalg.norm(want) < 5e-2
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernels_take_an_f32_or_bf16_bias(card, bias_dtype):
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(8, 32, 16, 4, generator=g).to(card, torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = conv.kernel_layout((torch.randn(48, 32, 3, 3, generator=g) / 17).to(
+        card, torch.bfloat16))
+    b = torch.randn(48, generator=g).to(card, bias_dtype)
+    want = conv.conv2d_plain(x, w, b, 1, True)
+    _close_to_plain(conv.conv2d(x, w, b, 1, True), want, torch.bfloat16)
+    _close_to_plain(conv_im2col.conv2d_im2col(x, w, b, 1, True), want,
+                    torch.bfloat16)
+
+
+def _last_launch():
+    """(blocks along the tile axis, tiles, channel tiles, SMs, blocks per SM
+    of the kernel asked afresh) of the last bf16 conv launch."""
+    from score_based_channels_torch.kernels import _build
+
+    out = (ctypes.c_int * 5)()
+    _build.check("sbc_conv_last_launch",
+                 _build.library().sbc_conv_last_launch(out))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("entry", ["conv2d_taps", "conv_im2col"])
+def test_persistent_grid_follows_each_kernels_occupancy(card, entry):
+    """Launches of more (kernel, threads, shared bytes) combinations than a
+    small fixed cache would hold, in several orders: each grid is the one a
+    fresh occupancy query of its own kernel gives, over the plan's tiles."""
+    g = torch.Generator().manual_seed(6)
+    shapes = [(H, W, Cin, Cout, d, B)
+              for Cin, Cout in ((2, 32), (32, 2), (16, 16), (32, 64),
+                                (64, 64), (64, 128), (128, 128), (128, 32))
+              for H, W, d, B in ((8, 2, 1, 5), (16, 4, 2, 3), (64, 16, 1, 2))]
+    shapes += shapes[::-3]  # revisit some once the cache holds them all
+    for H, W, Cin, Cout, d, B in shapes:
+        x = torch.randn(B, Cin, H, W, generator=g).to(
+            card, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        w = conv.kernel_layout((torch.randn(Cout, Cin, 3, 3, generator=g)
+                                / (9 * Cin) ** 0.5).to(card, torch.bfloat16))
+        if entry == "conv2d_taps":
+            got = conv.conv2d(x, w, None, d, True)
+            p = conv._launch_args(B, H, W, Cin, Cout, 3, d, True)[0]
+            tiles, ct = p.tiles[0] * p.tiles[1], p.tiles[2]
+        else:
+            got = conv_im2col.conv2d_im2col(x, w, None, d, True)
+            T = len(conv.live_taps(3, d, H, W))
+            tiles, ct = conv_im2col.plan(B, H, W, Cin, Cout, T,
+                                         torch.bfloat16).grid
+        blocks, c_tiles, c_ct, sms, per_sm = _last_launch()
+        assert (c_tiles, c_ct) == (tiles, ct)
+        assert blocks == min(tiles, -(-sms * per_sm // ct)), (
+            (H, W, Cin, Cout, d, B), blocks, tiles, ct, sms, per_sm)
+        _close_to_plain(got, conv.conv2d_plain(x, w, None, d, True),
+                        torch.bfloat16)
 
 
 def test_forward_and_sampler_on_the_card(card):
@@ -197,17 +288,23 @@ def _close_to_plain(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,W,Cin,Cout,k,d,bias,act", [
-    (64, 16, 32, 32, 3, 1, True, False), (8, 2, 128, 128, 3, 4, True, True),
-    (16, 4, 8, 16, 3, 2, False, True), (64, 16, 32, 64, 1, 1, True, False),
-    (64, 16, 32, 2, 3, 1, True, False), (64, 16, 2, 32, 3, 1, True, True),
-    (8, 2, 64, 128, 3, 2, False, False), (5, 3, 16, 24, 3, 1, True, True)])
+@pytest.mark.parametrize("H,W,Cin,Cout,k,d,bias,act,B", [
+    (64, 16, 32, 32, 3, 1, True, False, 16),
+    (8, 2, 128, 128, 3, 4, True, True, 16),
+    (16, 4, 8, 16, 3, 2, False, True, 16),
+    (64, 16, 32, 64, 1, 1, True, False, 16),
+    (64, 16, 32, 2, 3, 1, True, False, 16),   # the end conv: N = 8 tile
+    (64, 16, 2, 32, 3, 1, True, True, 16),    # the begin conv: one K = 18 stage
+    (8, 2, 64, 128, 3, 2, False, False, 16),
+    (5, 3, 16, 24, 3, 1, True, True, 16),
+    (8, 2, 64, 64, 3, 4, True, True, 3),      # ragged batch, dilation 4
+    (16, 4, 3, 5, 3, 1, True, True, 3),       # odd channels: plain loads
+    (8, 2, 128, 128, 3, 1, True, True, 256)])  # 18 stages through the ring
 def test_im2col_kernel_matches_plain(card, H, W, Cin, Cout, k, d, bias, act,
-                                     dtype):
+                                     B, dtype):
     """The (S, B, C) entry point, with an f32 bias as the harness passes
     it, and the channels-last entry point with a bias in x's dtype."""
     g = torch.Generator().manual_seed(2)
-    B = 16
     x = torch.randn(H * W, B, Cin, generator=g).to(card, dtype)
     w = (torch.randn(k, k, Cin, Cout, generator=g)
          / (k * k * Cin) ** 0.5).to(card, dtype)

@@ -22,7 +22,9 @@ from score_based_channels_tpu.kernels.instance_norm import (
     instance_norm_plus_pallas,
 )
 from score_based_channels_tpu.models.layers import InstanceNorm2dPlus
-from score_based_channels_torch.kernels import conv, counts, instance_norm, reset_counts
+from score_based_channels_torch.kernels import (
+    conv, conv_im2col, counts, instance_norm, reset_counts,
+)
 
 torch.set_num_threads(1)
 
@@ -173,13 +175,15 @@ def test_tap_sum_over_kernel_layout_equals_plain_conv(H, W, Cin, Cout, k, d,
                                         (8, 2, 3, 1, list(range(9))),
                                         (16, 4, 1, 1, [0])])
 def test_launch_args_are_made_once_per_shape(H, W, k, d, wi):
-    args = conv._launch_args(256, H, W, 64, 64, k, d)
-    assert conv._launch_args(256, H, W, 64, 64, k, d) is args
-    plan, T, dy, dx, wis = args
-    assert T == len(wi) and list(wis) == wi
     taps = conv.live_taps(k, d, H, W)
-    assert list(dy) == [t[2] for t in taps] and list(dx) == [t[3] for t in taps]
-    assert plan == conv.plan(256, H, W, 64, 64, list(dy), list(dx))
+    for bf16, plan in ((False, conv.plan), (True, conv.wgmma_plan)):
+        args = conv._launch_args(256, H, W, 64, 64, k, d, bf16)
+        assert conv._launch_args(256, H, W, 64, 64, k, d, bf16) is args
+        p, T, dy, dx, wis = args
+        assert T == len(wi) and list(wis) == wi
+        assert list(dy) == [t[2] for t in taps]
+        assert list(dx) == [t[3] for t in taps]
+        assert p == plan(256, H, W, 64, 64, list(dy), list(dx))
 
 
 # the 19 conv shapes of one NCSNv2-Deepest forward (H, W, Cin, Cout, k, d)
@@ -193,17 +197,53 @@ MAIN_PATH_CONVS = [
     (64, 16, 32, 2, 3, 1)]
 
 
+@pytest.mark.parametrize("B", [256, 2])
 @pytest.mark.parametrize("H,W,Cin,Cout,k,d", MAIN_PATH_CONVS)
-def test_conv_plan_fits_the_card(H, W, Cin, Cout, k, d):
+def test_conv_plan_fits_the_card(H, W, Cin, Cout, k, d, B):
     taps = conv.live_taps(k, d, H, W)
-    p = conv.plan(256, H, W, Cin, Cout, [t[2] for t in taps],
-                  [t[3] for t in taps])
+    dy, dx = [t[2] for t in taps], [t[3] for t in taps]
+    # float32: the FMA kernel's plan
+    p = conv.plan(B, H, W, Cin, Cout, dy, dx)
     assert p.threads % 32 == 0 and 32 <= p.threads <= conv.MAX_THREADS
     assert p.smem <= conv.MAX_SMEM
-    assert 1 <= p.TH <= H and 1 <= p.SB <= 256
+    assert 1 <= p.TH <= H and 1 <= p.SB <= B
     assert p.SB == 1 or p.TH == H
     ncg = -(-Cout // conv.RC)
     assert ncg * -(-(p.SB * p.TH * W) // conv.RP) <= p.threads
+    # bf16: conv2d_taps's wgmma plan
+    q = conv.wgmma_plan(B, H, W, Cin, Cout, dy, dx)
+    assert q.smem <= 232_448 and q.smem == conv.wgmma_smem(
+        q.SB, q.TH + 2 * q.py, W + 2 * q.px, q.KS, q.BN,
+        len(taps) * q.nchunks, q.BM)
+    assert q.BM % 64 == 0 and q.threads == q.BM // 64 * 128 + 32
+    assert q.SB * q.TH * W <= q.BM and (q.SB == 1 or q.TH == H)
+    assert q.BN in conv.WGMMA_N and q.BN >= min(Cout, 32)
+    assert 16 * q.KS * q.nchunks >= Cin > 16 * q.KS * (q.nchunks - 1)
+    assert q.tiles == (-(-H // q.TH), -(-B // q.SB), -(-Cout // q.BN))
+    # bf16: conv_im2col's plan, on the same tiles
+    r = conv_im2col.plan(B, H, W, Cin, Cout, len(taps), torch.bfloat16)
+    assert r.route == conv_im2col.WGMMA and r.smem <= 232_448
+    assert (r.BM, r.SB, r.TH) == (q.BM, q.SB, q.TH)
+    assert r.BN in conv.WGMMA_N and r.stages >= 4
+    assert r.grid == (q.tiles[0] * q.tiles[1], -(-Cout // r.BN))
+    if B == 256 and (H, W) == (8, 2):  # the 8x2 layers fill the card
+        assert q.tiles[0] * q.tiles[1] * q.tiles[2] >= 128
+        assert r.grid[0] * r.grid[1] >= 128
+
+
+@pytest.mark.parametrize("Cin,Cout", [(2, 32), (32, 2), (8, 8), (16, 8),
+                                      (3, 5), (1, 1), (24, 40), (128, 128)])
+def test_wgmma_plans_take_every_channel_count(Cin, Cout):
+    """ngf = 8 widths, the 2-channel begin and end convs and odd counts."""
+    for H, W in ((64, 16), (8, 2), (5, 3)):
+        taps = conv.live_taps(3, 1, H, W)
+        q = conv.wgmma_plan(4, H, W, Cin, Cout, [t[2] for t in taps],
+                            [t[3] for t in taps])
+        assert q.BN in conv.WGMMA_N and q.smem <= 232_448
+        r = conv_im2col.plan(4, H, W, Cin, Cout, 9, torch.bfloat16)
+        assert r.BN in conv.WGMMA_N and r.route == conv_im2col.WGMMA
+    with pytest.raises(ValueError, match="channels"):
+        conv.wgmma_plan(4, 8, 2, 129, 8, [0], [0])
 
 
 def test_wrappers_count_and_refuse_other_devices():
