@@ -11,10 +11,12 @@ Phases (any failure propagates and the exit code is non-zero):
      NCSNv2-Deepest forward (found by hooks on a census forward), at batch
      256 in float32 and bfloat16, held against its plain PyTorch version on
      the card, and timed (CUDA events, median) beside its plain version,
-     its bound and, for the conv, the one-call cuDNN yardstick F.conv2d;
-     the LDPC min-sum iteration against its plain version, bit for bit
-     over 25 iterations at 1, 5, 100 and 256 packets of the 802.11n
-     (648, 324) code, timed at 100 and 256;
+     its bound and, for the conv, the one-call cuDNN yardstick F.conv2d
+     (the norm also by its device time in a profiler window); the LDPC
+     min-sum iteration against its plain version, bit for bit over 25
+     iterations at 1, 5, 100 and 256 packets of the 802.11n (648, 324)
+     code, timed at 100 and 256 (events and device time) beside a
+     Tensor.zero_ of its output;
   4. estimate path: the full-width 5,890,082-parameter network from a
      seed; its kernel forward against the plain forward; `run_estimation`
      (the `estimate` entry point) on a small file dataset written here,
@@ -90,6 +92,22 @@ def cuda_ms(fn, reps=20):
     return device_ms(fn, torch.device("cuda"), reps)
 
 
+def profiled_ms(fn, name, reps=20):
+    """Device time in ms per call of fn() of the kernels whose name holds
+    `name`, from a profiler window: the kernel alone, without the gaps
+    between launches that the events around each call include."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for k, ms in device_ms_by_name(prof).items()
+               if name in k) / reps
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -115,10 +133,11 @@ def build_summary(log):
             raw = re.sub(r"^_Z\d+", "", raw)
             k = re.match(r"(\w+?_kernel)(I(?:Li\d+E)+|I\w+?E)?", raw)
             args = k and k.group(2) or ""
+            targs = (["bf16"] if "bfloat" in args else
+                     ["f32"] if args.startswith("If") else [])
+            targs += re.findall(r"Li(\d+)E", args)
             name = raw[:60] if k is None else k.group(1) + (
-                "<" + ", ".join(re.findall(r"Li(\d+)E", args)) + ">"
-                if "Li" in args else "<bf16>" if "bfloat" in args else
-                "<f32>" if args else "")
+                "<" + ", ".join(targs) + ">" if targs else "")
         elif "stack frame" in line and name:
             spills = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -232,20 +251,33 @@ def check_norms(norms, g):
                     f"norm {(H, W, C)} bf16: max err {err:.3e} > {tol} * {ref}")
             es = x.element_size()
             nbytes = (2 * x.numel() + 3 * C) * es
+            fn = lambda: inorm.instance_norm_plus(x, a, gm, bt, elu)
             rows.append(dict(
                 kind="norm", shape=[H, W, C], elu=elu,
                 dtype=str(dt).split(".")[1], per_forward=per_fwd,
-                max_abs_err=err, tol=tol,
-                ms=cuda_ms(lambda: inorm.instance_norm_plus(x, a, gm, bt, elu)),
+                max_abs_err=err, tol=tol, ms=cuda_ms(fn),
+                device_ms=profiled_ms(fn, "instance_norm_plus"),
                 plain_ms=cuda_ms(
                     lambda: inorm.instance_norm_plus_plain(x, a, gm, bt, elu)),
                 library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3,
                 ops_ms=12 * x.numel() / PEAK_OPS[torch.float32] * 1e3))
             r = rows[-1]
+            p = inorm.plan(BATCH, H, W, C, dt)
+            r["plan"] = p.__dict__
             print(f"norm {H}x{W} c{C} elu={int(elu)} {r['dtype']:8s} "
                   f"x{per_fwd:<2d} max_abs_err {err:.2e} (tol {tol})  kernel "
-                  f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f}  bound "
-                  f"{max(r['bytes_ms'], r['ops_ms']):.4f}", flush=True)
+                  f"{r['ms']:.4f} ms (device {r['device_ms']:.4f})  plain "
+                  f"{r['plain_ms']:.4f}  bound "
+                  f"{max(r['bytes_ms'], r['ops_ms']):.4f}  ({p.copy}, "
+                  f"{p.threads} threads, cluster {p.cluster}, {p.chunks} "
+                  "chunks)", flush=True)
+    for dt in ("bfloat16", "float32"):
+        pf = per_forward(rows, dt)
+        dev = sum(r["device_ms"] * r["per_forward"] for r in rows
+                  if r["dtype"] == dt)
+        print(f"# instance_norm_plus per {dt} forward at batch {BATCH}: "
+              f"{pf['ms']:.4f} ms (device {dev:.4f}), plain "
+              f"{pf['plain_ms']:.4f}, bound {pf['bound_ms']:.4f}")
     return rows
 
 
@@ -263,6 +295,10 @@ def check_ldpc(g):
     E = t.num_edges
     rng = np.random.default_rng(0)
     rows = []
+    p = lm.plan(LINK_PACKETS, t.m, t.n, E, t.max_row_degree)
+    print(f"# ldpc_minsum plan at {LINK_PACKETS} packets: {p.copy} stores "
+          f"of {p.rows_per_band}-row bands, {p.lanes_per_row} lanes a row, "
+          f"{p.smem} shared bytes a block")
     for B in (1, 5, 100, LINK_PACKETS):
         cw = code.encode(rng.integers(0, 2, (B, code.k), np.uint8))
         llr = torch.from_numpy((1 - 2 * cw.astype(np.float32)) * 2.0 + 1.5
@@ -290,10 +326,13 @@ def check_ldpc(g):
             c = starts["random"]
             nbytes = 4 * (B * code.m * code.n + B * E + B * code.n) \
                 + t.nbytes()
+            fn = lambda: lm.bp_iteration(c, llr, mask, 0.75, t)
+            zero = torch.empty_like(c)
             row.update(
-                ms=cuda_ms(lambda: lm.bp_iteration(c, llr, mask, 0.75, t)),
+                ms=cuda_ms(fn), device_ms=profiled_ms(fn, "ldpc_minsum"),
                 plain_ms=cuda_ms(lambda: lm.bp_iteration_plain(
                     c, llr, mask, 0.75, t)),
+                zero_ms=cuda_ms(zero.zero_),  # the dense output alone
                 library_ms=None, bytes_ms=nbytes / PEAK_BYTES * 1e3,
                 # per edge: 2 adds, sub, abs, 2 compares, mul, select
                 ops_ms=10 * B * E / PEAK_OPS[torch.float32] * 1e3)
@@ -301,8 +340,10 @@ def check_ldpc(g):
         print(f"ldpc_minsum B={B:3d}: kernel == plain bit for bit over "
               f"{BP_ITERS} iterations from zero and random messages"
               + f" (decoded BER {ber:.2e})"
-              + (f"  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f}"
-                 f"  bound {max(row['bytes_ms'], row['ops_ms']):.4f} ms per "
+              + (f"  kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f})"
+                 f"  plain {row['plain_ms']:.4f}  zero_ of the output "
+                 f"{row['zero_ms']:.4f}  bound "
+                 f"{max(row['bytes_ms'], row['ops_ms']):.4f} ms per "
                  "iteration" if "ms" in row else ""), flush=True)
     return rows
 

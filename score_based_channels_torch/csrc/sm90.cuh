@@ -1,9 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the conv kernels
-// (conv2d_taps.cu, conv_im2col.cu):
+// Hopper (sm_90a) building blocks shared by the kernels (conv2d_taps.cu,
+// conv_im2col.cu, instance_norm_plus.cu, ldpc_minsum.cu):
 //
 //  - mbarriers: init, arrive, arrive with an expected transaction count,
 //    the cp.async arrive that fires when a thread's copies have landed, and
 //    the parity wait;
+//  - 1-D bulk copies (cp.async.bulk) in both directions, and thread-block
+//    cluster barriers and peer shared-memory loads;
 //  - TMA: tiled 2-D and 4-D loads (cp.async.bulk.tensor) that complete on
 //    an mbarrier, and the host's cuTensorMapEncodeTiled, fetched once from
 //    the CUDA driver through the runtime (the library has no -lcuda);
@@ -95,6 +97,76 @@ __device__ __forceinline__ void fence_proxy_async() {
 // a barrier among the first `threads` threads of the block (id 1..15)
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// 1-D bulk copies (cp.async.bulk): contiguous bytes between device memory
+// and shared memory, addresses and size multiples of 16 bytes
+// ---------------------------------------------------------------------------
+
+// device memory -> this block's shared memory; completes `bytes` of the
+// barrier's expected transaction count (arm it with mbar_arrive_expect_tx)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// shared memory -> device memory, in the issuing thread's bulk group; the
+// shared-memory writes it reads must be ordered first by fence_proxy_async
+// and a barrier
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// waits until at most N of this thread's committed bulk groups still read
+// their shared-memory source (which may then be written again)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters: rank, barrier, a peer block's shared memory
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+// every thread of every block of the cluster arrives (release) ...
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+// ... and waits for all the others (acquire)
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+// the float at the same shared-memory offset as p in block `rank` of the
+// cluster
+__device__ __forceinline__ float ld_peer(const float* p, int rank) {
+  uint32_t a;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a)
+               : "memory");
+  return v;
 }
 
 // ---------------------------------------------------------------------------

@@ -46,8 +46,10 @@ _SIGNATURES = {
     "sbc_conv_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L,
                        _L, _L, _L, _I, _IP, _IP, _IP, _I, _I, _I, _I, _I, _I,
                        _I, _P],
-    "sbc_instance_norm_plus": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sbc_ldpc_minsum": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "sbc_instance_norm_plus": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _P],
+    "sbc_ldpc_minsum": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                        _I, _P],
     "sbc_conv_last_launch": [_IP],
 }
 

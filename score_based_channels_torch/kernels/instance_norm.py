@@ -10,7 +10,11 @@ dtype.
 
 Bound on an H100: bytes, one read and one write of the activation (~335 MB
 for the 25 norms of one forward at batch 256 in bf16, ~0.1 ms at
-3.35 TB/s). Design notes are in the source.
+3.35 TB/s). The kernel reads each activation byte once and writes each
+output byte once: a large sample comes into shared memory by up to four
+1-D bulk copies and leaves the same way, a small one by 16-byte loads into
+registers and 16-byte stores. `plan` sizes the launch (threads, cluster,
+shared bytes, copy form). Design notes are in the source.
 
 `instance_norm_plus` dispatches on the tensor's device: a CPU tensor goes
 to `instance_norm_plus_plain`; a CUDA tensor launches the kernel or raises.
@@ -19,12 +23,120 @@ Both count their calls in COUNTS.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+from math import gcd
+
 import torch
 import torch.nn.functional as F
 
 COUNTS = {"launches": 0, "plain": 0}
 
-MAX_CHANNELS = 128  # must match csrc/instance_norm_plus.cu
+# must match csrc/instance_norm_plus.cu
+MAX_CHANNELS = 128
+MAX_THREADS = 512      # a block of the shared-memory route
+MAX_REG_THREADS = 128  # a block of the register route
+REG_VECS = 8           # 8-channel vectors a thread may hold on that route
+REG_TARGET = 2         # ... and aims to hold (more threads, shorter chains)
+MAX_CLUSTER = 8        # blocks of one sample (the portable cluster size)
+MAX_CHUNKS = 4         # bulk copies in flight a block
+MAX_SMEM = 232_448     # an H100 block's shared memory
+VEC_PER_THREAD = 8     # the pixel vectors a thread aims to hold
+CHUNK_BYTES = 16384    # a bulk copy's size, up to MAX_CHUNKS a block
+COPIES = ("element", "bulk", "vector")  # the kernel's copy codes 0, 1, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch of the kernel: a block of `threads` threads a sample or,
+    when `cluster` > 1, a cluster of `cluster` blocks a sample, each
+    holding `pixels_per_block` of its pixels; each thread takes `vec`
+    channels (8, or 1 when C is not a multiple of 8). `copy`: "bulk" (the
+    sample comes into shared memory by `chunks` 1-D bulk copies and leaves
+    the same way; needs a sample's bytes a multiple of 16), "vector" (small
+    samples: 16-byte loads into registers and 16-byte stores, at most
+    REG_VECS vectors a thread) or "element" (element loads and stores
+    through shared memory)."""
+
+    threads: int
+    cluster: int
+    pixels_per_block: int
+    vec: int
+    copy: str
+    chunks: int
+    smem: int
+    blocks: int
+
+
+def _pow2_at_least(v: int) -> int:
+    p = 1
+    while p < v:
+        p *= 2
+    return p
+
+
+def smem_bytes(ts: int, hwc: int, C: int, vec: int, es: int,
+               registers: bool = False) -> int:
+    """Shared bytes of a block (csrc/instance_norm_plus.cu, Layout): the
+    sample's pixels (none on the register route), ts / max(cvp, 32)
+    reduction slots of C floats, five C-float arrays, alpha, gamma and
+    beta in f32, and the mbarriers, 16-byte aligned."""
+    r16 = lambda v: -(-v // 16) * 16
+    cvp = _pow2_at_least(C // vec)
+    ns = ts // max(cvp, 32)
+    data = 0 if registers else r16(hwc * C * es)
+    return r16(data + ns * C * 4 + 5 * C * 4 + 3 * C * 4) + 8 * MAX_CHUNKS
+
+
+def _vector_plan(B, HW, C, es):
+    """The register route's plan, or None where a sample needs more than
+    REG_VECS vectors a thread of MAX_REG_THREADS."""
+    cvp = _pow2_at_least(C // 8)
+    ts = max(min(_pow2_at_least(-(-HW * C // 8 // REG_TARGET)),
+                 MAX_REG_THREADS), 32, cvp)
+    if -(-HW // (ts // cvp)) > REG_VECS:
+        return None
+    return Plan(ts, 1, HW, 8, "vector", 1,
+                smem_bytes(ts, HW, C, 8, es, registers=True), B)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, H: int, W: int, C: int, dtype: torch.dtype) -> Plan:
+    """The launch of one (B, C, H, W) norm; raises on a shape the kernel
+    does not take. A sample of at most REG_VECS x MAX_REG_THREADS
+    8-channel vectors takes the register route; a larger one goes through
+    shared memory, by bulk copies where its bytes are whole 16-byte
+    pieces, in one block or the smallest cluster whose blocks fit."""
+    if not 2 <= C <= MAX_CHANNELS:
+        raise ValueError(f"instance_norm_plus takes 2..{MAX_CHANNELS} "
+                         f"channels, got {C}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"instance_norm_plus takes float32 or bfloat16, got "
+                        f"{dtype}")
+    HW, es = H * W, (2 if dtype == torch.bfloat16 else 4)
+    vec = 8 if C % 8 == 0 else 1
+    whole16 = HW * C * es % 16 == 0
+    if vec == 8 and whole16:
+        p = _vector_plan(B, HW, C, es)
+        if p is not None:
+            return p
+    form = "bulk" if whole16 else "element"
+    cvp = _pow2_at_least(C // vec)
+    unit = 16 // gcd(16, C * es)  # pixels of a 16-byte multiple
+    for cs in (1, 2, 4, MAX_CLUSTER):
+        hwc = HW if cs == 1 else -(-(-(-HW // cs)) // unit) * unit
+        if cs > 1 and (cs - 1) * hwc >= HW:
+            continue  # a block would hold no pixel
+        ts = _pow2_at_least(-(-hwc * (C // vec) // VEC_PER_THREAD))
+        ts = max(min(ts, MAX_THREADS), 32, cvp)
+        nch = 1
+        if vec == 8 and form == "bulk":
+            nch = min(MAX_CHUNKS, max(1, hwc * C * es // CHUNK_BYTES))
+        smem = smem_bytes(ts, hwc, C, vec, es)
+        if smem <= MAX_SMEM:
+            return Plan(ts, cs, hwc, vec, form, nch, smem, B * cs)
+    raise ValueError(f"instance_norm_plus: a {H}x{W}x{C} {dtype} sample does "
+                     f"not fit {MAX_CLUSTER} blocks' shared memory")
 
 
 def instance_norm_plus_plain(x: torch.Tensor, alpha: torch.Tensor,
@@ -66,6 +178,24 @@ def _check_cuda(x: torch.Tensor, *params: torch.Tensor) -> None:
                              f"contiguous ({C},) {x.dtype} on {x.device}")
 
 
+def _launch(x: torch.Tensor, alpha: torch.Tensor, gamma: torch.Tensor,
+            beta: torch.Tensor, elu: bool, p: Plan) -> torch.Tensor:
+    """The kernel on checked card tensors, launched as `p` says."""
+    from . import _build
+
+    B, C, H, W = x.shape
+    out = torch.empty_like(x, memory_format=torch.channels_last)
+    rc = _build.library().sbc_instance_norm_plus(
+        x.data_ptr(), alpha.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        out.data_ptr(), B, H * W, C, int(elu),
+        int(x.dtype == torch.bfloat16), p.threads, p.cluster,
+        p.pixels_per_block, p.vec, COPIES.index(p.copy), p.chunks, p.smem,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("instance_norm_plus", rc)
+    COUNTS["launches"] += 1
+    return out
+
+
 def instance_norm_plus(x: torch.Tensor, alpha: torch.Tensor,
                        gamma: torch.Tensor, beta: torch.Tensor,
                        elu: bool = False) -> torch.Tensor:
@@ -76,14 +206,4 @@ def instance_norm_plus(x: torch.Tensor, alpha: torch.Tensor,
         raise RuntimeError(f"instance_norm_plus: no kernel for {x.device}")
     _check_cuda(x, alpha, gamma, beta)
     B, C, H, W = x.shape
-    out = torch.empty_like(x, memory_format=torch.channels_last)
-    from . import _build
-
-    rc = _build.library().sbc_instance_norm_plus(
-        x.data_ptr(), alpha.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        out.data_ptr(), B, H * W, C, int(elu),
-        int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check("instance_norm_plus", rc)
-    COUNTS["launches"] += 1
-    return out
+    return _launch(x, alpha, gamma, beta, elu, plan(B, H, W, C, x.dtype))

@@ -20,7 +20,10 @@ round-off, with identical hard decisions in the tests.
 
 Bound on an H100: bytes. The dense output written once (0.84 MB per
 packet), the 2,376 live messages, llr and the edge tables read once:
-85.2 MB per iteration at B=100, 0.0254 ms at 3.35 TB/s.
+215 MB per iteration at B=256, 0.0651 ms at 3.35 TB/s. The kernel builds
+the output in bands of check rows in shared memory and writes each band
+with one bulk store; `plan` sizes the launch (lanes per row, rows per band,
+shared bytes, store form). Design notes are in the source.
 
 `bp_iteration` dispatches on the tensor's device: a CPU tensor goes to
 `bp_iteration_plain`; a CUDA tensor launches the kernel or raises. Both
@@ -37,6 +40,7 @@ version on the card and prints both and the BER.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -44,7 +48,13 @@ import torch
 COUNTS = {"launches": 0, "plain": 0}
 
 BIG = 1e9  # |message| given to padding slots (the JAX body's masked value)
-MAX_N = 12288  # variable nodes held in the kernel's 48 KB of shared memory
+# must match csrc/ldpc_minsum.cu
+MAX_N = 8192        # variable nodes; the tables must fit shared memory too
+THREADS = 128       # a block, one per packet
+MAX_SMEM = 232_448  # an H100 block's shared memory
+SM_SMEM = 233_472   # an H100 SM's shared memory, 1 KB of it reserved a block
+NUM_SMS = 132       # H100 SXM
+COPIES = ("element", "bulk")  # the kernel's store codes 0, 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,14 +62,18 @@ class EdgeTables:
     """The live entries ("edges") of a parity-check mask, on one device.
 
     Edges are numbered in row-major (CSR) order. The kernel reads
-    row_ptr/row_cols and col_ptr/col_rows (int32); the plain version reads
-    the int64 gather tables, where index E names a padding slot."""
+    `packed`: row_ptr, row_cols, col_ptr and col_edge (int32; those four
+    fields are views of it) in one 16-byte padded array, for one bulk
+    copy. The plain version reads the int64 gather tables, where index E
+    names a padding slot."""
 
     m: int
     n: int
+    packed: torch.Tensor     # int32 [row_ptr, row_cols, col_ptr, col_edge, 0..]
     row_ptr: torch.Tensor    # (m+1,) int32
     row_cols: torch.Tensor   # (E,) int32, ascending within a row
     col_ptr: torch.Tensor    # (n+1,) int32
+    col_edge: torch.Tensor   # (E,) int32: edge ids by column, rows ascending
     col_rows: torch.Tensor   # (E,) int32, ascending within a column
     edge_flat: torch.Tensor  # (E,) int64: row * n + col
     edge_row: torch.Tensor   # (E,) int64
@@ -72,9 +86,13 @@ class EdgeTables:
     def num_edges(self) -> int:
         return self.row_cols.numel()
 
+    @property
+    def max_row_degree(self) -> int:
+        return self.row_edges.shape[1]
+
     def nbytes(self) -> int:
-        """Bytes of the kernel's four tables."""
-        return 4 * (self.m + 1 + self.n + 1 + 2 * self.num_edges)
+        """Bytes of the kernel's packed tables."""
+        return 4 * self.packed.numel()
 
 
 def edge_tables(mask, device=None) -> EdgeTables:
@@ -102,18 +120,87 @@ def edge_tables(mask, device=None) -> EdgeTables:
     col_edges = np.full((n, dc), E, np.int64)
     col_edges[cols[by_col], eid - col_ptr[cols[by_col]]] = by_col
 
-    def i32(a):
-        return torch.as_tensor(a, dtype=torch.int32, device=device)
-
     def i64(a):
         return torch.as_tensor(a, dtype=torch.int64, device=device)
 
+    parts = [row_ptr, cols, col_ptr, by_col]
+    ends = np.cumsum([0] + [a.size for a in parts])
+    flat = np.zeros(-(-ends[-1] // 4) * 4, np.int32)  # 16-byte multiple
+    flat[:ends[-1]] = np.concatenate(parts)
+    packed = torch.as_tensor(flat, device=device)
+    views = [packed[a:b] for a, b in zip(ends[:-1], ends[1:])]
     return EdgeTables(
-        m=m, n=n, row_ptr=i32(row_ptr), row_cols=i32(cols),
-        col_ptr=i32(col_ptr), col_rows=i32(rows[by_col]),
+        m=m, n=n, packed=packed, row_ptr=views[0], row_cols=views[1],
+        col_ptr=views[2], col_edge=views[3],
+        col_rows=torch.as_tensor(rows[by_col], dtype=torch.int32,
+                                 device=device),
         edge_flat=i64(rows * n + cols), edge_row=i64(rows),
         edge_col=i64(cols), edge_slot=i64(rows * dr + row_pos),
         row_edges=i64(row_edges), col_edges=i64(col_edges))
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch: a block of `threads` per packet; `lanes_per_row` lanes
+    take a check row (a power of two at least its degree, at most 32), so
+    a warp takes 32 / lanes_per_row rows at once; the output is built in
+    bands of `rows_per_band` rows, two buffers in shared memory, and leaves
+    by bulk stores (`copy` "bulk", n a multiple of 4) or element stores
+    ("element")."""
+
+    threads: int
+    lanes_per_row: int
+    rows_per_band: int
+    copy: str
+    smem: int
+    blocks: int
+
+
+def smem_bytes(m: int, n: int, E: int, R: int) -> int:
+    """Shared bytes of a block (csrc/ldpc_minsum.cu, Layout): two bands of
+    R rows, the packed tables, the packet's E live messages, the n totals
+    and the mbarrier."""
+    r16 = lambda v: -(-v // 16) * 16
+    return 2 * r16(R * n * 4) + 4 * -(-(m + n + 2 + 2 * E) // 4) * 4 \
+        + r16(4 * E) + r16(4 * n) + 16
+
+
+def _lanes(max_row_degree: int, R: int) -> int:
+    """Lanes per row: a power of two at least the degree, widened while
+    the block's warps would take twice the band's rows in one step."""
+    seg = 1
+    while seg < min(max_row_degree, 32):
+        seg *= 2
+    while seg < 32 and THREADS // seg >= 2 * R:
+        seg *= 2
+    return seg
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, m: int, n: int, E: int, max_row_degree: int) -> Plan:
+    """The launch of one iteration on B packets of an (m, n) code with E
+    edges; raises on a code the kernel does not take. A band is at most
+    the rows the block's warps take in one step, cut until all B blocks
+    fit on the card at once; bands leave by bulk stores where a row is
+    whole 16-byte pieces."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"bp_iteration: n = {n} is not in 1..{MAX_N}")
+    if smem_bytes(m, n, E, 1) > MAX_SMEM:
+        raise ValueError(f"bp_iteration: the tables of a code with m={m}, "
+                         f"n={n}, {E} edges exceed shared memory")
+    seg = 1
+    while seg < min(max_row_degree, 32):
+        seg *= 2
+    R = min(THREADS // seg, m)
+    per_sm = -(-B // NUM_SMS)  # blocks an SM for one wave
+    budget = lambda k: min(MAX_SMEM, SM_SMEM // k - 1024)
+    while per_sm > 1 and smem_bytes(m, n, E, 1) > budget(per_sm):
+        per_sm -= 1  # more than one wave
+    while R > 1 and smem_bytes(m, n, E, R) > budget(per_sm):
+        R -= 1
+    return Plan(THREADS, _lanes(max_row_degree, R), R,
+                "bulk" if n % 4 == 0 else "element",
+                smem_bytes(m, n, E, R), B)
 
 
 def _gather_padded(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
@@ -179,8 +266,23 @@ def _check_cuda(c2v, llr, t: EdgeTables) -> None:
     if llr.device != c2v.device or t.row_ptr.device != c2v.device:
         raise ValueError("bp_iteration: c2v, llr and the edge tables must "
                          "lie on one device")
-    if t.n > MAX_N:
-        raise ValueError(f"bp_iteration: n = {t.n} > {MAX_N}")
+
+
+def _launch(c2v: torch.Tensor, llr: torch.Tensor, t: EdgeTables,
+            normalize: float, p: Plan) -> torch.Tensor:
+    """The kernel on checked card tensors, launched as `p` says."""
+    from . import _build
+
+    out = torch.empty_like(c2v)
+    rc = _build.library().sbc_ldpc_minsum(
+        c2v.data_ptr(), llr.data_ptr(), out.data_ptr(), t.packed.data_ptr(),
+        c2v.shape[0], t.m, t.n, t.num_edges, t.max_row_degree,
+        float(normalize), p.lanes_per_row, p.rows_per_band,
+        COPIES.index(p.copy), p.smem,
+        torch.cuda.current_stream(c2v.device).cuda_stream)
+    _build.check("ldpc_minsum", rc)
+    COUNTS["launches"] += 1
+    return out
 
 
 def bp_iteration(c2v: torch.Tensor, llr: torch.Tensor, mask,
@@ -197,17 +299,8 @@ def bp_iteration(c2v: torch.Tensor, llr: torch.Tensor, mask,
         raise RuntimeError(f"bp_iteration: no kernel for {c2v.device}")
     t = tables if tables is not None else edge_tables(mask, c2v.device)
     _check_cuda(c2v, llr, t)
-    out = torch.empty_like(c2v)
-    from . import _build
-
-    rc = _build.library().sbc_ldpc_minsum(
-        c2v.data_ptr(), llr.data_ptr(), out.data_ptr(), t.row_ptr.data_ptr(),
-        t.row_cols.data_ptr(), t.col_ptr.data_ptr(), t.col_rows.data_ptr(),
-        c2v.shape[0], t.m, t.n, float(normalize),
-        torch.cuda.current_stream(c2v.device).cuda_stream)
-    _build.check("ldpc_minsum", rc)
-    COUNTS["launches"] += 1
-    return out
+    return _launch(c2v, llr, t, normalize, plan(
+        c2v.shape[0], t.m, t.n, t.num_edges, t.max_row_degree))
 
 
 def _bench(argv=None) -> None:

@@ -107,6 +107,121 @@ def test_edge_tables_describe_the_mask(code):
     assert t.row_edges.shape == (324, 8) and t.col_edges.shape == (648, 12)
 
 
+def test_edge_tables_pack_the_kernel_tables(code):
+    """The kernel's one bulk copy: row_ptr, row_cols, col_ptr and col_edge
+    (the edge ids column by column, rows ascending) back to back in one
+    int32 array padded to 16 bytes; the four fields are views of it."""
+    t = ldpc_minsum.edge_tables(torch.from_numpy(code.H))
+    parts = [t.row_ptr, t.row_cols, t.col_ptr, t.col_edge]
+    n = sum(p.numel() for p in parts)
+    assert t.packed.dtype == torch.int32 and t.packed.numel() % 4 == 0
+    assert n <= t.packed.numel() < n + 4 and t.nbytes() == 4 * t.packed.numel()
+    assert torch.equal(t.packed[:n], torch.cat(parts))
+    assert (t.packed[n:] == 0).all()
+    for p in parts:
+        assert p.untyped_storage().data_ptr() == \
+            t.packed.untyped_storage().data_ptr()
+    ce = t.col_edge.long()
+    assert torch.equal(t.edge_row[ce], t.col_rows.long())
+    assert torch.equal(t.edge_col[ce], torch.repeat_interleave(
+        torch.arange(t.n), torch.diff(t.col_ptr.long())))
+    assert t.max_row_degree == code.H.sum(1).max() == 8
+
+
+@pytest.mark.parametrize("make", ["make_wifi_ldpc", "make_wifi_like_ldpc"])
+@pytest.mark.parametrize("B", [1, 3, 100, 256, 257])
+def test_ldpc_plan_fits_the_card(make, B):
+    c = getattr(ldpc, make)()
+    t = ldpc_minsum.edge_tables(c.H)
+    p = ldpc_minsum.plan(B, t.m, t.n, t.num_edges, t.max_row_degree)
+    R = p.rows_per_band
+    assert (p.threads, p.copy, p.blocks) == (128, "bulk", B)
+    assert p.smem == ldpc_minsum.smem_bytes(t.m, t.n, t.num_edges, R)
+    # the band buffers, the packed tables, the messages and the totals
+    assert p.smem >= 2 * R * t.n * 4 + t.nbytes() + 4 * t.num_edges + 4 * t.n
+    # a band is at most one step of the 4 warps; every packet's block is
+    # on the card at once, and with a longer band they would not be
+    per_sm = -(-B // ldpc_minsum.NUM_SMS)
+    budget = ldpc_minsum.SM_SMEM // per_sm - 1024
+    assert p.smem <= budget and R <= 128 // p.lanes_per_row
+    assert R == 128 // p.lanes_per_row or ldpc_minsum.smem_bytes(
+        t.m, t.n, t.num_edges, R + 1) > budget
+    assert p.lanes_per_row >= t.max_row_degree
+    if make == "make_wifi_ldpc" and B in (100, 256):  # 16 and 15 rows
+        assert (R, p.lanes_per_row) == ((16, 8) if B == 100 else (15, 8))
+
+
+def test_ldpc_plan_limits():
+    with pytest.raises(ValueError, match="n ="):
+        ldpc_minsum.plan(2, 4, ldpc_minsum.MAX_N + 1, 8, 2)
+    with pytest.raises(ValueError, match="exceed shared memory"):
+        ldpc_minsum.plan(2, 4000, 8000, 30000, 8)  # tables of 256 KB
+    p = ldpc_minsum.plan(2, 6, 10, 20, 5)  # rows of 40 bytes: no bulk
+    assert (p.copy, p.lanes_per_row, p.rows_per_band) == ("element", 16, 6)
+    assert ldpc_minsum.plan(2, 6, 12, 20, 5).copy == "bulk"
+    p = ldpc_minsum.plan(2, 40, 64, 1600, 40)  # rows of degree 40
+    assert p.lanes_per_row == 32 and p.rows_per_band == 4
+    big = ldpc_minsum.plan(264, 500, 2000, 4000, 8)  # bands shrink to fit
+    assert big.smem <= ldpc_minsum.SM_SMEM // 2 - 1024
+    assert big.rows_per_band < 16
+
+
+@pytest.mark.parametrize("R,lanes", [(16, 8), (15, 8), (8, 16), (7, 16),
+                                     (4, 32), (2, 32), (1, 32)])
+def test_ldpc_lanes_a_row_fill_the_band(R, lanes):
+    """Rows of degree <= 8: 8 lanes a row, widened while the 4 warps
+    would take twice the band's rows in one step."""
+    assert ldpc_minsum._lanes(8, R) == lanes
+    assert ldpc_minsum._lanes(40, R) == 32
+
+
+def _segment_min_sum(a, seg):
+    """The kernel's reduction of one row: lane q takes positions q, q +
+    seg, ... in order, then a butterfly over the segment's lanes; each step
+    keeps the least (value, position) and the least of the rest."""
+    inf = float("inf")
+    lanes = []
+    for q in range(seg):
+        m1, i, m2 = inf, 1 << 30, inf
+        for p in range(q, len(a), seg):
+            if a[p] < m1 or (a[p] == m1 and p < i):
+                m1, i, m2 = a[p], p, min(m1, inf)
+            else:
+                m2 = min(m2, a[p])
+        lanes.append((m1, i, m2))
+    off = seg // 2
+    while off:
+        new = []
+        for q in range(seg):
+            (m1, i, m2), (n1, j, n2) = lanes[q], lanes[q ^ off]
+            if n1 < m1 or (n1 == m1 and j < i):
+                new.append((n1, j, min(m1, n2)))
+            else:
+                new.append((m1, i, min(m2, n1)))
+        lanes = new
+        off //= 2
+    assert len(set(lanes)) == 1  # every lane ends with the row's result
+    m1, i, m2 = lanes[0]
+    return m1, i, min(m2, ldpc_minsum.BIG)
+
+
+@pytest.mark.parametrize("seg", [1, 2, 8, 32])
+def test_segment_reduction_matches_the_plain_min_sum(seg):
+    """min1, first-occurrence argmin and min2 of the plain version
+    (strict <, BIG padding) from the kernel's lane order, ties included."""
+    rng = np.random.default_rng(seg)
+    for dr in (1, 2, 7, 8, 40):
+        for _ in range(20):
+            a = rng.integers(0, 4, dr).astype(np.float32)  # many ties
+            t = torch.from_numpy(a)[None]
+            min1 = t.min(-1, keepdim=True).values
+            pos = torch.arange(dr)
+            first = torch.where(t <= min1, pos, dr).min(-1).values
+            min2 = torch.where(pos == first, ldpc_minsum.BIG, t).min().item()
+            assert _segment_min_sum(list(a), seg) == (min1.item(),
+                                                      first.item(), min2)
+
+
 @pytest.mark.parametrize("start", ["zeros", "random"])
 def test_one_plain_iteration_matches_jax(code, start):
     """One iteration against the Pallas kernel in interpret mode and, from

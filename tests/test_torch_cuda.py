@@ -8,6 +8,7 @@ need not have; this file imports no JAX).
 """
 
 import ctypes
+import dataclasses
 
 import pytest
 import torch
@@ -70,20 +71,104 @@ def test_conv_kernel_matches_plain(card, H, W, Cin, Cout, k, d, bias, elu, B,
     assert err <= tol
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,W,C", [(64, 16, 32), (32, 8, 64), (8, 2, 128)])
-def test_norm_kernel_matches_plain(card, H, W, C, dtype):
-    g = torch.Generator().manual_seed(1)
-    x = (torch.randn(32, C, H, W, generator=g) * 2 + 0.5).to(
+NORM_SHAPES = [(64, 16, 32), (32, 8, 64), (16, 4, 64), (8, 2, 64),
+               (8, 2, 128)]  # the five of one NCSNv2-Deepest forward
+
+
+def _norm_inputs(card, B, C, H, W, dtype, seed=1):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(B, C, H, W, generator=g) * 2 + 0.5).to(
         card, dtype).contiguous(memory_format=torch.channels_last)
     a, gm, bt = (1 + 0.1 * torch.randn(3, C, generator=g)).to(card, dtype)
-    got = instance_norm.instance_norm_plus(x, a, gm, bt, elu=True)
-    want = instance_norm.instance_norm_plus_plain(x, a, gm, bt, elu=True)
+    return x, a, gm, bt
+
+
+def _norm_close(got, want, dtype):
+    """chip_smoke's bars: f32 rtol 2e-4 / atol 2e-5, bf16 2e-2 of
+    max|plain|."""
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
     else:
         err = (got.float() - want.float()).abs().max()
-        assert err <= 2e-2 * want.float().abs().max()
+        assert err <= 2e-2 * want.float().abs().max(), float(err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("elu", [False, True])
+@pytest.mark.parametrize("B", [32, 257])  # 257: 1 past a whole wave
+@pytest.mark.parametrize("H,W,C", NORM_SHAPES)
+def test_norm_kernel_matches_plain(card, H, W, C, B, elu, dtype):
+    x, a, gm, bt = _norm_inputs(card, B, C, H, W, dtype)
+    reset_counts()
+    got = instance_norm.instance_norm_plus(x, a, gm, bt, elu=elu)
+    want = instance_norm.instance_norm_plus_plain(x, a, gm, bt, elu=elu)
+    assert counts()["instance_norm_plus"] == {"launches": 1, "plain": 1}
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    _norm_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("H,W,C,B,dtype,route,forced", [
+    (64, 16, 32, 3, torch.bfloat16, ("bulk", 1), dict(chunks=1)),
+    (64, 16, 32, 3, torch.float32, ("bulk", 1), dict(chunks=3)),  # ragged
+    (48, 16, 32, 5, torch.float32, ("bulk", 1), {}),  # an empty 4th chunk
+    (40, 30, 8, 3, torch.bfloat16, ("bulk", 1), {}),  # past the registers
+    (64, 16, 64, 5, torch.float32, ("bulk", 2), {}),  # a sample, 2 blocks
+    (64, 16, 128, 3, torch.float32, ("bulk", 4), {}),
+    (128, 32, 64, 2, torch.float32, ("bulk", 8), {}),
+    (100, 100, 12, 3, torch.bfloat16, ("bulk", 2), {}),  # C = 12, 2 halves
+    (99, 101, 12, 2, torch.bfloat16, ("element", 2), {}),  # ragged halves
+    (8, 2, 12, 7, torch.float32, ("bulk", 1), {}),  # a channel a thread
+    (5, 3, 3, 6, torch.float32, ("element", 1), {}),  # 180 B a sample
+    (64, 16, 2, 5, torch.bfloat16, ("bulk", 1), {}),  # C = 2
+    (12, 10, 24, 3, torch.float32, ("vector", 1), {})])  # 3 ragged rows
+def test_norm_kernel_takes_every_plan(card, H, W, C, B, dtype, route, forced):
+    """Routes the main path does not reach: clusters for samples too
+    large for one block, element copies, one channel a thread, ragged and
+    other chunk counts (a plan with its chunks replaced)."""
+    p = dataclasses.replace(instance_norm.plan(B, H, W, C, dtype), **forced)
+    assert (p.copy, p.cluster) == route
+    x, a, gm, bt = _norm_inputs(card, B, C, H, W, dtype, seed=2)
+    for elu in (False, True):
+        got = instance_norm._launch(x, a, gm, bt, elu, p)
+        _norm_close(got, instance_norm.instance_norm_plus_plain(
+            x, a, gm, bt, elu), dtype)
+
+
+def test_norm_elu_near_zero_matches_expm1(card):
+    """f32 ELU is expm1f, as F.elu. Each channel holds +-k * 2^-20, k = 1
+    .. 512, so every sum of its mean is exact (mean 0 in both versions) and
+    the normalized values run from 3e-4 to 0.15: near 0, where exp(y) - 1
+    loses its relative accuracy, the kernel stays within 1e-5 of the plain
+    version relative to the value."""
+    B, C, H, W = 4, 32, 64, 16
+    g = torch.Generator().manual_seed(8)
+    k = torch.cat([torch.arange(1, 513), -torch.arange(1, 513)]).float()
+    x = torch.stack([k[torch.randperm(H * W, generator=g)]
+                     for _ in range(B * C)]) * 2.0 ** -20
+    x = x.view(B, C, H, W).to(card).contiguous(
+        memory_format=torch.channels_last)
+    zero, one = torch.zeros(C, device=card), torch.ones(C, device=card)
+    got = instance_norm.instance_norm_plus(x, zero, one, zero, elu=True)
+    want = instance_norm.instance_norm_plus_plain(x, zero, one, zero, elu=True)
+    near = want.abs() < 1e-2
+    assert near.sum() > 1000
+    rel = ((got - want).abs() / want.abs())[near]
+    assert rel.max() <= 1e-5, float(rel.max())
+
+
+@pytest.mark.parametrize("H,W,form", [(64, 16, "bulk"), (8, 2, "vector")])
+def test_norm_refuses_a_bulk_copy_it_cannot_take(card, H, W, form):
+    """A channels-last x 2 bytes off a 16-byte boundary: the plan says bulk
+    copies (or 16-byte loads), the pointer cannot take them, and the launch
+    raises (no element copy instead)."""
+    B, C = 2, 32
+    buf = torch.randn(B * H * W * C + 1, device=card).to(torch.bfloat16)
+    x = buf[1:].view(B, H, W, C).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    assert instance_norm.plan(B, H, W, C, x.dtype).copy == form
+    ones = torch.ones(C, device=card, dtype=x.dtype)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        instance_norm.instance_norm_plus(x, ones, ones, ones)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
@@ -233,7 +318,7 @@ def _ldpc_inputs(B, card, seed=0):
 
 
 @pytest.mark.parametrize("start", ["zeros", "random"])
-@pytest.mark.parametrize("B", [1, 5, 100])
+@pytest.mark.parametrize("B", [1, 3, 5, 100, 256, 257])
 def test_ldpc_kernel_matches_plain_bitexact(card, B, start):
     """Both add each column in ascending row order: equal after every
     iteration (torch.equal, under which -0.0 equals +0.0)."""
@@ -253,6 +338,62 @@ def test_ldpc_kernel_matches_plain_bitexact(card, B, start):
     assert torch.equal(ldpc_minsum.column_sums(ck, t),
                        ldpc_minsum.column_sums(cp, t))
     assert (ck[:, mask == 0] == 0).all()
+
+
+@pytest.mark.parametrize("copy,R", [("bulk", None), ("bulk", 7),
+                                    ("element", None)])
+def test_ldpc_store_forms_match_plain_bitexact(card, copy, R):
+    """Both band store forms and a ragged last band (324 rows in bands of
+    7; a plan with its band replaced), 3 iterations from random
+    messages."""
+    code, llr, mask = _ldpc_inputs(37, card, seed=2)
+    t = ldpc_minsum.edge_tables(mask)
+    E, dr = t.num_edges, t.max_row_degree
+    p = ldpc_minsum.plan(37, t.m, t.n, E, dr)
+    R = R or p.rows_per_band
+    p = dataclasses.replace(p, copy=copy, rows_per_band=R,
+                            lanes_per_row=ldpc_minsum._lanes(dr, R),
+                            smem=ldpc_minsum.smem_bytes(t.m, t.n, E, R))
+    g = torch.Generator().manual_seed(5)
+    ck = cp = torch.randn(37, code.m, code.n, generator=g).to(card) * mask
+    for _ in range(3):
+        ck = ldpc_minsum._launch(ck, llr, t, 0.75, p)
+        cp = ldpc_minsum.bp_iteration_plain(cp, llr, mask, 0.75, t)
+        assert torch.equal(ck, cp)
+
+
+def test_ldpc_refuses_a_bulk_copy_it_cannot_take(card):
+    """Packed tables 4 bytes off a 16-byte boundary: their one bulk copy
+    cannot take them, and the launch raises (no element copy instead)."""
+    code, llr, mask = _ldpc_inputs(2, card)
+    t = ldpc_minsum.edge_tables(mask)
+    buf = torch.zeros(t.packed.numel() + 1, dtype=torch.int32, device=card)
+    buf[1:] = t.packed
+    odd = dataclasses.replace(t, packed=buf[1:])
+    c2v = torch.zeros(2, code.m, code.n, device=card)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        ldpc_minsum.bp_iteration(c2v, llr, mask, 0.75, odd)
+
+
+def test_ldpc_kernel_takes_any_code(card):
+    """A random mask with rows of 1 to 40 edges, n not a multiple of 4
+    (element stores), bit for bit against the plain version."""
+    rng = np.random.default_rng(7)
+    m, n = 37, 103
+    H = np.zeros((m, n), np.float32)
+    for i in range(m):
+        H[i, rng.choice(n, size=1 + i % 40, replace=False)] = 1
+    mask = torch.from_numpy(H).to(card)
+    t = ldpc_minsum.edge_tables(mask)
+    assert ldpc_minsum.plan(4, m, n, t.num_edges, 40).copy == "element"
+    llr = torch.from_numpy(rng.standard_normal((4, n)).astype(np.float32)
+                           ).to(card)
+    ck = cp = torch.from_numpy(rng.standard_normal((4, m, n)).astype(
+        np.float32)).to(card) * mask
+    for _ in range(3):
+        ck = ldpc_minsum.bp_iteration(ck, llr, mask, 0.75, t)
+        cp = ldpc_minsum.bp_iteration_plain(cp, llr, mask, 0.75, t)
+        assert torch.equal(ck, cp)
 
 
 def test_minsum_decode_on_the_card_matches_the_cpu(card):

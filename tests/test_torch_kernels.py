@@ -246,6 +246,98 @@ def test_wgmma_plans_take_every_channel_count(Cin, Cout):
         conv.wgmma_plan(4, 8, 2, 129, 8, [0], [0])
 
 
+# the five norm shapes of one NCSNv2-Deepest forward (H, W, C)
+MAIN_PATH_NORMS = [(64, 16, 32), (32, 8, 64), (16, 4, 64), (8, 2, 64),
+                   (8, 2, 128)]
+
+
+@pytest.mark.parametrize("B", [256, 257, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,C", MAIN_PATH_NORMS)
+def test_norm_plan_fits_the_card(H, W, C, dtype, B):
+    p = instance_norm.plan(B, H, W, C, dtype)
+    es = 2 if dtype == torch.bfloat16 else 4
+    ts = p.threads
+    nvec = H * W * C // 8  # 8-channel vectors of a sample
+    assert (p.vec, p.cluster, p.pixels_per_block) == (8, 1, H * W)
+    assert ts % 32 == 0 and ts >= C // 8 and p.blocks == B  # a block a sample
+    if nvec <= instance_norm.REG_VECS * instance_norm.MAX_REG_THREADS:
+        # 16x4 and 8x2: each thread's vectors in registers, 16-byte
+        # loads and stores, no shared copy
+        assert p.copy == "vector" and p.chunks == 1
+        assert ts <= instance_norm.MAX_REG_THREADS
+        G = ts // (1 << (C // 8 - 1).bit_length())
+        assert -(-H * W // G) <= instance_norm.REG_VECS
+        assert p.smem == instance_norm.smem_bytes(ts, H * W, C, 8, es,
+                                                  registers=True)
+        assert p.smem < 8192
+    else:
+        # 64x16 and 32x8: in by bulk copies of 16-32 KB
+        assert p.copy == "bulk" and ts <= instance_norm.MAX_THREADS
+        assert nvec <= ts * instance_norm.VEC_PER_THREAD
+        assert p.chunks == min(4, H * W * C * es // 16384)
+        assert p.smem == instance_norm.smem_bytes(ts, H * W, C, 8, es)
+        assert H * W * C * es < p.smem <= instance_norm.MAX_SMEM
+    if (H, W) == (64, 16) and dtype == torch.bfloat16:
+        assert 3 * p.smem <= instance_norm.MAX_SMEM  # three blocks an SM
+    if (H, W) == (8, 2):
+        # a short block a sample, REG_TARGET vectors a thread
+        assert ts == nvec // instance_norm.REG_TARGET
+    assert instance_norm.plan(B, H, W, C, dtype) is p  # made once
+
+
+@pytest.mark.parametrize("C", [2, 3, 7, 12, 24, 100, 128])
+def test_norm_plan_takes_every_channel_count(C):
+    for H, W in ((64, 16), (8, 2), (5, 3), (1, 1)):
+        for dtype, es in ((torch.float32, 4), (torch.bfloat16, 2)):
+            p = instance_norm.plan(3, H, W, C, dtype)
+            assert p.vec == (8 if C % 8 == 0 else 1)
+            whole = H * W * C * es % 16 == 0
+            assert p.copy in (("bulk", "vector") if whole and C % 8 == 0
+                              else ("bulk",) if whole else ("element",))
+            cvp = 1 << (C // p.vec - 1).bit_length()
+            assert p.threads % cvp == 0
+            assert p.smem <= instance_norm.MAX_SMEM
+
+
+@pytest.mark.parametrize("H,W,C,dtype,cluster,copy", [
+    (64, 16, 128, torch.float32, 4, "bulk"),     # 512 KB a sample
+    (64, 16, 128, torch.bfloat16, 2, "bulk"),
+    (64, 16, 64, torch.float32, 2, "bulk"),      # 256 KB
+    (100, 100, 12, torch.bfloat16, 2, "bulk"),   # one channel a thread
+    (99, 101, 12, torch.bfloat16, 2, "element"),  # 239,976 B: ragged halves
+    (128, 32, 64, torch.float32, 8, "bulk")])    # 1 MB
+def test_norm_cluster_plans_split_a_sample(H, W, C, dtype, cluster, copy):
+    """A sample too large for one block's shared memory goes to the
+    smallest cluster whose blocks fit; the blocks cover its pixels, 16-byte
+    aligned, each with at least one pixel."""
+    p = instance_norm.plan(3, H, W, C, dtype)
+    es = 2 if dtype == torch.bfloat16 else 4
+    hwc = p.pixels_per_block
+    assert (p.cluster, p.copy) == (cluster, copy) and p.blocks == 3 * cluster
+    assert (cluster - 1) * hwc < H * W <= cluster * hwc
+    assert hwc * C * es % 16 == 0
+    assert p.smem <= instance_norm.MAX_SMEM
+    smaller = cluster // 2
+    assert instance_norm.smem_bytes(
+        p.threads, -(-H * W // smaller), C, p.vec, es) > instance_norm.MAX_SMEM
+
+
+def test_norm_plan_refuses_what_the_kernel_does_not_take():
+    for C in (1, 129):
+        with pytest.raises(ValueError, match="channels"):
+            instance_norm.plan(2, 8, 2, C, torch.float32)
+    with pytest.raises(TypeError):
+        instance_norm.plan(2, 8, 2, 8, torch.float16)
+    with pytest.raises(ValueError, match="fit"):  # 32 MB a sample
+        instance_norm.plan(2, 256, 256, 128, torch.float32)
+    # 180 B a sample: no 16-byte pieces, element copies
+    assert instance_norm.plan(2, 5, 3, 3, torch.float32).copy == "element"
+    # a register-route sample of one channel group: the fewest threads
+    p = instance_norm.plan(2, 8, 2, 8, torch.bfloat16)
+    assert (p.copy, p.threads, p.chunks) == ("vector", 32, 1)
+
+
 def test_wrappers_count_and_refuse_other_devices():
     reset_counts()
     x = torch.randn(2, 8, 8, 2).contiguous(memory_format=torch.channels_last)
