@@ -32,7 +32,8 @@ Phases (any failure propagates and the exit code is non-zero):
      cases (with and without bias and ELU) and at every conv shape of the
      forward (timed beside `conv2d_taps`), `conv_chain` at 8x2 c128 for
      n = 4, 8 and a dilated chain, all at batch 256 in float32 and
-     bfloat16; the harness `kernels.conv_probe.main` at full width with its
+     bfloat16, and the n = 8 bf16 chain at each thread-block cluster size
+     and samples per block; the harness `kernels.conv_probe.main` at full width with its
      launch counts; `fused_forward` at batch 256 in bfloat16 against the
      module forward, with its launch counts;
   7. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
@@ -40,6 +41,7 @@ Phases (any failure propagates and the exit code is non-zero):
 Details too long for the output go to chiprun_out/chip_smoke.json.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -594,24 +596,52 @@ def check_chains(g):
                   f"ms  plain {r['plain_ms']:.4f}  library chain "
                   f"{r['library_chain_ms']:.4f}  bound "
                   f"{max(r['bytes_ms'], r['ops_ms']):.4f}", flush=True)
-    # the plan's samples per block (B // BLOCKS), against its neighbours,
-    # on the n = 8 bf16 chain: every block streams all the weights
-    x = torch.randn(S, BATCH, C, generator=g).to("cuda", torch.bfloat16)
-    ws = (torch.randn(8, 3, 3, C, C, generator=g) / (9 * C) ** 0.5).to(
-        "cuda", torch.bfloat16)
-    bs = torch.zeros(8, C, device="cuda")
+    # the n = 8 bf16 chain at each cluster size (the plan with its cluster
+    # replaced), held against the plain version: each cluster of CL blocks
+    # fetches the chain's weights from L2 once
+    n, T, bf = 8, len(conv.live_taps(3, 1, H, W)), torch.bfloat16
+    x = torch.randn(S, BATCH, C, generator=g).to("cuda", bf)
+    ws = (torch.randn(n, 3, 3, C, C, generator=g) / (9 * C) ** 0.5).to(
+        "cuda", bf)
+    bs = (0.1 * torch.randn(n, C, generator=g)).cuda()
+    want = cc.conv_chain_plain(x, ws, bs, H, W, 1)
+    base = cc.plan(BATCH, H, W, C, bf)
+    by_cluster = {}
+    for cl in cc.CLUSTERS:
+        p = dataclasses.replace(base, cluster=cl)
+        got = cc._launch(x, ws, bs, H, W, 1, p)
+        torch.cuda.synchronize()
+        err = rel_check(got, want, TOL[("chain", bf)], f"chain n=8 CL={cl}")
+        clusters = cc.grid(BATCH, p) // cl
+        by_cluster[cl] = dict(
+            ms=cuda_ms(lambda: cc._launch(x, ws, bs, H, W, 1, p)),
+            l2_weight_mb=clusters * n * T * C * C * 2 / 1e6,
+            clusters=clusters, max_active_clusters=cc.max_clusters(p),
+            max_abs_err=err)
+        r = by_cluster[cl]
+        mark = "  (the plan's)" if cl == base.cluster else ""
+        print(f"conv_chain n=8 bf16 CL={cl}: {r['ms']:.4f} ms, L2 weight "
+              f"reads {r['l2_weight_mb']:.1f} MB a chain, {clusters} "
+              f"clusters launched, cudaOccupancyMaxActiveClusters "
+              f"{r['max_active_clusters']}, max abs err {err:.2e} (tol "
+              f"{TOL[('chain', bf)]} of max|plain|){mark}", flush=True)
+    # the plan's samples per block (B // BLOCKS) against its neighbours, at
+    # the plan's cluster size
     sweep = {}
     for blocks in (256, 128, 64, 32):
         cc.BLOCKS = blocks
-        cc._launch_args.cache_clear()
-        sb = cc.plan(BATCH, H, W, C, torch.bfloat16).SB
+        cc._plan.cache_clear()
+        sb = cc.plan(BATCH, H, W, C, bf).SB
         sweep[sb] = cuda_ms(lambda: cc.conv_chain(x, ws, bs, H, W, 1))
     cc.BLOCKS = 128
-    cc._launch_args.cache_clear()
-    print("# conv_chain n=8 bf16 ms by samples per block: "
+    cc._plan.cache_clear()
+    print(f"# conv_chain n=8 bf16 ms by samples per block at CL="
+          f"{base.cluster}: "
           + ", ".join(f"{sb}: {ms:.4f}" for sb, ms in sweep.items()))
-    next(r for r in rows if (r["n"], r["d"], r["dtype"]) == (8, 1, "bfloat16")
-         )["samples_per_block_ms"] = sweep
+    row = next(r for r in rows
+               if (r["n"], r["d"], r["dtype"]) == (8, 1, "bfloat16"))
+    row.update(cluster=base.cluster, by_cluster=by_cluster,
+               samples_per_block_ms=sweep)
     return rows
 
 
@@ -913,11 +943,14 @@ def main():
         name="conv_chain", route="cuda", source=SOURCES["conv_chain"][0],
         replaces=SOURCES["conv_chain"][1],
         launches=probe["harness_counts"]["conv_chain"]["launches"],
-        max_abs_err=max(r["max_abs_err"] for r in probe["chain_rows"]),
+        max_abs_err=max([r["max_abs_err"] for r in probe["chain_rows"]]
+                        + [r["max_abs_err"] for r in
+                           ch["by_cluster"].values()]),
         ms=ch["ms"], plain_ms=ch["plain_ms"],
         bound_ms=max(ch["bytes_ms"], ch["ops_ms"]),
         bound_by="bytes" if ch["bytes_ms"] >= ch["ops_ms"] else "operations",
-        library_ms=None, library_chain_ms=ch["library_chain_ms"]))
+        library_ms=None, library_chain_ms=ch["library_chain_ms"],
+        cluster=ch["cluster"]))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

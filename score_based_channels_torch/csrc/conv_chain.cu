@@ -23,8 +23,16 @@
 //    each lane of ldmatrix names one gathered row (the tap's shifted pixel,
 //    or the zero row), so the shifted, masked patch is never built. The
 //    weights stream one tap's (C, C) matrix (32 KB at C = 128) at a time
-//    through a ring of four buffers, cp.async keeping three taps in
-//    flight while the block multiplies with the fourth.
+//    through a ring of four buffers, three taps in flight while the block
+//    multiplies with the fourth. The blocks run in thread-block clusters
+//    of CL, which share one weight stream: rank r of the cluster fetches
+//    rows [r C / CL, (r + 1) C / CL) of each tap by 1-D bulk copies (one a
+//    row, into the padded row) multicast to all CL blocks, so each tap
+//    leaves L2 once a cluster. A slot's full mbarrier counts the tap's
+//    bytes landing in this block; its empty mbarrier takes one arrival
+//    from each block of the cluster once that block has read the slot, and
+//    a rank issues into the slot again only when its own empty barrier has
+//    all CL. CL = 1 is the same code with a mask of one block.
 //    Each warp owns a 16-pixel x 32-channel tile of the output. Rounding an
 //    f32 sum to bf16 between steps is what the Pallas kernel does, so the
 //    bf16 activations lose nothing.
@@ -37,18 +45,25 @@
 // Bound on an H100: at the probe's 8x2, C = 128, n = 8, batch 256 in bf16
 // the chain is 9.66 GFLOP against ~4.5 MB of input, output and weights, so
 // the operations bound it (>= 0.0098 ms on the bf16 tensor cores; in f32,
-// >= 0.144 ms on the FMA units). What limits this design instead is the
-// weight stream: every block reads all the chain's weights from L2. The
-// plan (kernels/conv_chain.py::plan) takes SB = B / 128 samples per block
-// (2 at batch 256): 128 blocks fill all but 4 of the 132 SMs and read the
-// n = 8 bf16 weights 128 times (~300 MB of L2 reads); one sample per block
-// would double that, and eight would leave 100 SMs idle. Sharing one
-// weight stream among the blocks of a thread-block cluster (TMA multicast)
-// is later work.
+// >= 0.144 ms on the FMA units). The plan (kernels/conv_chain.py::plan)
+// takes SB = B / 128 samples per block (2 at batch 256): 128 blocks fill
+// all but 4 of the 132 SMs. Every block needs every tap (2.36 MB at n = 8),
+// so without clusters the weights leave L2 128 times (~300 MB); a cluster
+// of CL blocks divides those reads by CL, but not the bulk copies that a
+// block receives: one a padded row, C a tap. On an H100 each costs the
+// receiving SM some 30 ns whatever its size, so it is this stream, not L2
+// nor the products, that limits the design (PERF.md): more samples per
+// block or clusters of 4 or 8 (which the card cannot all hold at once at
+// 128 blocks) do not change it. A tap that lands in one bulk copy needs a
+// layout without the row pad (a swizzle, so that ldmatrix stays free of
+// bank conflicts); that, and wgmma on the resident activations, is later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -316,24 +331,16 @@ __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Warps: MT = ceil(M / 16) pixel tiles x ceil(C / 32) channel groups; each
 // warp owns 16 pixels x 32 channels (four n8 tiles). Shared memory: two
 // activation buffers of (Mpad + 1) rows and kStages (C, C) weight
 // buffers, all bf16 with rows of C + 8 (an odd number of 16-byte units, so
-// the eight rows of an ldmatrix phase fall in distinct banks).
+// the eight rows of an ldmatrix phase fall in distinct banks), then the
+// kStages full and kStages empty mbarriers of the weight ring. Launched in
+// clusters of CL blocks (C % CL == 0); a block of a padded grid that owns
+// no sample computes on zeros, stores nothing, and fetches and releases
+// its share of the weights as the others do.
 __global__ void __launch_bounds__(1024)
     conv_chain_mma_kernel(const bf16* __restrict__ x,
                           const bf16* __restrict__ ws,
@@ -341,7 +348,7 @@ __global__ void __launch_bounds__(1024)
                           bf16* __restrict__ out, int n, int B, int H, int W,
                           int C, int kk, long long xs_b, long long xs_h,
                           long long xs_w, long long os_b, long long os_h,
-                          long long os_w, Taps taps, int SB) {
+                          long long os_w, Taps taps, int SB, int CL) {
   extern __shared__ uint4 smem_u4[];
   bf16* smem = reinterpret_cast<bf16*>(smem_u4);
   const int S = H * W, M = SB * S;
@@ -352,10 +359,44 @@ __global__ void __launch_bounds__(1024)
   bf16* act0 = smem;
   bf16* act1 = act0 + (Mpad + 1) * AP;
   bf16* wbuf = act1 + (Mpad + 1) * AP;  // kStages slots, C * AP apart
+  uint64_t* full = reinterpret_cast<uint64_t*>(wbuf + kStages * C * AP);
+  uint64_t* empty = full + kStages;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int b0 = blockIdx.x * SB;
+  const int rank = sm90::cluster_rank();
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(full + s, 1);    // this block's arm; the bytes
+      sm90::mbar_init(empty + s, CL);  // one arrival from each block
+    }
+    sm90::fence_barrier_init();
+  }
+  sm90::cluster_sync();  // no peer copies or arrives before the barriers exist
+
+  const int total = n * taps.n;
+  const int rows = C / CL;  // this rank's share of a tap's rows
+  const uint16_t all = (uint16_t)((1u << CL) - 1u);
+  // warp 0: this block's arm of tap q's full barrier, and this rank's rows
+  // of tap q's (C, C) matrix into its ring slot of every block of the
+  // cluster, once every block has released the slot's tap before
+  auto issue = [&](int q) {
+    if (warp != 0 || q >= total) return;
+    const int slot = q % kStages;
+    if (q >= kStages)
+      sm90::mbar_wait_cluster(empty + slot, (q / kStages - 1) & 1);
+    if (lane == 0) sm90::mbar_arrive_expect_tx(full + slot, C * C * 2);
+    const bf16* src =
+        ws + ((size_t)(q / taps.n) * kk + taps.wi[q % taps.n]) * C * C;
+    bf16* dst = wbuf + slot * C * AP;
+    for (int r = rank * rows + lane; r < (rank + 1) * rows; r += 32)
+      sm90::bulk_load_multicast(dst + r * AP, src + (size_t)r * C, C * 2,
+                                full + slot, all);
+    __syncwarp();
+  };
+  for (int q = 0; q < kStages - 1; ++q) issue(q);  // while staging
 
   // stage the block's samples, eight channels per item; the rest is zero
   for (int i = tid; i < (Mpad + 1) * C8; i += nt) {
@@ -381,22 +422,6 @@ __global__ void __launch_bounds__(1024)
   const int bk = (lane & 7) + 8 * ((lane >> 3) & 1);
   const int bn = 8 * (lane >> 4);
 
-  const int total = n * taps.n;
-  // tap q's (C, C) matrix into its ring slot, as one cp.async group (an
-  // empty group past the last tap keeps the count of groups uniform)
-  auto load_w = [&](int q) {
-    if (q < total) {
-      const bf16* src =
-          ws + ((size_t)(q / taps.n) * kk + taps.wi[q % taps.n]) * C * C;
-      bf16* dst = wbuf + (q % kStages) * C * AP;
-      for (int i = tid; i < C * C8; i += nt) {
-        const int r = i / C8, c = (i % C8) * 8;
-        cp_async16(dst + r * AP + c, src + (size_t)r * C + c);
-      }
-    }
-    cp_async_commit();
-  };
-
   float acc[4][4];
 #pragma unroll
   for (int j = 0; j < 4; ++j)
@@ -404,13 +429,12 @@ __global__ void __launch_bounds__(1024)
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   bf16* cur = act0;
   bf16* nxt = act1;
-  for (int q = 0; q < kStages - 1; ++q) load_w(q);
+  __syncthreads();  // the samples are staged
   for (int q = 0; q < total; ++q) {
     const int t = q % taps.n;
     const bf16* wb = wbuf + (q % kStages) * C * AP;
-    load_w(q + kStages - 1);  // into the slot read out at q - 1
-    cp_async_wait<kStages - 1>();  // tap q's copy has landed
-    __syncthreads();  // ... for every thread; the last epilogue is done
+    issue(q + kStages - 1);  // into the slot read out at q - 1
+    sm90::mbar_wait(full + q % kStages, (q / kStages) & 1);  // tap q landed
     const int hh = ah + taps.dy[t], ww = aw + taps.dx[t];
     const int src = (as >= 0 && hh >= 0 && hh < H && ww >= 0 && ww < W)
                         ? as + hh * W + ww
@@ -454,7 +478,10 @@ __global__ void __launch_bounds__(1024)
       cur = nxt;
       nxt = tmp;
     }
-    __syncthreads();  // wb is read out before it is refilled
+    __syncthreads();  // wb is read out, the epilogue written
+    if (tid == 0)  // ... so this block releases the slot in every block
+      for (int r = 0; r < CL; ++r)
+        sm90::mbar_arrive_cluster(empty + q % kStages, r);
   }
   for (int i = tid; i < M * C8; i += nt) {
     const int m = i / C8, c = (i % C8) * 8;
@@ -464,6 +491,7 @@ __global__ void __launch_bounds__(1024)
                                 (s % W) * os_w + c) =
           *reinterpret_cast<const uint4*>(cur + m * AP + c);
   }
+  sm90::cluster_sync();  // no peer still arrives on this block's barriers
 }
 
 template <typename K>
@@ -473,17 +501,51 @@ cudaError_t allow_smem(K kernel, int smem_bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
 }
 
+// the launch of the tensor-core kernel in clusters of CL blocks
+cudaLaunchConfig_t cluster_config(unsigned grid, int threads, int smem_bytes,
+                                  cudaStream_t s, int CL,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = CL;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 }  // namespace
 
-// route 1: the bf16 tensor-core kernel; route 0: the FMA kernel
+// the number of CL-block clusters of the tensor-core kernel that the card
+// can hold at once, with `threads` threads and `smem_bytes` a block
+extern "C" int sbc_conv_chain_max_clusters(int threads, int smem_bytes,
+                                           int CL, int* out) {
+  cudaError_t e = allow_smem(conv_chain_mma_kernel, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(CL, threads, smem_bytes, nullptr, CL, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      out, reinterpret_cast<const void*>(conv_chain_mma_kernel), &cfg);
+}
+
+// `grid` blocks of SB samples; route 1: the bf16 tensor-core kernel, in
+// clusters of CL blocks (grid a multiple of CL); route 0: the FMA kernel
+// (CL unused). A cluster launch the card refuses returns its error.
 extern "C" int sbc_conv_chain(const void* x, const void* ws, const void* bs,
                               void* out, int n, int B, int H, int W, int C,
                               int k, long long xs_b, long long xs_h,
                               long long xs_w, long long os_b, long long os_h,
                               long long os_w, int ntaps, const int* dy,
-                              const int* dx, const int* wi, int route, int SB,
-                              int CK, int threads, int smem_bytes, int bf16_in,
-                              int bs_bf16, void* stream) {
+                              const int* dx, const int* wi, int route,
+                              int grid, int SB, int CL, int CK, int threads,
+                              int smem_bytes, int bf16_in, int bs_bf16,
+                              void* stream) {
   if (ntaps < 1 || ntaps > kMaxTaps) return (int)cudaErrorInvalidValue;
   Taps taps;
   taps.n = ntaps;
@@ -493,17 +555,22 @@ extern "C" int sbc_conv_chain(const void* x, const void* ws, const void* bs,
     taps.wi[t] = t < ntaps ? wi[t] : 0;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = (unsigned)((B + SB - 1) / SB);
   cudaError_t e;
   if (route == 1) {
-    if (!bf16_in || C % 16 != 0) return (int)cudaErrorInvalidValue;
+    if (!bf16_in || C % 16 != 0 || CL < 1 || CL > 16 || C % CL != 0)
+      return (int)cudaErrorInvalidValue;
     if ((e = allow_smem(conv_chain_mma_kernel, smem_bytes)) != cudaSuccess)
       return (int)e;
-    conv_chain_mma_kernel<<<grid, threads, smem_bytes, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(ws), bs, bs_bf16,
-        static_cast<bf16*>(out), n, B, H, W, C, k * k, xs_b, xs_h, xs_w, os_b,
-        os_h, os_w, taps, SB);
-    return (int)cudaGetLastError();
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(grid, threads, smem_bytes, s, CL, &attr);
+    e = cudaLaunchKernelEx(&cfg, conv_chain_mma_kernel,
+                           static_cast<const bf16*>(x),
+                           static_cast<const bf16*>(ws), bs, bs_bf16,
+                           static_cast<bf16*>(out), n, B, H, W, C, k * k, xs_b,
+                           xs_h, xs_w, os_b, os_h, os_w, taps, SB, CL);
+    const cudaError_t last = cudaGetLastError();  // cleared either way
+    return (int)(e != cudaSuccess ? e : last);
   }
   // the FMA kernel's prefetch covers one chunk with PV four-wide loads
   const int cp = (C + TN - 1) / TN * TN;

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the kernels (conv2d_taps.cu,
-// conv_im2col.cu, instance_norm_plus.cu, ldpc_minsum.cu):
+// conv_im2col.cu, conv_chain.cu, instance_norm_plus.cu, ldpc_minsum.cu):
 //
 //  - mbarriers: init, arrive, arrive with an expected transaction count,
 //    the cp.async arrive that fires when a thread's copies have landed, and
 //    the parity wait;
-//  - 1-D bulk copies (cp.async.bulk) in both directions, and thread-block
-//    cluster barriers and peer shared-memory loads;
+//  - 1-D bulk copies (cp.async.bulk) in both directions, and the multicast
+//    load into every block of a thread-block cluster;
+//  - thread-block clusters: barriers, peer shared-memory loads, an arrival
+//    on a peer block's mbarrier and a wait that acquires at cluster scope;
 //  - TMA: tiled 2-D and 4-D loads (cp.async.bulk.tensor) that complete on
 //    an mbarrier, and the host's cuTensorMapEncodeTiled, fetched once from
 //    the CUDA driver through the runtime (the library has no -lcuda);
@@ -114,6 +116,20 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
+// device memory -> the same shared-memory offset as dst in every block of
+// the cluster whose rank's bit is set in cta_mask; completes `bytes` of the
+// expected transaction count of the barrier at bar's offset in each of those
+// blocks (each arms its own barrier with mbar_arrive_expect_tx)
+__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src,
+                                                    uint32_t bytes,
+                                                    uint64_t* bar,
+                                                    uint16_t cta_mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(cta_mask)
+      : "memory");
+}
 // shared memory -> device memory, in the issuing thread's bulk group; the
 // shared-memory writes it reads must be ordered first by fence_proxy_async
 // and a barrier
@@ -167,6 +183,37 @@ __device__ __forceinline__ float ld_peer(const float* p, int rank) {
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a)
                : "memory");
   return v;
+}
+
+// one arrival on the barrier at bar's offset in block `rank` of the cluster
+// (this block's own rank included), releasing at cluster scope this
+// thread's earlier accesses (and those a barrier ordered before them)
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, int rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+// mbar_wait for a barrier that blocks of the cluster arrive on: acquires
+// at cluster scope what their mbar_arrive_cluster released
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -45,7 +45,8 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sbc_conv_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L,
                        _L, _L, _L, _I, _IP, _IP, _IP, _I, _I, _I, _I, _I, _I,
-                       _I, _P],
+                       _I, _I, _I, _P],
+    "sbc_conv_chain_max_clusters": [_I, _I, _I, _IP],
     "sbc_instance_norm_plus": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _P],
     "sbc_ldpc_minsum": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,

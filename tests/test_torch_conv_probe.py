@@ -10,6 +10,8 @@ rtol 1e-4 / atol 1e-5 (:111), fused forward rtol 2e-4 / atol 2e-5
 card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -138,6 +140,35 @@ def test_chain_plan_fits_the_card(B):
     assert q.route == conv_chain.MMA and q.SB == p.SB
     assert q.threads == -(-(q.SB * 16) // 16) * 4 * 32  # 16 x 32 per warp
     assert q.smem <= conv_chain.MAX_SMEM
+
+
+@pytest.mark.parametrize("B", [1, 5, 8, 40, 256, 300, 1024])
+def test_chain_plan_clusters(B):
+    """The MMA route's clusters: CL in {1, 2, 4, 8}, no larger than the
+    blocks the batch needs, a grid padded to a multiple of CL by fewer
+    than CL blocks, and shared memory, mbarriers included, that fits."""
+    H, W, C = 8, 2, 128
+    p = conv_chain.plan(B, H, W, C, torch.bfloat16)
+    blocks = -(-B // p.SB)
+    assert p.cluster in conv_chain.CLUSTERS
+    assert p.cluster == min(conv_chain.CLUSTER,
+                            max(c for c in conv_chain.CLUSTERS if c <= blocks))
+    g = conv_chain.grid(B, p)
+    assert g % p.cluster == 0 and blocks <= g < blocks + p.cluster
+    assert C % p.cluster == 0  # each rank fetches C / CL rows of a tap
+    mpad = -(-(p.SB * H * W) // 16) * 16
+    assert p.smem == (2 * (2 * (mpad + 1) + conv_chain.STAGES * C) * (C + 8)
+                      + 2 * 8 * conv_chain.STAGES)  # full + empty barriers
+    assert p.smem <= conv_chain.MAX_SMEM
+    assert conv_chain.plan(B, H, W, C).cluster == 1  # the FMA route
+
+
+def test_chain_plan_keeps_two_samples_a_block_at_batch_256():
+    p = conv_chain.plan(256, 8, 2, 128, torch.bfloat16)
+    assert (p.SB, p.cluster) == (2, conv_chain.CLUSTER)
+    assert conv_chain.grid(256, p) == 128
+    assert conv_chain.grid(5, dataclasses.replace(
+        conv_chain.plan(5, 8, 2, 128, torch.bfloat16), cluster=8)) == 8
 
 
 def test_chain_plan_routes_and_limits():

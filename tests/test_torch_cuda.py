@@ -465,28 +465,56 @@ def test_im2col_kernel_matches_plain(card, H, W, Cin, Cout, k, d, bias, act,
     assert counts()["conv_im2col"] == {"launches": 2, "plain": 1}
 
 
+def _chain_inputs(card, H, W, C, B, n, dtype):
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(H * W, B, C, generator=g).to(card, dtype)
+    ws = (torch.randn(n, 3, 3, C, C, generator=g) / (9 * C) ** 0.5).to(
+        card, dtype)
+    bs = (0.1 * torch.randn(n, C, generator=g)).to(card)
+    return x, ws, bs
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,W,C,B,n,d", [(8, 2, 128, 256, 4, 1),
                                          (8, 2, 128, 40, 2, 2),
                                          (8, 2, 16, 8, 3, 1),
                                          (8, 2, 64, 300, 2, 1),
                                          (4, 4, 24, 5, 2, 1)])
-def test_chain_kernel_matches_plain(card, H, W, C, B, n, d, dtype):
-    g = torch.Generator().manual_seed(3)
-    x = torch.randn(H * W, B, C, generator=g).to(card, dtype)
-    ws = (torch.randn(n, 3, 3, C, C, generator=g) / (9 * C) ** 0.5).to(
-        card, dtype)
-    bs = (0.1 * torch.randn(n, C, generator=g)).to(card)
+def test_chain_kernel_matches_plain(card, H, W, C, B, n, d, dtype, cluster):
+    """The wrapper's own plan, and on the tensor-core route the plan with
+    its cluster replaced (B = 300 and 5 pad the grid to whole clusters)."""
+    x, ws, bs = _chain_inputs(card, H, W, C, B, n, dtype)
+    p = conv_chain.plan(B, H, W, C, dtype)
+    if p.route == conv_chain.MMA:
+        p = dataclasses.replace(p, cluster=cluster)
     reset_counts()
     got = conv_chain.conv_chain(x, ws, bs, H, W, d)
+    forced = conv_chain._launch(x, ws, bs, H, W, d, p)
     want = conv_chain.conv_chain_plain(x, ws, bs, H, W, d)
-    assert counts()["conv_chain"] == {"launches": 1, "plain": 1}
-    assert got.dtype == dtype and got.shape == x.shape
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
-    else:
-        err = (got.float() - want.float()).abs().max()
-        assert err <= 2e-2 * want.float().abs().max(), float(err)
+    assert counts()["conv_chain"] == {"launches": 2, "plain": 1}
+    for y in (got, forced):
+        assert y.dtype == dtype and y.shape == x.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(y, want, rtol=1e-4, atol=1e-5)
+        else:
+            err = (y.float() - want.float()).abs().max()
+            assert err <= 2e-2 * want.float().abs().max(), float(err)
+
+
+@pytest.mark.parametrize("cluster", [3, 16])
+def test_chain_cluster_the_card_cannot_launch_raises(card, cluster):
+    """A cluster that does not divide the channels (3) or passes the
+    portable size (16) is refused: the wrapper raises and launches
+    nothing else in its place."""
+    x, ws, bs = _chain_inputs(card, 8, 2, 128, 256, 2, torch.bfloat16)
+    p = dataclasses.replace(conv_chain.plan(256, 8, 2, 128, torch.bfloat16),
+                            cluster=cluster)
+    reset_counts()
+    with pytest.raises(RuntimeError, match="conv_chain: CUDA error"):
+        conv_chain._launch(x, ws, bs, 8, 2, 1, p)
+    assert counts()["conv_chain"] == {"launches": 0, "plain": 0}
+    torch.cuda.synchronize()  # nothing was left running or faulted
 
 
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(card):
