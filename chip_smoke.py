@@ -36,7 +36,17 @@ Phases (any failure propagates and the exit code is non-zero):
      and samples per block; the harness `kernels.conv_probe.main` at full width with its
      launch counts; `fused_forward` at batch 256 in bfloat16 against the
      module forward, with its launch counts;
-  7. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
+  7. train path: `ScoreTrainer.train` (the `train-score` entry point) on
+     CDL-C generated on the host (200 train, 200 val realizations), the
+     full-width network in f32, 4 epochs of 6 steps at batch 32 with a
+     validation every 10 steps; its launch counts (conv forward and dgrad,
+     norm, 0 plain calls); the card's gradient against the plain CPU
+     gradient at batch 4 for every parameter; the dgrad launch against
+     F.conv2d's input gradient at every training conv shape, timed beside
+     its plain version and cuDNN's; the saved checkpoint read back and
+     run through `run_estimation`; ms per step (forward, backward,
+     optimizer+EMA), steps/s and a profiler window;
+  8. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
 
 Details too long for the output go to chiprun_out/chip_smoke.json.
 """
@@ -703,6 +713,311 @@ def conv_probe_phase(convs, conv_rows, model, g):
                 harness_counts=n, fused_forward=fused)
 
 
+TRAIN_BATCH = 32          # the reference recipe (train_score.py:54)
+TRAIN_EPOCHS = 4          # 4 x 6 steps: 200 realizations, drop_last
+TRAIN_LOG_EVERY = 10
+GRAD_CHECK_BATCH = 4
+
+
+def train_conv_rows(convs, g):
+    """At every conv variant of a training step (batch 32, f32): the
+    forward launch; the dgrad launch (the kernel on the transposed weight)
+    held against F.conv2d's input gradient, timed beside its plain version
+    and aten.convolution_backward's input gradient; the weight and bias
+    gradient (aten.convolution_backward over the live taps)."""
+    from score_based_channels_torch.kernels import conv
+
+    rows, B, dt = [], TRAIN_BATCH, torch.float32
+    for (H, W, Cin, Cout, k, d, bias, elu), per_fwd in sorted(convs.items()):
+        T = len(conv.live_taps(k, d, H, W))
+        pad = d * (k // 2)
+        x = torch.randn(B, Cin, H, W, generator=g).to("cuda").contiguous(
+            memory_format=torch.channels_last)
+        w = conv.kernel_layout((torch.randn(Cout, Cin, k, k, generator=g)
+                                / (k * k * Cin) ** 0.5).cuda())
+        b = torch.randn(Cout, generator=g).cuda() if bias else None
+        gout = torch.randn(B, Cout, H, W, generator=g).to("cuda").contiguous(
+            memory_format=torch.channels_last)
+        wt = conv.transposed_weight(w)
+        got = conv.conv2d(gout, wt, None, d)           # the dgrad launch
+        xr = x.clone().requires_grad_()
+        want, = torch.autograd.grad(
+            F.conv2d(xr, w, None, padding=pad, dilation=d), xr, gout)
+        err = rel_check(got, want, TOL[("conv", dt)],
+                        f"dgrad {(H, W, Cin, Cout, k, d)}")
+        lib = lambda: torch.ops.aten.convolution_backward(
+            gout, x, w, None, [1, 1], [pad, pad], [d, d], False, [0, 0], 1,
+            [True, False, False])
+        dgrad_bytes = (gout.numel() + T * Cin * Cout + x.numel()) * 4
+        flops = 2 * B * H * W * T * Cin * Cout
+        rows.append(dict(
+            shape=[H, W, Cin, Cout, k, d], bias=bias, elu=elu,
+            per_step=per_fwd, dgrad_per_step=0 if Cin == 2 else per_fwd,
+            taps=T, dgrad_max_abs_err=err,
+            dgrad_rel_err=err / want.abs().max().item(),
+            fwd_ms=cuda_ms(lambda: conv.conv2d(x, w, b, d, elu)),
+            dgrad_ms=cuda_ms(lambda: conv.conv2d(gout, wt, None, d)),
+            dgrad_plain_ms=cuda_ms(lambda: conv.conv2d_plain(gout, wt, None,
+                                                             d)),
+            dgrad_library_ms=cuda_ms(lib),
+            wgrad_ms=cuda_ms(lambda: conv.conv2d_backward(
+                x, w, bias, d, False, None, gout, (False, True, True))),
+            dgrad_bound_ms=max(dgrad_bytes / PEAK_BYTES,
+                               flops / PEAK_OPS[dt]) * 1e3))
+        r = rows[-1]
+        print(f"train conv {H}x{W} {Cin}->{Cout} k{k} d{d} x{per_fwd:<2d} "
+              f"fwd {r['fwd_ms']:.4f} ms  dgrad {r['dgrad_ms']:.4f} (rel_err "
+              f"{r['dgrad_rel_err']:.2e}, plain {r['dgrad_plain_ms']:.4f}, "
+              f"cudnn {r['dgrad_library_ms']:.4f}, bound "
+              f"{r['dgrad_bound_ms']:.4f})  wgrad {r['wgrad_ms']:.4f}",
+              flush=True)
+    return rows
+
+
+def train_norm_rows(norms, g):
+    """At every norm variant of a training step (batch 32, f32): the kernel
+    forward and the closed-form backward, timed."""
+    from score_based_channels_torch.kernels import instance_norm as inorm
+
+    rows = []
+    for (H, W, C, elu), per_fwd in sorted(norms.items()):
+        x = (torch.randn(TRAIN_BATCH, C, H, W, generator=g) * 2 + 0.5).to(
+            "cuda").contiguous(memory_format=torch.channels_last)
+        a, gm = (1 + 0.02 * torch.randn(2, C, generator=g)).cuda()
+        bt = (0.1 * torch.randn(C, generator=g)).cuda()
+        out = inorm.instance_norm_plus(x, a, gm, bt, elu)
+        gout = torch.randn(x.shape, generator=g).to("cuda")
+        rows.append(dict(
+            shape=[H, W, C], elu=elu, per_step=per_fwd,
+            fwd_ms=cuda_ms(lambda: inorm.instance_norm_plus(x, a, gm, bt, elu)),
+            bwd_ms=cuda_ms(lambda: inorm.instance_norm_plus_backward(
+                x, a, gm, bt, out, gout, elu))))
+    return rows
+
+
+def train_phase(convs, norms, card, g):
+    """Phase 7: `ScoreTrainer.train` (the train-score entry point) on CDL-C
+    at full width in f32, its launch counts, the card's gradient against
+    the plain CPU gradient, the dgrad kernel against cuDNN's at every
+    training conv shape, a checkpoint read back and run through
+    `run_estimation`, and ms per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from score_based_channels_torch import kernels
+    from score_based_channels_torch.config import (
+        TrainingConfig, default_score_config,
+    )
+    from score_based_channels_torch.data import ChannelDataset
+    from score_based_channels_torch.diffusion.dsm import anneal_dsm_loss
+    from score_based_channels_torch.diffusion.ema import ema_update
+    from score_based_channels_torch.eval.estimate import (
+        run_estimation, score_fn_from_params,
+    )
+    from score_based_channels_torch.models import (
+        jax_params_to_state_dict, make_score_model,
+    )
+    from score_based_channels_torch.train import ScoreTrainer
+    from score_based_channels_torch.utils.checkpoint import load_checkpoint
+
+    cfg = default_score_config("CDL-C")
+    cfg = cfg.replace(training=TrainingConfig(
+        batch_size=TRAIN_BATCH, n_epochs=TRAIN_EPOCHS,
+        log_every_steps=TRAIN_LOG_EVERY))
+    trainer = ScoreTrainer(cfg, device="cuda")
+    n_fwd, n_norm = sum(convs.values()), sum(norms.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        ck_path = os.path.join(tmp, "final_model.npz")
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        state, logs = trainer.train(checkpoint_path=ck_path,
+                                    log_fn=lambda s: print("# " + s))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        n, ng = kernels.counts(), kernels.grad_counts()
+        steps = state.step
+        n_val = len(logs["val_loss"])
+        print(f"# train-score CDL-C, ngf 32, batch {TRAIN_BATCH}, f32: "
+              f"{steps} steps + {n_val} validations in {train_s:.2f} s "
+              f"(data generation and set-up included); launches {n}; "
+              f"gradient work {ng}")
+        assert steps == TRAIN_EPOCHS * (200 // TRAIN_BATCH), steps
+        assert np.isfinite(logs["train_loss"]).all(), logs["train_loss"]
+        assert np.isfinite(logs["val_loss"]).all(), logs["val_loss"]
+        assert any((p - e).abs().max().item() > 0 for p, e in zip(
+            state.model.parameters(), state.ema.parameters()))
+        dgrad_per_step = n_fwd - 1  # the begin conv's input takes none
+        assert ng == {"conv2d_taps": {"functions": n_fwd * steps,
+                                      "dgrad": dgrad_per_step * steps},
+                      "instance_norm_plus": {"functions": n_norm * steps,
+                                             "backward": n_norm * steps}}, ng
+        assert n["conv2d_taps"] == {
+            "launches": (n_fwd + dgrad_per_step) * steps + n_fwd * n_val,
+            "plain": 0}, n
+        assert n["instance_norm_plus"] == {
+            "launches": n_norm * (steps + n_val), "plain": 0}, n
+
+        # the card's gradient against the plain CPU gradient, batch 4, at
+        # the run's initial parameters (the first step's); once training
+        # has moved the parameters, an f32 gradient's distance from float64
+        # can grow for every implementation, the plain one included, so
+        # there the card is held against the plain f32 gradient's own
+        # distance from float64
+        first = trainer.init_state(cfg.training.seed).model
+        gg = torch.Generator().manual_seed(11)
+        x4 = ChannelDataset(1234, cfg, norm="global").network_input()[
+            :GRAD_CHECK_BATCH]
+        labels = torch.randint(0, cfg.model.num_classes, (GRAD_CHECK_BATCH,),
+                               generator=gg)
+        noise = torch.randn(x4.shape, generator=gg)
+        cpu = make_score_model(cfg.model, device="cpu")
+        cpu.load_state_dict(first.state_dict())
+        loss_card = anneal_dsm_loss(first, x4.cuda(), trainer.sigmas,
+                                    labels=labels.cuda(), noise=noise.cuda())
+        loss_card.backward()
+        loss_cpu = anneal_dsm_loss(cpu, x4, trainer.sigmas.cpu(),
+                                   labels=labels, noise=noise)
+        loss_cpu.backward()
+        worst = (0.0, "")
+        for (name, p), q in zip(first.named_parameters(), cpu.parameters()):
+            rel = ((p.grad.cpu() - q.grad).abs().max()
+                   / q.grad.abs().max()).item()
+            worst = max(worst, (rel, name))
+        loss_rel = abs(loss_card.item() - loss_cpu.item()) / loss_cpu.item()
+        print(f"# gradient at the initial parameters, card (kernels) vs CPU "
+              f"(plain), batch {GRAD_CHECK_BATCH}: loss rel err {loss_rel:.2e}; worst "
+              f"parameter {worst[1]} at {worst[0]:.2e} of its max|g| (tol "
+              f"1e-3) over {len(list(cpu.parameters()))} tensors")
+        assert loss_rel < 2e-4 and worst[0] <= 1e-3, (loss_rel, worst)
+        # at the trained parameters, each f32 gradient against float64 on
+        # the CPU: the card's may be no further off than the plain f32 one
+        cpu.load_state_dict(state.model.state_dict())
+        cpu64 = make_score_model(cfg.model, device="cpu").double()
+        cpu64.load_state_dict(state.model.state_dict())
+        trained_grads = {}
+        for tag, m, dev, dt in (("card", state.model, "cuda", torch.float32),
+                                ("cpu32", cpu, "cpu", torch.float32),
+                                ("cpu64", cpu64, "cpu", torch.float64)):
+            m.zero_grad()
+            anneal_dsm_loss(m, x4.to(dev, dt), trainer.sigmas.to(dev, dt),
+                            labels=labels.to(dev),
+                            noise=noise.to(dev, dt)).backward()
+            trained_grads[tag] = [p.grad.detach().cpu().double()
+                                  for p in m.parameters()]
+        off64 = {tag: max(((a - b).abs().max() / b.abs().max()).item()
+                          for a, b in zip(trained_grads[tag],
+                                          trained_grads["cpu64"]))
+                 for tag in ("card", "cpu32")}
+        print(f"# gradient at the trained parameters (step {steps}), worst "
+              f"tensor against float64 on the CPU: card {off64['card']:.2e}, "
+              f"plain f32 on the CPU {off64['cpu32']:.2e}")
+        assert off64["card"] <= max(2 * off64["cpu32"], 1e-3), off64
+        state.opt.zero_grad()
+
+        # dgrad / forward / wgrad / norm at every training shape
+        conv_rows = train_conv_rows(convs, g)
+        norm_rows = train_norm_rows(norms, g)
+
+        # the checkpoint, read back, through the estimate harness
+        ck = load_checkpoint(ck_path)
+        assert ck["metadata"] == {"steps": steps}
+        assert ck["config"].data.source == "cdl"
+        est_model = make_score_model(ck["config"].model, device="cuda")
+        est_model.load_state_dict(jax_params_to_state_dict(ck["ema"]),
+                                  strict=True)
+        stride = 64
+        kernels.reset_counts()
+        res = run_estimation(score_fn_from_params(est_model, torch.bfloat16),
+                             ck["config"], snr_range=np.array([0., 20.]),
+                             num_channels=32, level_stride=stride,
+                             init="noise", chunk_size=64, device="cuda")
+        est_counts = kernels.counts()
+        print(f"# estimate from the saved checkpoint (level_stride {stride}, "
+              f"32 CDL-C channels): best NMSE dB "
+              f"{np.round(res.best_nmse_db().ravel(), 2).tolist()}; launches "
+              f"{est_counts}")
+        assert np.isfinite(res.nmse_log).all()
+        assert est_counts["conv2d_taps"]["plain"] == 0
+        assert est_counts["conv2d_taps"]["launches"] > 0
+
+    # ms per step: forward, backward, optimizer + EMA (synchronised), and
+    # steps/s of train_step as the trainer runs it (no synchronisation)
+    x_all = ChannelDataset(1234, cfg, norm="global").network_input().cuda()
+    gen = torch.Generator(device="cuda")
+    phases = {"forward": [], "backward": [], "optimizer_ema": []}
+    for i in range(10):
+        x = x_all[i * TRAIN_BATCH % 192:][:TRAIN_BATCH]
+        gen.manual_seed(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = anneal_dsm_loss(state.model, x, trainer.sigmas, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state.opt.zero_grad()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        state.opt.step()
+        ema_update(state.ema, state.model, cfg.model.ema_rate)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if i >= 2:  # warm
+            phases["forward"].append((t1 - t0) * 1e3)
+            phases["backward"].append((t2 - t1) * 1e3)
+            phases["optimizer_ema"].append((t3 - t2) * 1e3)
+    med = {k: float(np.median(v)) for k, v in phases.items()}
+    reps = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        trainer.train_step(state, x_all[:TRAIN_BATCH], gen)
+    torch.cuda.synchronize()
+    steps_per_s = reps / (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(3):
+            trainer.train_step(state, x_all[:TRAIN_BATCH], gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_ms_by_name(prof)
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    per_step = lambda key: sum(r[key] * r["per_step"] for r in conv_rows)
+    split = dict(
+        conv_fwd_ms=per_step("fwd_ms"),
+        dgrad_ms=sum(r["dgrad_ms"] * r["dgrad_per_step"] for r in conv_rows),
+        dgrad_plain_ms=sum(r["dgrad_plain_ms"] * r["dgrad_per_step"]
+                           for r in conv_rows),
+        dgrad_library_ms=sum(r["dgrad_library_ms"] * r["dgrad_per_step"]
+                             for r in conv_rows),
+        dgrad_bound_ms=sum(r["dgrad_bound_ms"] * r["dgrad_per_step"]
+                           for r in conv_rows),
+        wgrad_ms=per_step("wgrad_ms"),
+        norm_fwd_ms=sum(r["fwd_ms"] * r["per_step"] for r in norm_rows),
+        norm_bwd_ms=sum(r["bwd_ms"] * r["per_step"] for r in norm_rows))
+    print(f"# train step, f32 batch {TRAIN_BATCH}, ms (median of 8, "
+          f"synchronised): forward {med['forward']:.3f}, backward "
+          f"{med['backward']:.3f}, optimizer+EMA {med['optimizer_ema']:.3f}; "
+          f"{steps_per_s:.2f} steps/s unsynchronised; on {card}")
+    print("# train step, per-call CUDA events x calls a step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in split.items()))
+    print(f"# train profile, 3 steps: wall {wall_ms:.1f} ms, device busy "
+          f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%)" if busy else
+          "# train profile: no device time reported (not measured)")
+    for name, ms in top:
+        print(f"#   {ms / 3:9.3f} ms a step  {name[:90]}")
+    return dict(steps=steps, seconds=train_s, counts=n, grad_counts=ng,
+                train_loss=logs["train_loss"].tolist(),
+                val_loss=logs["val_loss"].tolist(), grad_check_worst=worst,
+                grad_check_loss_rel=loss_rel, trained_grad_off64=off64,
+                conv_rows=conv_rows,
+                norm_rows=norm_rows, est_best_nmse_db=
+                res.best_nmse_db().ravel().tolist(), phase_ms=med,
+                steps_per_s=steps_per_s, split_ms=split,
+                profile_wall_ms=wall_ms, profile_busy_ms=busy,
+                profile_top=top)
+
+
 def per_forward(rows, dtype):
     """Sum over one bf16 (or f32) forward's calls of each timing."""
     sel = [r for r in rows if r["dtype"] == dtype]
@@ -904,6 +1219,9 @@ def main():
     # -- conv probe -----------------------------------------------------------
     probe = conv_probe_phase(convs, conv_rows, model, g)
 
+    # -- train path -----------------------------------------------------------
+    train = train_phase(convs, norms, card, g)
+
     kernel_json = []
     for name, rows in (("conv2d_taps", conv_rows),
                        ("instance_norm_plus", norm_rows)):
@@ -969,7 +1287,7 @@ def main():
         res.best_nmse_db().ravel().tolist(), bench_runs=bench_runs,
         bench_levels=levels, bench_est_per_s_full=est_per_s,
         profile_wall_ms=wall_ms, profile_busy_ms=busy, profile_top=top,
-        profile_ms_per_forward=path_ms,
+        profile_ms_per_forward=path_ms, train=train,
         total_seconds=time.perf_counter() - t_start), indent=1))
     print(f"# total {time.perf_counter() - t_start:.1f} s; details in "
           f"chiprun_out/chip_smoke.json")

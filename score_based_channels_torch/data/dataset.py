@@ -1,12 +1,12 @@
-"""Channel dataset read from files, the counterpart of
-the JAX package's data/dataset.py:45-146 for `source="file"`.
+"""Channel dataset, the counterpart of the JAX package's
+data/dataset.py:45-146: realizations read from files (`source="file"`) or
+made by the built-in CDL generator (`source="cdl"`, data/cdl.py).
 
 Semantics kept from the reference loader (loaders.py:8-107): only
 subcarrier 0 of each file is used; 'global' norm is mean 0 and the std of
 the whole complex train tensor, 'entrywise' is per-entry mean/std, and an
 explicit [mean, std] passes the TRAIN stats to a val/test set; the network
-sees the normalised Hermitian H^H. The built-in CDL generator
-(`source="cdl"`) is not ported yet.
+sees the normalised Hermitian H^H.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..config import Config, DataConfig
+from .cdl import generate_cdl_channels
 from .io import load_output_h
 
 NormSpec = Union[None, str, Tuple[np.ndarray, np.ndarray], list]
@@ -37,25 +38,32 @@ class ChannelDataset:
     def __init__(self, seed: int, config: Union[Config, DataConfig],
                  norm: NormSpec = None, num_pilots: Optional[int] = None):
         data = config.data if isinstance(config, Config) else config
-        if data.source != "file":
-            raise NotImplementedError(
-                f"data source {data.source!r} is not ported yet (ROADMAP: "
-                "CDL data generation); write the channels to files and use "
-                "source='file'")
+        if data.source not in ("file", "cdl"):
+            raise ValueError(f"unknown data source {data.source!r}")
         self.config = data
         self.num_pilots = int(num_pilots if num_pilots is not None
                               else data.num_pilots)
         chans = []
         for spacing in data.spacing_list:
-            cands = [channel_filename(data.data_dir, data.channel, data.num_tx,
-                                      data.num_rx, spacing, seed, ext)
-                     for ext in ("npz", "mat", "h5")]
-            path = next((c for c in cands if os.path.exists(c)), None)
-            if path is None:
-                raise FileNotFoundError(
-                    f"no channel file for {data.channel} spacing {spacing} "
-                    f"seed {seed} under {data.data_dir}")
-            chans.append(np.asarray(load_output_h(path)[:, 0], np.complex64))
+            if data.source == "cdl":
+                output_h = generate_cdl_channels(
+                    seed=seed, profile=data.channel,
+                    num_channels=data.num_channels, num_rx=data.num_rx,
+                    num_tx=data.num_tx, spacing=spacing,
+                    ray_coupling=data.ray_coupling)
+            else:
+                cands = [channel_filename(data.data_dir, data.channel,
+                                          data.num_tx, data.num_rx, spacing,
+                                          seed, ext)
+                         for ext in ("npz", "mat", "h5")]
+                path = next((c for c in cands if os.path.exists(c)), None)
+                if path is None:
+                    raise FileNotFoundError(
+                        f"no channel file for {data.channel} spacing "
+                        f"{spacing} seed {seed} under {data.data_dir}")
+                output_h = load_output_h(path)
+            # keep only the first subcarrier (loaders.py:33)
+            chans.append(np.asarray(output_h[:, 0], np.complex64))
         self.channels = np.reshape(
             np.asarray(chans), (-1, chans[0].shape[-2], chans[0].shape[-1]))
 
@@ -93,3 +101,8 @@ class ChannelDataset:
         from .. import cplx
 
         return cplx.from_complex(self.hermitian(normalized=normalized))
+
+    def network_input(self) -> torch.Tensor:
+        """(N, Nt, Nr, 2) float32 CPU tensor, the normalised H^H as the
+        score network takes it (loaders.py:90-91), contiguous."""
+        return self.hermitian_c2(normalized=True).contiguous()

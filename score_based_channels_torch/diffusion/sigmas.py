@@ -1,6 +1,6 @@
 """Noise (sigma) schedules, the counterpart of
 the JAX package's diffusion/sigmas.py (get_sigmas:13,
-sigmas_from_config:33, subsample_schedule:40)."""
+sigmas_from_config:33, subsample_schedule:40, song_step_size:61)."""
 
 from __future__ import annotations
 
@@ -42,3 +42,19 @@ def subsample_schedule(sigmas: torch.Tensor, stride: int):
     if float(sub[-1]) != float(sigmas[-1]):
         sub = torch.cat([sub, sigmas[-1:]])
     return sub, float(stride)
+
+
+def song_step_size(sigma_end: float, num_classes: int, sigma_rate: float,
+                   candidates: np.ndarray | None = None) -> float:
+    """The Langevin step whose [Song '20] mixing criterion is closest to 1
+    (train_score.py:104-115): scan a logspace of candidate steps. Pure
+    numpy, a copy of the JAX package's rule."""
+    if candidates is None:
+        candidates = np.logspace(-13, -8, 1000)
+    gamma = 1.0 / sigma_rate
+    se2 = sigma_end**2
+    eps = candidates
+    contraction = (1.0 - eps / se2) ** (2 * num_classes)
+    tail = 2 * eps / (se2 - se2 * (1.0 - eps / se2) ** 2)
+    criterion = contraction * (gamma**2 - tail) + tail
+    return float(candidates[int(np.argmin(np.abs(criterion - 1.0)))])

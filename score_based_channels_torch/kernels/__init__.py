@@ -8,12 +8,22 @@ KERNEL_MODULES = {"conv2d_taps": conv, "instance_norm_plus": instance_norm,
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch count and plain-call count to 0."""
-    for mod in KERNEL_MODULES.values():
-        for k in mod.COUNTS:
-            mod.COUNTS[k] = 0
+    """Set every kernel's launch count and plain-call count, and the
+    gradient counts of the conv and norm, to 0."""
+    for d in [m.COUNTS for m in KERNEL_MODULES.values()] + [
+            conv.GRAD_COUNTS, instance_norm.GRAD_COUNTS]:
+        for k in d:
+            d[k] = 0
 
 
 def counts() -> dict:
     """{kernel name: {"launches": n, "plain": n}} since the last reset."""
     return {name: dict(mod.COUNTS) for name, mod in KERNEL_MODULES.items()}
+
+
+def grad_counts() -> dict:
+    """{"conv2d_taps": {"functions", "dgrad"}, "instance_norm_plus":
+    {"functions", "backward"}} since the last reset: autograd Functions
+    built on the card, and their backward work."""
+    return {"conv2d_taps": dict(conv.GRAD_COUNTS),
+            "instance_norm_plus": dict(instance_norm.GRAD_COUNTS)}

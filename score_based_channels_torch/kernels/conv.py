@@ -25,6 +25,16 @@ stale when the parameter changes.
 `conv2d` dispatches on the tensor's device: a CPU tensor goes to
 `conv2d_plain`; a CUDA tensor launches the kernel or raises. Both count
 their calls in COUNTS.
+
+Gradients (training): on a CUDA tensor with grad enabled and an input that
+requires grad, `conv2d` launches through `_Conv2dFunction`, whose backward
+(`conv2d_backward`) takes the input gradient (dgrad) from this same kernel
+on the flipped, channel-swapped weight (`transposed_weight`), and the
+weight and bias gradients from `aten.convolution_backward` over the live
+taps, as the JAX package leaves them to XLA (it has no backward kernel).
+Under no_grad, or when nothing requires grad, it launches directly, so
+the sampler's path pays nothing for it. GRAD_COUNTS counts the Functions
+built and the dgrad convs.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 COUNTS = {"launches": 0, "plain": 0}
+GRAD_COUNTS = {"functions": 0, "dgrad": 0}
 
 RP, RC, CK = 4, 4, 8       # must match csrc/conv2d_taps.cu
 MAX_THREADS = 256
@@ -232,20 +243,16 @@ def pruned_conv(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor], dilation: int = 1,
                 elu: bool = False) -> torch.Tensor:
     """F.conv2d on the pruned weight with the pruned padding
-    (the JAX package's models/layers.py:86-105), f32 accumulation,
-    then bias (f32 or x's dtype), optional ELU, one rounding to x's dtype.
+    (the JAX package's models/layers.py:86-105), f32 accumulation (f64
+    for f64 x), then bias, optional ELU, one rounding to x's dtype.
     The plain version of every conv kernel of the port; counts nothing."""
-    H, W = x.shape[-2:]
-    k = weight.shape[-1]
-    c = k // 2
-    keep_h = [i for i in range(k) if dilation * abs(i - c) < H]
-    keep_w = [i for i in range(k) if dilation * abs(i - c) < W]
-    w = weight[:, :, keep_h[0]:keep_h[-1] + 1, keep_w[0]:keep_w[-1] + 1]
     # pruning is symmetric about the centre tap, so the padding stays so
-    pad = (dilation * (c - keep_h[0]), dilation * (c - keep_w[0]))
-    y = F.conv2d(x.float(), w.float(), None, padding=pad, dilation=dilation)
+    rows, cols, pad = _live_window(weight.shape[-1], dilation, *x.shape[-2:])
+    w = weight[:, :, rows, cols]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = F.conv2d(x.to(acc), w.to(acc), None, padding=pad, dilation=dilation)
     if bias is not None:
-        y = y + bias.float().view(1, -1, 1, 1)
+        y = y + bias.to(acc).view(1, -1, 1, 1)
     if elu:
         y = F.elu(y)
     return y.to(x.dtype)
@@ -276,19 +283,101 @@ def _check_cuda(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError("conv2d_taps takes channels-last contiguous x")
 
 
+def _live_window(k: int, dilation: int, H: int, W: int):
+    """(rows, cols, padding) of the live taps' window of a k x k kernel:
+    the slices of the weight that `pruned_conv` keeps, and its padding."""
+    c = k // 2
+    keep_h = [i for i in range(k) if dilation * abs(i - c) < H]
+    keep_w = [i for i in range(k) if dilation * abs(i - c) < W]
+    return (slice(keep_h[0], keep_h[-1] + 1), slice(keep_w[0], keep_w[-1] + 1),
+            (dilation * (c - keep_h[0]), dilation * (c - keep_w[0])))
+
+
+def transposed_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The weight of the input-gradient conv, in `kernel_layout`: spatially
+    flipped, input and output channels swapped. For a stride-1 "same"
+    conv with dilation d this conv of grad_out is the transposed conv, and
+    its dead taps are the same (the live set is symmetric)."""
+    return kernel_layout(weight.flip(2, 3).transpose(0, 1))
+
+
+def conv2d_backward(x: torch.Tensor, weight: torch.Tensor, has_bias: bool,
+                    dilation: int, elu: bool, out: Optional[torch.Tensor],
+                    grad: torch.Tensor, needs=(True, True, True)):
+    """(dx, dweight, dbias) of `conv2d` from grad_out; `out` is the forward's
+    output (read only with elu). `needs` says which of the three to
+    compute. dx goes through `conv2d` on the transposed weight (the kernel
+    on the card); dweight and dbias through aten.convolution_backward over
+    the live taps, so a dead tap gets exactly zero gradient."""
+    if elu:  # d elu(y) = 1 where out > 0, else exp(y) = out + 1
+        grad = grad * torch.where(out > 0, 1.0, out + 1.0).to(grad.dtype)
+    dx = dw = db = None
+    if needs[0]:
+        GRAD_COUNTS["dgrad"] += 1
+        dx = conv2d(grad.contiguous(memory_format=torch.channels_last),
+                    transposed_weight(weight), None, dilation)
+    if needs[1] or (has_bias and needs[2]):
+        rows, cols, pad = _live_window(weight.shape[-1], dilation,
+                                       *x.shape[-2:])
+        _, dwp, db = torch.ops.aten.convolution_backward(
+            grad, x, weight[:, :, rows, cols],
+            [weight.shape[0]] if has_bias else None, [1, 1], list(pad),
+            [dilation, dilation], False, [0, 0], 1,
+            [False, bool(needs[1]), bool(has_bias and needs[2])])
+        if needs[1]:
+            dw = torch.zeros_like(weight)
+            dw[:, :, rows, cols] = dwp
+    return dx, dw, db
+
+
+class _Conv2dFunction(torch.autograd.Function):
+    """The kernel launch with `conv2d_backward` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, dilation, elu):
+        out = _launch(x, weight, bias, dilation, elu)
+        ctx.save_for_backward(x, weight, out if elu else None)
+        ctx.dilation, ctx.elu = dilation, elu
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight, out = ctx.saved_tensors
+        dx, dw, db = conv2d_backward(
+            x, weight, ctx.bias_dtype is not None, ctx.dilation, ctx.elu, out,
+            grad, ctx.needs_input_grad[:3])
+        if db is not None:
+            db = db.to(ctx.bias_dtype)
+        return dx, dw, db, None, None
+
+
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, dilation: int = 1,
            elu: bool = False) -> torch.Tensor:
     """Conv of NCHW x (channels-last on the card) with (O, I, k, k) weight.
 
     On the card the weight is in `kernel_layout` with x's dtype, and the
-    bias is float32 or x's dtype.
+    bias is float32 or x's dtype. With grad enabled and an input that
+    requires grad, the launch goes through `_Conv2dFunction`.
     """
     if x.device.type == "cpu":
         return conv2d_plain(x, weight, bias, dilation, elu)
     if x.device.type != "cuda":
         raise RuntimeError(f"conv2d_taps: no kernel for device {x.device}")
     _check_cuda(x, weight, bias)
+    if torch.is_grad_enabled() and (
+            x.requires_grad or weight.requires_grad
+            or (bias is not None and bias.requires_grad)):
+        GRAD_COUNTS["functions"] += 1
+        return _Conv2dFunction.apply(x, weight, bias, dilation, elu)
+    return _launch(x, weight, bias, dilation, elu)
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor,
+            bias: Optional[torch.Tensor], dilation: int,
+            elu: bool) -> torch.Tensor:
+    """The kernel on checked card tensors."""
     B, Cin, H, W = x.shape
     Cout, k = weight.shape[0], weight.shape[-1]
     bf16 = x.dtype == torch.bfloat16

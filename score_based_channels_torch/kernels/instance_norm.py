@@ -19,6 +19,12 @@ shared bytes, copy form). Design notes are in the source.
 `instance_norm_plus` dispatches on the tensor's device: a CPU tensor goes
 to `instance_norm_plus_plain`; a CUDA tensor launches the kernel or raises.
 Both count their calls in COUNTS.
+
+Gradients (training): on a CUDA tensor with grad enabled and an input that
+requires grad, the launch goes through `_NormFunction`, whose backward is
+`instance_norm_plus_backward`, the closed form in torch ops (the JAX
+package trains through the jnp formula, with no backward kernel). Under
+no_grad it launches directly. GRAD_COUNTS counts Functions and backwards.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 COUNTS = {"launches": 0, "plain": 0}
+GRAD_COUNTS = {"functions": 0, "backward": 0}
 
 # must match csrc/instance_norm_plus.cu
 MAX_CHANNELS = 128
@@ -143,9 +150,10 @@ def instance_norm_plus_plain(x: torch.Tensor, alpha: torch.Tensor,
                              gamma: torch.Tensor, beta: torch.Tensor,
                              elu: bool = False) -> torch.Tensor:
     """The formula of the JAX package's models/layers.py:141-163 on
-    NCHW x, in f32, returned in x's dtype."""
+    NCHW x, in f32 (f64 for f64 x), returned in x's dtype."""
     COUNTS["plain"] += 1
-    xs = x.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xs = x.to(acc)
     view = (1, -1, 1, 1)
     means = xs.mean(dim=(2, 3))                               # (B, C)
     m = means.mean(dim=-1, keepdim=True)
@@ -154,8 +162,8 @@ def instance_norm_plus_plain(x: torch.Tensor, alpha: torch.Tensor,
     mu = xs.mean(dim=(2, 3), keepdim=True)
     var = xs.var(dim=(2, 3), keepdim=True, unbiased=False)
     h = (xs - mu) / torch.sqrt(var + 1e-5)
-    h = h + means_hat[:, :, None, None] * alpha.float().view(view)
-    out = gamma.float().view(view) * h + beta.float().view(view)
+    h = h + means_hat[:, :, None, None] * alpha.to(acc).view(view)
+    out = gamma.to(acc).view(view) * h + beta.to(acc).view(view)
     if elu:
         out = F.elu(out)
     return out.to(x.dtype)
@@ -196,14 +204,89 @@ def _launch(x: torch.Tensor, alpha: torch.Tensor, gamma: torch.Tensor,
     return out
 
 
+def instance_norm_plus_backward(x: torch.Tensor, alpha: torch.Tensor,
+                                gamma: torch.Tensor, beta: torch.Tensor,
+                                out: torch.Tensor, grad: torch.Tensor,
+                                elu: bool = False):
+    """(dx, dalpha, dgamma, dbeta) of `instance_norm_plus` from grad_out, in
+    closed form, torch ops in f32 (f64 for f64 x); `out` is the forward's
+    output (read only with elu). With h the instance-normed x (biased
+    variance, per sample and channel, n pixels), mh the channel means
+    normalised across channels (UNBIASED variance, C channels) and gy the
+    gradient at the affine output:
+      dbeta = sum gy;  dgamma = sum gy (h + alpha mh);  dalpha = sum gamma mh gy
+      dx = rstd (dh - mean dh - h mean(dh h)) + dmu / n,  dh = gamma gy
+      dmu = rr (dmh - mean_c dmh - mh sum_c(dmh mh) / (C - 1)),
+      dmh = gamma alpha sum_pixels gy
+    where rstd and rr are the reciprocal roots of the two variances + 1e-5.
+    """
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xs, g = x.to(acc), grad.to(acc)
+    if elu:  # d elu(y) = 1 where out > 0, else exp(y) = out + 1
+        o = out.to(acc)
+        g = g * torch.where(o > 0, 1.0, o + 1.0)
+    B, C, H, W = x.shape
+    n = H * W
+    a, gm = alpha.to(acc), gamma.to(acc)
+    mu = xs.mean(dim=(2, 3), keepdim=True)
+    rstd = torch.rsqrt(xs.var(dim=(2, 3), keepdim=True, unbiased=False)
+                       + 1e-5)
+    h = (xs - mu) * rstd
+    means = mu[:, :, 0, 0]                                          # (B, C)
+    rr = torch.rsqrt(means.var(dim=-1, keepdim=True, unbiased=True) + 1e-5)
+    mh = (means - means.mean(dim=-1, keepdim=True)) * rr
+    gsum = g.sum(dim=(2, 3))                                        # (B, C)
+    ghsum = (g * h).sum(dim=(2, 3))
+    dbeta = gsum.sum(0)
+    dgamma = (ghsum + a * mh * gsum).sum(0)
+    dalpha = (gm * mh * gsum).sum(0)
+    # instance-norm term: mean dh = gamma gsum / n, mean(dh h) = gamma ghsum / n
+    dh_mean = (gm * gsum / n)[:, :, None, None]
+    dhh_mean = (gm * ghsum / n)[:, :, None, None]
+    dx = rstd * (g * gm.view(1, -1, 1, 1) - dh_mean - h * dhh_mean)
+    # the cross-channel means_hat term, through each channel's mean
+    dmh = gm * a * gsum
+    dmu = rr * (dmh - dmh.mean(dim=-1, keepdim=True)
+                - mh * (dmh * mh).sum(dim=-1, keepdim=True) / (C - 1))
+    dx = dx + (dmu / n)[:, :, None, None]
+    return (dx.to(x.dtype), dalpha.to(alpha.dtype), dgamma.to(gamma.dtype),
+            dbeta.to(beta.dtype))
+
+
+class _NormFunction(torch.autograd.Function):
+    """The kernel launch with `instance_norm_plus_backward` as its
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, alpha, gamma, beta, elu, p):
+        out = _launch(x, alpha, gamma, beta, elu, p)
+        ctx.save_for_backward(x, alpha, gamma, beta, out)
+        ctx.elu = elu
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        GRAD_COUNTS["backward"] += 1
+        x, alpha, gamma, beta, out = ctx.saved_tensors
+        return (*instance_norm_plus_backward(x, alpha, gamma, beta, out, grad,
+                                             ctx.elu), None, None)
+
+
 def instance_norm_plus(x: torch.Tensor, alpha: torch.Tensor,
                        gamma: torch.Tensor, beta: torch.Tensor,
                        elu: bool = False) -> torch.Tensor:
-    """InstanceNorm++ of NCHW x (channels-last on the card)."""
+    """InstanceNorm++ of NCHW x (channels-last on the card). With grad
+    enabled and an input that requires grad, the launch goes through
+    `_NormFunction`."""
     if x.device.type == "cpu":
         return instance_norm_plus_plain(x, alpha, gamma, beta, elu)
     if x.device.type != "cuda":
         raise RuntimeError(f"instance_norm_plus: no kernel for {x.device}")
     _check_cuda(x, alpha, gamma, beta)
     B, C, H, W = x.shape
-    return _launch(x, alpha, gamma, beta, elu, plan(B, H, W, C, x.dtype))
+    p = plan(B, H, W, C, x.dtype)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, alpha, gamma, beta)):
+        GRAD_COUNTS["functions"] += 1
+        return _NormFunction.apply(x, alpha, gamma, beta, elu, p)
+    return _launch(x, alpha, gamma, beta, elu, p)

@@ -1,16 +1,17 @@
-"""JAX parameter tree -> PyTorch state dict, by the rule of
-the JAX package's models/torch_compat.py:67-100.
+"""JAX parameter tree <-> PyTorch state dict, by the rule of
+the JAX package's models/torch_compat.py:34-100.
 
-  params['res1_0']['conv1']['kernel'] (kh,kw,I,O) -> 'res1.0.conv1.weight' (O,I,kh,kw)
+  params['res1_0']['conv1']['kernel'] (kh,kw,I,O) <-> 'res1.0.conv1.weight' (O,I,kh,kw)
   RCU's '{i}_{j}_conv', norm alpha/gamma/beta, biases -> same names
 
 Digit-suffixed names become ModuleList indices only for the list
-containers of the reference (res*, convs, adapt_convs).
+containers of the reference (res*, convs, adapt_convs); the other way,
+every ModuleList index joins its parent's name.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -46,3 +47,69 @@ def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(params, [])
     return out
+
+
+def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """Flat state dict -> nested dict of float32 numpy arrays (copies) in
+    the JAX package's layout (conv kernels (kh, kw, I, O)), the tree its
+    `load_checkpoint` and its model take."""
+    params: Dict = {}
+    for key, val in state_dict.items():
+        arr = val.detach().cpu().float().numpy().copy()  # no alias of val
+        toks: List[str] = []
+        for t in key.split("."):
+            if t.isdigit() and toks:
+                toks[-1] = f"{toks[-1]}_{t}"
+            else:
+                toks.append(t)
+        if toks[-1] == "weight":
+            toks[-1] = "kernel"
+            if arr.ndim == 4:
+                arr = np.transpose(arr, (2, 3, 1, 0))
+            elif arr.ndim == 2:
+                arr = arr.T
+        node = params
+        for t in toks[:-1]:
+            node = node.setdefault(t, {})
+        node[toks[-1]] = np.ascontiguousarray(arr)
+    return params
+
+
+def tree_paths(tree: Mapping) -> List[Tuple[str, ...]]:
+    """The leaf paths of a nested dict in the order in which the JAX
+    package flattens it (keys sorted at every level)."""
+    out: List[Tuple[str, ...]] = []
+
+    def walk(node, path):
+        for name in sorted(node):
+            child = node[name]
+            if isinstance(child, Mapping):
+                walk(child, path + (name,))
+            else:
+                out.append(path + (name,))
+
+    walk(tree, ())
+    return out
+
+
+def tree_leaves(tree: Mapping) -> list:
+    """The leaves of a nested dict in `tree_paths` order."""
+    out = []
+    for path in tree_paths(tree):
+        node = tree
+        for t in path:
+            node = node[t]
+        out.append(node)
+    return out
+
+
+def tree_from_leaves(paths: List[Tuple[str, ...]], leaves) -> Dict:
+    """The nested dict with `leaves` at `paths` (the inverse of reading
+    `tree_paths` off a tree)."""
+    tree: Dict = {}
+    for path, leaf in zip(paths, leaves, strict=True):
+        node = tree
+        for t in path[:-1]:
+            node = node.setdefault(t, {})
+        node[path[-1]] = leaf
+    return tree

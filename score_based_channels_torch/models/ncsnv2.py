@@ -75,7 +75,7 @@ class NCSNv2Deepest(nn.Module):
                 m.init_parameters(generator)
 
     def forward(self, x: torch.Tensor, used_sigmas) -> torch.Tensor:
-        h = x.permute(0, 3, 1, 2)  # NHWC memory == NCHW channels_last
+        h = x.contiguous().permute(0, 3, 1, 2)  # NHWC == NCHW channels_last
         if self.config.input_transform == "affine_2x_minus_1":
             h = 2.0 * h - 1.0
         out = self.begin_conv(h)

@@ -1,0 +1,395 @@
+"""DSM trainer of the score network, the counterpart of the JAX package's
+train/score.py (make_optimizer:49, make_score_train_step:71,
+make_eval_loss:128, ScoreTrainer:140, main:302); the reference recipe of
+train_score.py:34-67, 98-101, 145-216: batch 32, 400 epochs, Adam lr 1e-4
+eps 1e-3, EMA 0.999, anneal_power 2, geometric sigmas.
+
+On the card every training step's forward runs the port's `conv2d_taps`
+and `instance_norm_plus` kernels, and the convs' input gradients run
+`conv2d_taps` too (kernels/conv.py, kernels/instance_norm.py). The whole
+training tensor is staged on the device once; each step gathers its batch
+there. Losses stay on the device and come to the host once a
+`log_every_steps` chunk, as the JAX package's scanned chunk returns them.
+
+Random streams: the JAX package splits one key; here each stream is a
+`torch.Generator` seeded from (seed, purpose, index) with numpy's
+SeedSequence. Parameters are drawn on the CPU, each epoch's shuffle on the
+CPU (so both are the same on every device), and each step's labels and
+noise on the run's device from (seed, step), so a run does not depend on
+its chunk length or on restarts.
+
+The optimizers follow optax's update rules (the JAX package's), with
+their state kept in optax's leaf order so that a checkpoint resumes in
+either package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from .._device import resolve_device
+from ..config import Config
+from ..data.dataset import ChannelDataset
+from ..diffusion.dsm import anneal_dsm_loss
+from ..diffusion.ema import ema_init, ema_update
+from ..diffusion.sigmas import sigmas_from_config
+from ..eval.estimate import derive_seed
+from ..models import (
+    jax_params_to_state_dict, make_score_model, state_dict_to_jax_params,
+)
+from ..models.convert import tree_from_leaves, tree_leaves, tree_paths
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.metrics import MetricsLogger
+
+# each rule's moment lists, in optax's state order; the Adam family's
+# state starts with its step count
+_MOMENTS = {"adam": ("mu", "nu"), "amsgrad": ("mu", "nu", "nu_max"),
+            "rmsprop": ("nu",), "sgd": ("trace",)}
+
+
+class Optimizer:
+    """optax's update rules over named parameters, in place:
+
+      adam     optax.adam(lr, b1, b2, eps) (eps outside the sqrt), after
+               optax.add_decayed_weights(weight_decay) when it is set;
+      amsgrad  optax.amsgrad: the max of the BIAS-CORRECTED nu;
+      rmsprop  optax.rmsprop(lr, decay=0.99, eps=1e-8): nu starts at 0 and
+               eps is INSIDE the sqrt;
+      sgd      optax.sgd(lr, momentum=0.9): trace = g + 0.9 trace.
+
+    The rule of reference ncsnv2/losses/__init__.py:3-13 as the JAX
+    package's make_optimizer:49 builds it. State: `count` and one list of
+    tensors per moment, aligned with `names`.
+    """
+
+    def __init__(self, named_params, optim_cfg):
+        name = optim_cfg.optimizer.lower()
+        if name == "adam":
+            self.rule = "amsgrad" if optim_cfg.amsgrad else "adam"
+        elif name in ("rmsprop", "sgd"):
+            self.rule = name
+        else:
+            raise NotImplementedError(
+                f"Optimizer {optim_cfg.optimizer} not understood.")
+        self.cfg = optim_cfg
+        self.names, self.params = map(list, zip(*named_params))
+        self.count = 0
+        self.moments: Dict[str, List[torch.Tensor]] = {
+            m: [torch.zeros_like(p) for p in self.params]
+            for m in _MOMENTS[self.rule]}
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """One update from each parameter's .grad."""
+        c, p = self.cfg, self.params
+        g = [q.grad for q in p]
+        self.count += 1
+        if self.rule in ("adam", "amsgrad"):
+            if c.weight_decay:
+                g = torch._foreach_add(g, torch._foreach_mul(p, c.weight_decay))
+            mu, nu = self.moments["mu"], self.moments["nu"]
+            torch._foreach_mul_(mu, c.beta1)
+            torch._foreach_add_(mu, g, alpha=1.0 - c.beta1)
+            torch._foreach_mul_(nu, c.beta2)
+            torch._foreach_add_(nu, torch._foreach_mul(g, g),
+                                alpha=1.0 - c.beta2)
+            # optax's bias corrections: 1 - decay**count in float32
+            bc1 = float(1 - np.float32(c.beta1) ** np.float32(self.count))
+            bc2 = float(1 - np.float32(c.beta2) ** np.float32(self.count))
+            m_hat = torch._foreach_div(mu, bc1)
+            v_hat = torch._foreach_div(nu, bc2)
+            if self.rule == "amsgrad":
+                nu_max = self.moments["nu_max"]
+                torch._foreach_maximum_(nu_max, v_hat)
+                v_hat = [v.clone() for v in nu_max]
+            torch._foreach_sqrt_(v_hat)
+            torch._foreach_add_(v_hat, c.eps)
+            torch._foreach_div_(m_hat, v_hat)
+            torch._foreach_add_(p, m_hat, alpha=-c.lr)
+        elif self.rule == "rmsprop":
+            nu = self.moments["nu"]
+            torch._foreach_mul_(nu, 0.99)
+            torch._foreach_add_(nu, torch._foreach_mul(g, g), alpha=1 - 0.99)
+            scale = torch._foreach_add(nu, 1e-8)
+            torch._foreach_rsqrt_(scale)
+            torch._foreach_add_(p, torch._foreach_mul(g, scale), alpha=-c.lr)
+        else:  # sgd with momentum 0.9
+            tr = self.moments["trace"]
+            torch._foreach_mul_(tr, 0.9)
+            torch._foreach_add_(tr, g)
+            torch._foreach_add_(p, tr, alpha=-c.lr)
+
+    def zero_grad(self) -> None:
+        for q in self.params:
+            q.grad = None
+
+    def state_leaves(self) -> List[np.ndarray]:
+        """The state as optax flattens it: [count] for the Adam family,
+        then each moment's leaves in the JAX package's parameter order and
+        layout."""
+        leaves = ([np.asarray(self.count, np.int32)]
+                  if self.rule in ("adam", "amsgrad") else [])
+        for m in _MOMENTS[self.rule]:
+            leaves += tree_leaves(state_dict_to_jax_params(
+                dict(zip(self.names, self.moments[m]))))
+        return leaves
+
+    @torch.no_grad()
+    def load_state_leaves(self, leaves) -> None:
+        """The inverse of `state_leaves`, from either package's checkpoint."""
+        leaves = list(leaves)
+        if self.rule in ("adam", "amsgrad"):
+            self.count = int(leaves.pop(0))
+        paths = tree_paths(state_dict_to_jax_params(dict(zip(self.names,
+                                                             self.params))))
+        if len(leaves) != len(paths) * len(_MOMENTS[self.rule]):
+            raise ValueError(f"{len(leaves)} optimizer leaves do not fit "
+                             f"{self.rule} over {len(paths)} parameters")
+        for i, m in enumerate(_MOMENTS[self.rule]):
+            chunk = leaves[i * len(paths):(i + 1) * len(paths)]
+            sd = jax_params_to_state_dict(tree_from_leaves(paths, chunk))
+            for name, t in zip(self.names, self.moments[m]):
+                t.copy_(sd[name])
+
+
+def make_optimizer(model: nn.Module, optim_cfg) -> Optimizer:
+    """The optimizer of the config over the model's parameters."""
+    return Optimizer(model.named_parameters(), optim_cfg)
+
+
+@dataclasses.dataclass
+class ScoreTrainState:
+    model: nn.Module
+    ema: nn.Module
+    opt: Optimizer
+    step: int
+
+
+def make_score_train_step(sigmas: torch.Tensor, ema_rate: float,
+                          anneal_power: float) -> Callable:
+    """-> step(state, x, generator, labels=None, noise=None): the DSM loss
+    at the current parameters, backward, the optimizer step, the EMA
+    update; returns the loss as a 0-dim device tensor (no host sync)."""
+
+    def step(state: ScoreTrainState, x: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             labels: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        loss = anneal_dsm_loss(state.model, x, sigmas, generator, labels,
+                               noise, anneal_power)
+        state.opt.zero_grad()
+        loss.backward()
+        state.opt.step()
+        ema_update(state.ema, state.model, ema_rate)
+        state.step += 1
+        return loss.detach()
+
+    return step
+
+
+def make_eval_loss(sigmas: torch.Tensor, anneal_power: float) -> Callable:
+    """-> eval_loss(model, x, generator): the DSM loss under no_grad (the
+    trainer passes the EMA copy)."""
+
+    @torch.no_grad()
+    def eval_loss(model: nn.Module, x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return anneal_dsm_loss(model, x, sigmas, generator,
+                               anneal_power=anneal_power)
+
+    return eval_loss
+
+
+@contextlib.contextmanager
+def matmul_precision(precision: str):
+    """"highest" turns TF32 off for cuDNN and matmul while the block runs
+    (cuDNN's f32 convolutions take TF32 by default, which would cost the
+    weight gradient its f32 parity); other values leave both as they are."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    if precision == "highest":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+class ScoreTrainer:
+    """A full training run (the reference train_score.py recipe) on
+    `device` (None: the card). One device: the JAX package's data-parallel
+    mesh has nothing to shard here."""
+
+    def __init__(self, config: Config,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.config = config
+        self.device = resolve_device(device)
+        self.sigmas = sigmas_from_config(config.model).to(self.device)
+        self.train_step = make_score_train_step(
+            self.sigmas, config.model.ema_rate, config.training.anneal_power)
+        self.eval_loss = make_eval_loss(self.sigmas,
+                                        config.training.anneal_power)
+
+    def init_state(self, seed: int) -> ScoreTrainState:
+        """Random parameters drawn on the CPU from (seed, 0), a fresh
+        optimizer, the EMA equal to the parameters, step 0."""
+        cfg = self.config
+        model = make_score_model(
+            cfg.model, cfg.data.channels, device=self.device,
+            generator=torch.Generator().manual_seed(derive_seed(seed, 0)))
+        return ScoreTrainState(model=model, ema=ema_init(model),
+                               opt=make_optimizer(model, cfg.optim), step=0)
+
+    def restore_state(self, checkpoint_path: str) -> ScoreTrainState:
+        """Resume from a checkpoint written by either package: parameters,
+        EMA (the parameters when absent), optimizer leaves and step."""
+        ck = load_checkpoint(checkpoint_path)
+        state = self.init_state(0)
+        state.model.load_state_dict(jax_params_to_state_dict(ck["params"]),
+                                    strict=True)
+        state.ema.load_state_dict(jax_params_to_state_dict(
+            ck["ema"] if ck["ema"] is not None else ck["params"]), strict=True)
+        if ck["opt_leaves"] is not None:
+            state.opt.load_state_leaves(ck["opt_leaves"])
+        state.step = int(ck["metadata"].get("steps", 0))
+        return state
+
+    def save(self, path: str, state: ScoreTrainState,
+             extra_arrays: Optional[dict] = None) -> None:
+        """A checkpoint in the JAX package's format."""
+        save_checkpoint(
+            path, self.config,
+            params=state_dict_to_jax_params(state.model.state_dict()),
+            ema_params=state_dict_to_jax_params(state.ema.state_dict()),
+            opt_state_leaves=state.opt.state_leaves(),
+            extra_arrays=extra_arrays, metadata={"steps": state.step})
+
+    def train(
+        self,
+        train_seed: int = 1234,
+        val_seed: int = 4321,
+        rng_seed: Optional[int] = None,
+        checkpoint_path: Optional[str] = None,
+        n_epochs: Optional[int] = None,
+        resume_from: Optional[str] = None,
+        log_fn: Callable[[str], None] = print,
+        metrics_path: Optional[str] = None,
+    ) -> Tuple[ScoreTrainState, dict]:
+        cfg = self.config
+        dev = self.device
+        n_epochs = n_epochs if n_epochs is not None else cfg.training.n_epochs
+        rng_seed = rng_seed if rng_seed is not None else cfg.training.seed
+
+        # the train set's stats normalise the validation set (train_score.py:84)
+        train_ds = ChannelDataset(train_seed, cfg, norm=cfg.data.norm_channels)
+        val_ds = ChannelDataset(val_seed, cfg, norm=list(train_ds.norm_stats))
+        x_all = train_ds.network_input().to(dev)  # staged once
+        x_val = val_ds.network_input().to(dev)
+
+        state = (self.restore_state(resume_from) if resume_from
+                 else self.init_state(rng_seed))
+        start_step = state.step
+        metrics = MetricsLogger(metrics_path)
+        batch = cfg.training.batch_size
+        n = x_all.shape[0]
+        steps_per_epoch = n // batch  # drop_last (train_score.py:75)
+        total_steps = n_epochs * steps_per_epoch
+        chunk_len = max(1, cfg.training.log_every_steps)
+        gen = torch.Generator(device=dev)
+        perm, perm_epoch = None, -1
+
+        train_loss_log, val_loss_log = [], []
+        running = None
+        t0 = time.time()
+        done = start_step
+        with matmul_precision(cfg.training.matmul_precision):
+            while done < total_steps:
+                losses = []
+                for s in range(done, min(done + chunk_len, total_steps)):
+                    epoch, i = divmod(s, steps_per_epoch)
+                    if epoch != perm_epoch:
+                        perm = torch.randperm(n, generator=torch.Generator()
+                                              .manual_seed(derive_seed(
+                                                  rng_seed, 1, epoch))).to(dev)
+                        perm_epoch = epoch
+                    x = x_all[perm[i * batch:(i + 1) * batch]]
+                    gen.manual_seed(derive_seed(rng_seed, 2, s))
+                    losses.append(self.train_step(state, x, gen))
+                done += len(losses)
+                chunk = torch.stack(losses).cpu().tolist()  # one sync a chunk
+                for loss_f in chunk:
+                    running = (loss_f if running is None
+                               else 0.99 * running + 0.01 * loss_f)
+                train_loss_log.extend(chunk)
+                epoch = (done - 1) // steps_per_epoch
+                gen.manual_seed(derive_seed(rng_seed, 3, done))
+                v = float(self.eval_loss(state.ema, x_val, gen))
+                val_loss_log.append(v)
+                sps = (done - start_step) / (time.time() - t0)
+                log_fn(f"Epoch {epoch}, Step {done}, "
+                       f"Train Loss (EMA) {running:.3f}, Val. Loss {v:.3f}, "
+                       f"{sps:.2f} steps/s")
+                metrics.log("val", epoch=epoch, step=done,
+                            train_loss_ema=running, val_loss=v,
+                            steps_per_s=sps)
+
+        logs = {"train_loss": np.asarray(train_loss_log),
+                "val_loss": np.asarray(val_loss_log),
+                "norm_stats": np.asarray([np.real(train_ds.mean),
+                                          float(train_ds.std)])}
+        if checkpoint_path:
+            self.save(checkpoint_path, state, extra_arrays=logs)
+            log_fn(f"saved checkpoint to {checkpoint_path}")
+        return state, logs
+
+
+def main(argv=None):
+    """CLI: the reference `train_score --train CDL-C` recipe
+    (train_score.py:20-23), with the JAX package's flags and --device."""
+    import argparse
+
+    p = argparse.ArgumentParser(description="Train the score model (DSM+EMA)")
+    p.add_argument("--train", type=str, default="CDL-C",
+                   help="CDL profile to train on")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--train_size", type=int, default=None,
+                   help="training realizations (the reference uses 200)")
+    p.add_argument("--output", type=str, default=None,
+                   help="checkpoint path (default "
+                        "models/score/<ch>/final_model.npz)")
+    p.add_argument("--ray_coupling", type=str, default="random",
+                   choices=["random", "fixed"],
+                   help="generator ensemble (DataConfig.ray_coupling)")
+    p.add_argument("--cache", type=str, default=None,
+                   help="accepted for the JAX package's command line; the "
+                        "port compiles no graphs and keeps no cache")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: cuda; --device cpu runs the "
+                        "plain PyTorch path)")
+    args = p.parse_args(argv)
+
+    from ..config import default_score_config
+
+    cfg = default_score_config(args.train)
+    if args.train_size:
+        cfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, num_channels=args.train_size))
+    if args.ray_coupling != "random":
+        cfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, ray_coupling=args.ray_coupling))
+    out = args.output or f"models/score/{args.train}/final_model.npz"
+    ScoreTrainer(cfg, device=args.device).train(checkpoint_path=out,
+                                                n_epochs=args.epochs)
+
+
+if __name__ == "__main__":
+    main()

@@ -181,8 +181,13 @@ def test_file_dataset_matches_jax(tmp_path, ext, norm):
 
 
 def test_cdl_source_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ChannelDataset(1, config.DataConfig(source="cdl"))
+    # source="cdl" is ported (tests/test_torch_cdl.py); an unknown source
+    # is what is refused now
+    ds = ChannelDataset(1, dataclasses.replace(config.DataConfig(),
+                                               num_channels=2))
+    assert ds.channels.shape == (2, 16, 64)
+    with pytest.raises(ValueError, match="unknown data source"):
+        ChannelDataset(1, config.DataConfig(source="matlab"))
 
 
 def test_converter_matches_jax():

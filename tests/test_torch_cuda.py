@@ -23,8 +23,8 @@ from score_based_channels_torch.diffusion.sampling import (
 from score_based_channels_torch.diffusion.sigmas import get_sigmas
 from score_based_channels_torch.eval.estimate import score_fn_from_params
 from score_based_channels_torch.kernels import (
-    conv, conv_chain, conv_im2col, counts, instance_norm, ldpc_minsum,
-    reset_counts,
+    conv, conv_chain, conv_im2col, counts, grad_counts, instance_norm,
+    ldpc_minsum, reset_counts,
 )
 from score_based_channels_torch.kernels.fused_forward import fused_forward
 from score_based_channels_torch.models import make_score_model
@@ -550,3 +550,152 @@ def test_fused_forward_on_the_card_matches_the_module(card):
     assert n["conv2d_taps"] == {"launches": 113, "plain": 0}
     assert n["instance_norm_plus"] == {"launches": 25, "plain": 0}
     assert torch.equal(got, want) and torch.equal(again, want)
+
+
+# -- gradients (score training) ------------------------------------------------
+
+# every conv variant of one NCSNv2-Deepest forward at ngf = 32:
+# (H, W, Cin, Cout, k, dilation, bias, elu)
+TRAIN_CONVS = [
+    (8, 2, 64, 64, 3, 1, False, False), (8, 2, 64, 64, 3, 1, False, True),
+    (8, 2, 64, 64, 3, 1, True, False), (8, 2, 64, 64, 3, 2, True, False),
+    (8, 2, 64, 128, 3, 2, True, False), (8, 2, 128, 64, 3, 1, True, False),
+    (8, 2, 128, 128, 3, 1, False, False), (8, 2, 128, 128, 3, 1, False, True),
+    (8, 2, 128, 128, 3, 2, True, False), (8, 2, 128, 128, 3, 4, True, False),
+    (16, 4, 64, 32, 3, 1, True, False), (16, 4, 64, 64, 1, 1, True, False),
+    (16, 4, 64, 64, 3, 1, False, False), (16, 4, 64, 64, 3, 1, False, True),
+    (16, 4, 64, 64, 3, 1, True, False), (32, 8, 32, 32, 3, 1, False, False),
+    (32, 8, 32, 32, 3, 1, False, True), (32, 8, 32, 32, 3, 1, True, False),
+    (32, 8, 64, 32, 3, 1, True, False), (32, 8, 64, 64, 1, 1, True, False),
+    (32, 8, 64, 64, 3, 1, False, False), (32, 8, 64, 64, 3, 1, False, True),
+    (32, 8, 64, 64, 3, 1, True, False), (64, 16, 2, 32, 3, 1, True, False),
+    (64, 16, 32, 2, 3, 1, True, False), (64, 16, 32, 32, 3, 1, False, False),
+    (64, 16, 32, 32, 3, 1, False, True), (64, 16, 32, 32, 3, 1, True, False),
+    (64, 16, 32, 64, 1, 1, True, False), (64, 16, 32, 64, 3, 1, True, False)]
+
+
+@pytest.mark.parametrize("H,W,Cin,Cout,k,d,bias,elu", TRAIN_CONVS)
+def test_conv_gradients_match_cudnn_autograd(card, H, W, Cin, Cout, k, d,
+                                             bias, elu):
+    """The conv Function's dgrad (the kernel on the transposed weight),
+    wgrad and bias grad against autograd through F.conv2d (TF32 off), f32,
+    batch 32, within 1e-5 of max|ref| each; the begin conv's input takes no
+    gradient, so its dgrad is skipped."""
+    g = torch.Generator().manual_seed(9)
+    x0 = torch.randn(32, Cin, H, W, generator=g).to(card).contiguous(
+        memory_format=torch.channels_last)
+    w0 = conv.kernel_layout((torch.randn(Cout, Cin, k, k, generator=g)
+                             / (k * k * Cin) ** 0.5).to(card))
+    b0 = torch.randn(Cout, generator=g).to(card) if bias else None
+    gout = torch.randn(32, Cout, H, W, generator=g).to(card)  # NCHW strides
+    for x_grad in (True, False):
+        leaves = [x0.clone().requires_grad_(x_grad), w0.clone().requires_grad_()]
+        if bias:
+            leaves.append(b0.clone().requires_grad_())
+        ref = [t.detach().clone().requires_grad_(t.requires_grad)
+               for t in leaves]
+        reset_counts()
+        out = conv.conv2d(*leaves[:2], leaves[2] if bias else None, d, elu)
+        want = conv.conv2d_plain(*ref[:2], ref[2] if bias else None, d, elu)
+        # autograd may hand the backward a gradient in any strides
+        out.backward(gout)
+        want.backward(gout)
+        n = grad_counts()["conv2d_taps"]
+        assert n == {"functions": 1, "dgrad": int(x_grad)}, n
+        assert counts()["conv2d_taps"] == {"launches": 1 + int(x_grad),
+                                           "plain": 1}
+        for a, b in zip(leaves, ref):
+            if not b.requires_grad:
+                assert a.grad is None
+                continue
+            err = (a.grad - b.grad).abs().max() / b.grad.abs().max()
+            assert err <= 1e-5, (float(err), tuple(a.shape))
+        assert conv.has_kernel_layout(leaves[1].grad)
+
+
+@pytest.mark.parametrize("elu", [False, True])
+@pytest.mark.parametrize("H,W,C", NORM_SHAPES)
+def test_norm_gradients_match_plain_autograd(card, H, W, C, elu):
+    """The norm Function (kernel forward, closed-form backward) against
+    autograd through the plain version, f32, rtol 2e-4 / atol 2e-5."""
+    x, a, gm, bt = _norm_inputs(card, 32, C, H, W, torch.float32, seed=3)
+    leaves = [t.clone().requires_grad_() for t in (x, a, gm, bt)]
+    ref = [t.clone().requires_grad_() for t in (x, a, gm, bt)]
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(4)).to(
+        card)
+    reset_counts()
+    instance_norm.instance_norm_plus(*leaves, elu=elu).backward(g)
+    instance_norm.instance_norm_plus_plain(*ref, elu=elu).backward(g)
+    assert grad_counts()["instance_norm_plus"] == {"functions": 1,
+                                                   "backward": 1}
+    assert counts()["instance_norm_plus"] == {"launches": 1, "plain": 1}
+    for p, q in zip(leaves, ref):
+        torch.testing.assert_close(p.grad, q.grad, rtol=2e-4, atol=2e-5)
+
+
+def test_no_autograd_function_under_no_grad(card):
+    """The sampler's path (no_grad) and a forward on parameters that take
+    no gradient launch directly; with grad, every conv and norm of a
+    forward builds its Function and a backward runs 112 dgrads (not the
+    begin conv's) and 25 norm backwards."""
+    model = make_score_model(ModelConfig(ngf=8), device=card)
+    x = torch.randn(4, 64, 16, 2, device=card)
+    reset_counts()
+    with torch.no_grad():
+        model(x, 0.7)
+    score_fn_from_params(model, torch.bfloat16)(x, 0.7)
+    frozen = make_score_model(ModelConfig(ngf=8), device=card).requires_grad_(
+        False)
+    frozen(x, 0.7)
+    assert grad_counts() == {"conv2d_taps": {"functions": 0, "dgrad": 0},
+                             "instance_norm_plus": {"functions": 0,
+                                                    "backward": 0}}
+    assert counts()["conv2d_taps"]["launches"] == 3 * 113
+    reset_counts()
+    model(x, 0.7).square().sum().backward()
+    assert grad_counts() == {"conv2d_taps": {"functions": 113, "dgrad": 112},
+                             "instance_norm_plus": {"functions": 25,
+                                                    "backward": 25}}
+    assert counts()["conv2d_taps"] == {"launches": 113 + 112, "plain": 0}
+    assert counts()["instance_norm_plus"] == {"launches": 25, "plain": 0}
+
+
+def test_train_step_gradients_match_the_cpu(card):
+    """One DSM step's gradient at ngf = 8 on the card against the plain
+    step on the CPU (same parameters, batch, labels and noise), within
+    1e-3 of each tensor's max|g|; then an optimizer and EMA step."""
+    from score_based_channels_torch.config import Config
+    from score_based_channels_torch.diffusion.dsm import anneal_dsm_loss
+    from score_based_channels_torch.diffusion.sigmas import sigmas_from_config
+    from score_based_channels_torch.train import ScoreTrainer
+
+    cfg = Config(model=ModelConfig(ngf=8, num_classes=50))
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(8, 64, 16, 2, generator=g)
+    labels = torch.randint(0, 50, (8,), generator=g)
+    noise = torch.randn(x.shape, generator=g)
+    sig = sigmas_from_config(cfg.model)
+    cpu = make_score_model(cfg.model, device="cpu")
+    anneal_dsm_loss(cpu, x, sig, labels=labels, noise=noise).backward()
+    trainer = ScoreTrainer(cfg, device=card)
+    state = trainer.init_state(0)
+    state.model.load_state_dict(cpu.state_dict())
+    state.ema.load_state_dict(cpu.state_dict())
+    loss = anneal_dsm_loss(state.model, x.to(card), sig.to(card),
+                           labels=labels.to(card), noise=noise.to(card))
+    loss.backward()
+    for (name, p), q in zip(state.model.named_parameters(), cpu.parameters()):
+        err = (p.grad.cpu() - q.grad).abs().max() / q.grad.abs().max()
+        assert err <= 1e-3, (name, float(err))
+    reset_counts()
+    # a batch in other strides (as a data set's view may come) is taken
+    x_t = x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3).to(card)
+    assert not x_t.is_contiguous()
+    trainer.train_step(state, x_t, torch.Generator(card).manual_seed(1))
+    assert state.step == 1 and torch.isfinite(torch.stack(
+        [p.abs().max() for p in state.model.parameters()])).all()
+    assert any((p - e).abs().max() > 0 for p, e in
+               zip(state.model.parameters(), state.ema.parameters()))
+    assert counts()["conv2d_taps"]["plain"] == 0
+    assert all(conv.has_kernel_layout(m.weight) for m in state.model.modules()
+               if hasattr(m, "dilation") and hasattr(m, "weight"))
