@@ -46,7 +46,18 @@ Phases (any failure propagates and the exit code is non-zero):
      its plain version and cuDNN's; the saved checkpoint read back and
      run through `run_estimation`; ms per step (forward, backward,
      optimizer+EMA), steps/s and a profiler window;
-  8. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
+  8. the comparison side: `run_ls_baseline`, `run_lasso_baseline` and
+     `run_amp_baseline` at their defaults on the card, held per SNR point
+     against the CPU on the same draws (0.01, 0.05 and 0.1 dB; lasso and
+     amp on two channels of each point); from the train phase's
+     checkpoint (full width, every 100th level of the schedule),
+     `run_hparam_search` (2x2 grid x 3 SNRs x 32 channels) and
+     `run_mmse_estimation` (init ls, coef_cap auto, 16 samples x 2 SNRs x 8
+     channels) with their launch counts, each again on a slice of chains
+     at beta 0 on the card and the CPU (NMSE within rtol 1e-3), the
+     tuner's slim table driving `run_estimation`, and `lmmse --cov
+     analytic`;
+  9. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
 
 Details too long for the output go to chiprun_out/chip_smoke.json.
 """
@@ -795,12 +806,12 @@ def train_norm_rows(norms, g):
     return rows
 
 
-def train_phase(convs, norms, card, g):
+def train_phase(convs, norms, card, g, ck_path):
     """Phase 7: `ScoreTrainer.train` (the train-score entry point) on CDL-C
     at full width in f32, its launch counts, the card's gradient against
     the plain CPU gradient, the dgrad kernel against cuDNN's at every
-    training conv shape, a checkpoint read back and run through
-    `run_estimation`, and ms per step."""
+    training conv shape, the checkpoint (written to ck_path) read back and
+    run through `run_estimation`, and ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
     from score_based_channels_torch import kernels
@@ -825,119 +836,117 @@ def train_phase(convs, norms, card, g):
         log_every_steps=TRAIN_LOG_EVERY))
     trainer = ScoreTrainer(cfg, device="cuda")
     n_fwd, n_norm = sum(convs.values()), sum(norms.values())
-    with tempfile.TemporaryDirectory() as tmp:
-        ck_path = os.path.join(tmp, "final_model.npz")
-        kernels.reset_counts()
-        t0 = time.perf_counter()
-        state, logs = trainer.train(checkpoint_path=ck_path,
-                                    log_fn=lambda s: print("# " + s))
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        n, ng = kernels.counts(), kernels.grad_counts()
-        steps = state.step
-        n_val = len(logs["val_loss"])
-        print(f"# train-score CDL-C, ngf 32, batch {TRAIN_BATCH}, f32: "
-              f"{steps} steps + {n_val} validations in {train_s:.2f} s "
-              f"(data generation and set-up included); launches {n}; "
-              f"gradient work {ng}")
-        assert steps == TRAIN_EPOCHS * (200 // TRAIN_BATCH), steps
-        assert np.isfinite(logs["train_loss"]).all(), logs["train_loss"]
-        assert np.isfinite(logs["val_loss"]).all(), logs["val_loss"]
-        assert any((p - e).abs().max().item() > 0 for p, e in zip(
-            state.model.parameters(), state.ema.parameters()))
-        dgrad_per_step = n_fwd - 1  # the begin conv's input takes none
-        assert ng == {"conv2d_taps": {"functions": n_fwd * steps,
-                                      "dgrad": dgrad_per_step * steps},
-                      "instance_norm_plus": {"functions": n_norm * steps,
-                                             "backward": n_norm * steps}}, ng
-        assert n["conv2d_taps"] == {
-            "launches": (n_fwd + dgrad_per_step) * steps + n_fwd * n_val,
-            "plain": 0}, n
-        assert n["instance_norm_plus"] == {
-            "launches": n_norm * (steps + n_val), "plain": 0}, n
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    state, logs = trainer.train(checkpoint_path=ck_path,
+                                log_fn=lambda s: print("# " + s))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    n, ng = kernels.counts(), kernels.grad_counts()
+    steps = state.step
+    n_val = len(logs["val_loss"])
+    print(f"# train-score CDL-C, ngf 32, batch {TRAIN_BATCH}, f32: "
+          f"{steps} steps + {n_val} validations in {train_s:.2f} s "
+          f"(data generation and set-up included); launches {n}; "
+          f"gradient work {ng}")
+    assert steps == TRAIN_EPOCHS * (200 // TRAIN_BATCH), steps
+    assert np.isfinite(logs["train_loss"]).all(), logs["train_loss"]
+    assert np.isfinite(logs["val_loss"]).all(), logs["val_loss"]
+    assert any((p - e).abs().max().item() > 0 for p, e in zip(
+        state.model.parameters(), state.ema.parameters()))
+    dgrad_per_step = n_fwd - 1  # the begin conv's input takes none
+    assert ng == {"conv2d_taps": {"functions": n_fwd * steps,
+                                  "dgrad": dgrad_per_step * steps},
+                  "instance_norm_plus": {"functions": n_norm * steps,
+                                         "backward": n_norm * steps}}, ng
+    assert n["conv2d_taps"] == {
+        "launches": (n_fwd + dgrad_per_step) * steps + n_fwd * n_val,
+        "plain": 0}, n
+    assert n["instance_norm_plus"] == {
+        "launches": n_norm * (steps + n_val), "plain": 0}, n
 
-        # the card's gradient against the plain CPU gradient, batch 4, at
-        # the run's initial parameters (the first step's); once training
-        # has moved the parameters, an f32 gradient's distance from float64
-        # can grow for every implementation, the plain one included, so
-        # there the card is held against the plain f32 gradient's own
-        # distance from float64
-        first = trainer.init_state(cfg.training.seed).model
-        gg = torch.Generator().manual_seed(11)
-        x4 = ChannelDataset(1234, cfg, norm="global").network_input()[
-            :GRAD_CHECK_BATCH]
-        labels = torch.randint(0, cfg.model.num_classes, (GRAD_CHECK_BATCH,),
-                               generator=gg)
-        noise = torch.randn(x4.shape, generator=gg)
-        cpu = make_score_model(cfg.model, device="cpu")
-        cpu.load_state_dict(first.state_dict())
-        loss_card = anneal_dsm_loss(first, x4.cuda(), trainer.sigmas,
-                                    labels=labels.cuda(), noise=noise.cuda())
-        loss_card.backward()
-        loss_cpu = anneal_dsm_loss(cpu, x4, trainer.sigmas.cpu(),
-                                   labels=labels, noise=noise)
-        loss_cpu.backward()
-        worst = (0.0, "")
-        for (name, p), q in zip(first.named_parameters(), cpu.parameters()):
-            rel = ((p.grad.cpu() - q.grad).abs().max()
-                   / q.grad.abs().max()).item()
-            worst = max(worst, (rel, name))
-        loss_rel = abs(loss_card.item() - loss_cpu.item()) / loss_cpu.item()
-        print(f"# gradient at the initial parameters, card (kernels) vs CPU "
-              f"(plain), batch {GRAD_CHECK_BATCH}: loss rel err {loss_rel:.2e}; worst "
-              f"parameter {worst[1]} at {worst[0]:.2e} of its max|g| (tol "
-              f"1e-3) over {len(list(cpu.parameters()))} tensors")
-        assert loss_rel < 2e-4 and worst[0] <= 1e-3, (loss_rel, worst)
-        # at the trained parameters, each f32 gradient against float64 on
-        # the CPU: the card's may be no further off than the plain f32 one
-        cpu.load_state_dict(state.model.state_dict())
-        cpu64 = make_score_model(cfg.model, device="cpu").double()
-        cpu64.load_state_dict(state.model.state_dict())
-        trained_grads = {}
-        for tag, m, dev, dt in (("card", state.model, "cuda", torch.float32),
-                                ("cpu32", cpu, "cpu", torch.float32),
-                                ("cpu64", cpu64, "cpu", torch.float64)):
-            m.zero_grad()
-            anneal_dsm_loss(m, x4.to(dev, dt), trainer.sigmas.to(dev, dt),
-                            labels=labels.to(dev),
-                            noise=noise.to(dev, dt)).backward()
-            trained_grads[tag] = [p.grad.detach().cpu().double()
-                                  for p in m.parameters()]
-        off64 = {tag: max(((a - b).abs().max() / b.abs().max()).item()
-                          for a, b in zip(trained_grads[tag],
-                                          trained_grads["cpu64"]))
-                 for tag in ("card", "cpu32")}
-        print(f"# gradient at the trained parameters (step {steps}), worst "
-              f"tensor against float64 on the CPU: card {off64['card']:.2e}, "
-              f"plain f32 on the CPU {off64['cpu32']:.2e}")
-        assert off64["card"] <= max(2 * off64["cpu32"], 1e-3), off64
-        state.opt.zero_grad()
+    # the card's gradient against the plain CPU gradient, batch 4, at
+    # the run's initial parameters (the first step's); once training
+    # has moved the parameters, an f32 gradient's distance from float64
+    # can grow for every implementation, the plain one included, so
+    # there the card is held against the plain f32 gradient's own
+    # distance from float64
+    first = trainer.init_state(cfg.training.seed).model
+    gg = torch.Generator().manual_seed(11)
+    x4 = ChannelDataset(1234, cfg, norm="global").network_input()[
+        :GRAD_CHECK_BATCH]
+    labels = torch.randint(0, cfg.model.num_classes, (GRAD_CHECK_BATCH,),
+                           generator=gg)
+    noise = torch.randn(x4.shape, generator=gg)
+    cpu = make_score_model(cfg.model, device="cpu")
+    cpu.load_state_dict(first.state_dict())
+    loss_card = anneal_dsm_loss(first, x4.cuda(), trainer.sigmas,
+                                labels=labels.cuda(), noise=noise.cuda())
+    loss_card.backward()
+    loss_cpu = anneal_dsm_loss(cpu, x4, trainer.sigmas.cpu(),
+                               labels=labels, noise=noise)
+    loss_cpu.backward()
+    worst = (0.0, "")
+    for (name, p), q in zip(first.named_parameters(), cpu.parameters()):
+        rel = ((p.grad.cpu() - q.grad).abs().max()
+               / q.grad.abs().max()).item()
+        worst = max(worst, (rel, name))
+    loss_rel = abs(loss_card.item() - loss_cpu.item()) / loss_cpu.item()
+    print(f"# gradient at the initial parameters, card (kernels) vs CPU "
+          f"(plain), batch {GRAD_CHECK_BATCH}: loss rel err {loss_rel:.2e}; worst "
+          f"parameter {worst[1]} at {worst[0]:.2e} of its max|g| (tol "
+          f"1e-3) over {len(list(cpu.parameters()))} tensors")
+    assert loss_rel < 2e-4 and worst[0] <= 1e-3, (loss_rel, worst)
+    # at the trained parameters, each f32 gradient against float64 on
+    # the CPU: the card's may be no further off than the plain f32 one
+    cpu.load_state_dict(state.model.state_dict())
+    cpu64 = make_score_model(cfg.model, device="cpu").double()
+    cpu64.load_state_dict(state.model.state_dict())
+    trained_grads = {}
+    for tag, m, dev, dt in (("card", state.model, "cuda", torch.float32),
+                            ("cpu32", cpu, "cpu", torch.float32),
+                            ("cpu64", cpu64, "cpu", torch.float64)):
+        m.zero_grad()
+        anneal_dsm_loss(m, x4.to(dev, dt), trainer.sigmas.to(dev, dt),
+                        labels=labels.to(dev),
+                        noise=noise.to(dev, dt)).backward()
+        trained_grads[tag] = [p.grad.detach().cpu().double()
+                              for p in m.parameters()]
+    off64 = {tag: max(((a - b).abs().max() / b.abs().max()).item()
+                      for a, b in zip(trained_grads[tag],
+                                      trained_grads["cpu64"]))
+             for tag in ("card", "cpu32")}
+    print(f"# gradient at the trained parameters (step {steps}), worst "
+          f"tensor against float64 on the CPU: card {off64['card']:.2e}, "
+          f"plain f32 on the CPU {off64['cpu32']:.2e}")
+    assert off64["card"] <= max(2 * off64["cpu32"], 1e-3), off64
+    state.opt.zero_grad()
 
-        # dgrad / forward / wgrad / norm at every training shape
-        conv_rows = train_conv_rows(convs, g)
-        norm_rows = train_norm_rows(norms, g)
+    # dgrad / forward / wgrad / norm at every training shape
+    conv_rows = train_conv_rows(convs, g)
+    norm_rows = train_norm_rows(norms, g)
 
-        # the checkpoint, read back, through the estimate harness
-        ck = load_checkpoint(ck_path)
-        assert ck["metadata"] == {"steps": steps}
-        assert ck["config"].data.source == "cdl"
-        est_model = make_score_model(ck["config"].model, device="cuda")
-        est_model.load_state_dict(jax_params_to_state_dict(ck["ema"]),
-                                  strict=True)
-        stride = 64
-        kernels.reset_counts()
-        res = run_estimation(score_fn_from_params(est_model, torch.bfloat16),
-                             ck["config"], snr_range=np.array([0., 20.]),
-                             num_channels=32, level_stride=stride,
-                             init="noise", chunk_size=64, device="cuda")
-        est_counts = kernels.counts()
-        print(f"# estimate from the saved checkpoint (level_stride {stride}, "
-              f"32 CDL-C channels): best NMSE dB "
-              f"{np.round(res.best_nmse_db().ravel(), 2).tolist()}; launches "
-              f"{est_counts}")
-        assert np.isfinite(res.nmse_log).all()
-        assert est_counts["conv2d_taps"]["plain"] == 0
-        assert est_counts["conv2d_taps"]["launches"] > 0
+    # the checkpoint, read back, through the estimate harness
+    ck = load_checkpoint(ck_path)
+    assert ck["metadata"] == {"steps": steps}
+    assert ck["config"].data.source == "cdl"
+    est_model = make_score_model(ck["config"].model, device="cuda")
+    est_model.load_state_dict(jax_params_to_state_dict(ck["ema"]),
+                              strict=True)
+    stride = 64
+    kernels.reset_counts()
+    res = run_estimation(score_fn_from_params(est_model, torch.bfloat16),
+                         ck["config"], snr_range=np.array([0., 20.]),
+                         num_channels=32, level_stride=stride,
+                         init="noise", chunk_size=64, device="cuda")
+    est_counts = kernels.counts()
+    print(f"# estimate from the saved checkpoint (level_stride {stride}, "
+          f"32 CDL-C channels): best NMSE dB "
+          f"{np.round(res.best_nmse_db().ravel(), 2).tolist()}; launches "
+          f"{est_counts}")
+    assert np.isfinite(res.nmse_log).all()
+    assert est_counts["conv2d_taps"]["plain"] == 0
+    assert est_counts["conv2d_taps"]["launches"] > 0
 
     # ms per step: forward, backward, optimizer + EMA (synchronised), and
     # steps/s of train_step as the trainer runs it (no synchronisation)
@@ -1016,6 +1025,274 @@ def train_phase(convs, norms, card, g):
                 steps_per_s=steps_per_s, split_ms=split,
                 profile_wall_ms=wall_ms, profile_busy_ms=busy,
                 profile_top=top)
+
+
+EVAL_LEVELS = 24       # levels of the tuner's and MMSE's schedule ...
+EVAL_STRIDE = 100      # ... every 100th of the 2311: sigma 39.15 to 3.9e-4
+TUNE_ALPHAS = (3e-11, 1e-10)
+TUNE_BETAS = (0.01, 0.001)
+TUNE_SNRS = np.array([0.0, 10.0, 20.0])
+TUNE_CHANNELS = 32
+TUNE_CHUNK = 192
+MMSE_SNRS = np.array([0.0, 20.0])
+MMSE_AVG = 16
+MMSE_CHANNELS = 8
+REF_CHANNELS = (0, 1)  # the channels run again on the CPU, per SNR point
+REF_RTOL = 1e-3        # card vs CPU on the sampler's NMSE at beta = 0
+
+
+def db_gap(a, b):
+    """Largest |10 log10(a / b)| over SNR points, in dB."""
+    return float(np.max(np.abs(10 * np.log10(np.asarray(a) / np.asarray(b)))))
+
+
+def rounded(v, nd=2):
+    """A list of Python floats rounded to nd places, for printing."""
+    return [round(float(x), nd) for x in np.ravel(v)]
+
+
+def timed(fn):
+    """(result, seconds) of fn() on the host clock, the card synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def eval_phase(ck_path, card):
+    """Phase 8: the paper's comparison side at full width. ls, lasso and
+    amp at their defaults on the card, held per SNR against the CPU on the
+    same draws (made on the CPU): ls whole, lasso and amp on REF_CHANNELS
+    (each row is solved on its own); the tuner and posterior-averaging
+    MMSE from the train phase's checkpoint (NCSNv2-Deepest, ngf 32) on
+    every EVAL_STRIDE-th level of the schedule, with their launch counts,
+    and each again for a slice of chains at beta = 0 (deterministic) on
+    the card and the CPU; the tuner's slim table driving `run_estimation`
+    (train -> tune -> estimate); `lmmse --cov analytic` on the host."""
+    import contextlib
+    import io
+
+    from score_based_channels_torch import kernels
+    from score_based_channels_torch.baselines.amp import run_amp_baseline
+    from score_based_channels_torch.baselines.lasso import run_lasso_baseline
+    from score_based_channels_torch.baselines.lmmse import main as lmmse_main
+    from score_based_channels_torch.baselines.ls import run_ls_baseline
+    from score_based_channels_torch.baselines.mmse import run_mmse_estimation
+    from score_based_channels_torch.config import default_score_config
+    from score_based_channels_torch.eval.estimate import (
+        load_score_fn, run_estimation,
+    )
+    from score_based_channels_torch.eval.tune import run_hparam_search
+
+    out = {}
+    cfg = default_score_config("CDL-C")
+
+    def counted(score_fn, nfe):
+        def fn(x, s):
+            nfe[0] += 1
+            return score_fn(x, s)
+        return fn
+
+    def launches_per_forward(nfe):
+        n = kernels.counts()
+        assert n["conv2d_taps"] == {"launches": 113 * nfe, "plain": 0}, n
+        assert n["instance_norm_plus"] == {"launches": 25 * nfe,
+                                           "plain": 0}, n
+        return n
+
+    def amp_best(r, c):
+        """AMPResults.best_db over channels c, as a power ratio."""
+        avg = r.nmse_trace[..., c].mean(-1)
+        return np.where(np.isfinite(avg), avg, np.inf).min(-1)
+
+    # -- baselines at their defaults, card vs CPU ----------------------------
+    chans = list(REF_CHANNELS)
+    for name, run, per_snr, tol, ref_kw in (
+            ("ls", run_ls_baseline,
+             lambda r, c: r.nmse[..., c].mean(-1).ravel(), 0.01, {}),
+            ("lasso", run_lasso_baseline,
+             lambda r, c: r.nmse_log[..., c].mean(-1).ravel(), 0.05,
+             dict(_channels=chans)),
+            ("amp", run_amp_baseline, amp_best, 0.1,
+             dict(_channels=chans))):
+        kernels.reset_counts()
+        res, sec = timed(lambda: run(cfg))
+        n = kernels.counts()
+        ref, sec_cpu = timed(lambda: run(cfg, device="cpu", **ref_kw))
+        card_c = slice(None) if not ref_kw else chans
+        got, want = per_snr(res, card_c), per_snr(ref, slice(None))
+        full = per_snr(res, slice(None))
+        gap = db_gap(got, want)
+        snrs = res.snr_range
+        on_cpu = ("all channels" if not ref_kw else
+                  f"channels {chans} of each SNR point")
+        print(f"# eval {name} (defaults: {len(snrs)} SNRs x 50 channels): "
+              f"{sec:.2f} s on the card, {sec_cpu:.2f} s on the CPU for "
+              f"{on_cpu} (data made on the host included); NMSE dB per SNR "
+              f"{rounded(10 * np.log10(full))} at {snrs.tolist()}; largest "
+              f"card-CPU gap on {on_cpu} {gap:.6f} dB (tol {tol}); "
+              f"launches {n}; on {card}")
+        assert np.isfinite(full).all() and gap <= tol, (name, gap)
+        out[name] = dict(seconds=sec, seconds_cpu=sec_cpu, snr=snrs.tolist(),
+                         nmse_db=rounded(10 * np.log10(full), 6),
+                         ref_channels=None if not ref_kw else chans,
+                         nmse_db_ref_card=rounded(10 * np.log10(got), 6),
+                         nmse_db_ref_cpu=rounded(10 * np.log10(want), 6),
+                         gap_db=gap, launches=n)
+
+    # -- tune from the trained checkpoint ------------------------------------
+    config, score32 = load_score_fn(ck_path, "cuda")
+    _, score_cpu = load_score_fn(ck_path, "cpu")
+    config = config.replace(model=dataclasses.replace(  # a cut in depth
+        config.model, num_classes=EVAL_LEVELS,
+        sigma_rate=config.model.sigma_rate ** EVAL_STRIDE))
+    cut = (f"every {EVAL_STRIDE}th level, {EVAL_LEVELS} levels, sigma "
+           f"{config.model.sigma_begin:.2f} to {config.model.sigma_end:.2e}")
+
+    def card_vs_cpu(what, run, values):
+        """run(score_fn, device) on the card and on the CPU (the same
+        draws); holds values(result) within REF_RTOL. Returns the CPU's
+        result and the comparison's numbers."""
+        got, sec = timed(lambda: run(score32, "cuda"))
+        want, sec_cpu = timed(lambda: run(score_cpu, "cpu"))
+        a, b = values(got), values(want)
+        assert np.isfinite(b).all(), what
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        print(f"# eval {what} card vs CPU (beta 0, channels "
+              f"{list(REF_CHANNELS)}): largest relative NMSE difference "
+              f"{rel:.2e} (tol {REF_RTOL}); {sec:.2f} s on the card, "
+              f"{sec_cpu:.2f} s on the CPU")
+        assert rel <= REF_RTOL, (what, rel)
+        return want, dict(rel=rel, seconds=sec, seconds_cpu=sec_cpu)
+    n_chains = (len(TUNE_ALPHAS) * len(TUNE_BETAS) * len(TUNE_SNRS)
+                * TUNE_CHANNELS)
+    nfe = [0]
+    kernels.reset_counts()
+    tune_res, sec = timed(lambda: run_hparam_search(
+        counted(score32, nfe), config, snr_range=TUNE_SNRS,
+        alpha_step_range=TUNE_ALPHAS, beta_noise_range=TUNE_BETAS,
+        num_channels=TUNE_CHANNELS, chunk_size=TUNE_CHUNK, device="cuda"))
+    n = launches_per_forward(nfe[0])
+    assert nfe[0] == -(-n_chains // TUNE_CHUNK) * EVAL_LEVELS * 3, nfe
+    assert np.isfinite(tune_res.nmse_log).all()
+    best_db = 10 * np.log10(tune_res.best_nmse.min(axis=(0, 1)))
+    avg = tune_res.avg_nmse  # the selection is the argmin of the log
+    for s in range(len(TUNE_SNRS)):
+        iA, iB, step = np.unravel_index(int(np.argmin(avg[:, :, s])),
+                                        avg[:, :, s].shape)
+        assert (TUNE_ALPHAS[iA], TUNE_BETAS[iB], step) == (
+            tune_res.best_alpha_snr[s], tune_res.best_beta_snr[s],
+            tune_res.best_step_snr[s]), s
+    rate = n_chains / sec
+    print(f"# eval tune ({len(TUNE_ALPHAS)}x{len(TUNE_BETAS)} grid x "
+          f"{len(TUNE_SNRS)} SNRs x {TUNE_CHANNELS} channels = {n_chains} "
+          f"chains in chunks of {TUNE_CHUNK}, f32 network, {cut}): "
+          f"{sec:.2f} s, {nfe[0]} forwards, {rate:.1f} est/s on the "
+          f"cut schedule ({rate * EVAL_LEVELS / 2311:.4f} full-schedule); "
+          f"best NMSE dB per SNR {rounded(best_db)}; selection "
+          f"alpha {tune_res.best_alpha_snr.tolist()} beta "
+          f"{tune_res.best_beta_snr.tolist()} step "
+          f"{tune_res.best_step_snr.tolist()}; blind "
+          f"{tune_res.blind_selection()}; launches {n}")
+    out["tune"] = dict(seconds=sec, forwards=nfe[0], est_per_s=rate,
+                       est_per_s_full=rate * EVAL_LEVELS / 2311,
+                       best_nmse_db=rounded(best_db, 6),
+                       best_alpha=tune_res.best_alpha_snr.tolist(),
+                       best_beta=tune_res.best_beta_snr.tolist(),
+                       best_step=tune_res.best_step_snr.tolist(),
+                       blind=list(tune_res.blind_selection()))
+    ref, out["tune_ref"] = card_vs_cpu(
+        "tune", lambda fn, dev: run_hparam_search(
+            fn, config, snr_range=TUNE_SNRS, alpha_step_range=TUNE_ALPHAS[:1],
+            beta_noise_range=(0.0,), num_channels=len(REF_CHANNELS),
+            device=dev), lambda r: r.nmse_log)
+    trace_db = 10 * np.log10(ref.avg_nmse[0, 0])  # (S, steps)
+    print(f"#   its NMSE dB per SNR from the init {rounded(trace_db[:, 0])} "
+          f"to the last step {rounded(trace_db[:, -1])}")
+    out["tune_ref"].update(init_db=rounded(trace_db[:, 0], 6),
+                           last_db=rounded(trace_db[:, -1], 6))
+
+    # -- train -> tune -> estimate: the slim table drives run_estimation ------
+    with tempfile.TemporaryDirectory() as tmp:
+        slim = os.path.join(tmp, "hyperparameters.npz")
+        tune_res.save_slim(slim)
+        with np.load(slim) as h:
+            table = {k: h[k] for k in h.files}
+    _, score16 = load_score_fn(ck_path, "cuda", dtype=torch.bfloat16)
+    nfe = [0]
+    kernels.reset_counts()
+    est, sec = timed(lambda: run_estimation(
+        counted(score16, nfe), config, snr_range=table["snr_range"],
+        num_channels=TUNE_CHANNELS, alpha_step=table["best_alpha_snr"],
+        beta_noise=table["best_beta_snr"], stop_steps=table["best_step_snr"],
+        init="noise", chunk_size=TUNE_CHUNK, device="cuda"))
+    n = launches_per_forward(nfe[0])
+    known = [float(10 * np.log10(est.avg_nmse[0, 0, s, int(st)]))
+             for s, st in enumerate(table["best_step_snr"])]
+    assert np.isfinite(est.nmse_log).all()
+    print(f"# eval estimate --hparams (the tuner's slim table, per-SNR "
+          f"alpha/beta, bf16 network, init noise, {TUNE_CHANNELS} channels): "
+          f"{sec:.2f} s; known-SNR stop NMSE dB {rounded(known)}"
+          f"; launches {n}")
+    out["estimate_hparams"] = dict(seconds=sec, known_stop_db=known)
+
+    # -- posterior-averaging MMSE --------------------------------------------
+    rows = [int(np.flatnonzero(TUNE_SNRS == s)[0]) for s in MMSE_SNRS]
+    stop = table["best_step_snr"][rows]
+    n_chains = MMSE_AVG * len(MMSE_SNRS) * MMSE_CHANNELS
+    nfe = [0]
+    kernels.reset_counts()
+    mmse, sec = timed(lambda: run_mmse_estimation(
+        counted(score32, nfe), config, snr_range=MMSE_SNRS,
+        num_channels=MMSE_CHANNELS, mmse_avg=MMSE_AVG, init="ls",
+        stop_step=stop, coef_cap="auto", chunk_size=n_chains,
+        device="cuda"))
+    n = launches_per_forward(nfe[0])
+    assert nfe[0] == EVAL_LEVELS * 3, nfe  # one chunk
+    mean_db, single_db = (10 * np.log10(v.mean(-1)) for v in
+                          (mmse.nmse_mean_est, mmse.nmse_single))
+    assert np.isfinite(mmse.nmse_mean_est).all()
+    assert mean_db[-1] <= single_db[-1], (mean_db, single_db)
+    rate = n_chains / sec
+    print(f"# eval mmse (init ls, coef_cap auto, stop steps "
+          f"{stop.tolist()}, {MMSE_AVG} samples x {len(MMSE_SNRS)} SNRs x "
+          f"{MMSE_CHANNELS} channels = {n_chains} chains, f32 network, "
+          f"{cut}): "
+          f"{sec:.2f} s, {rate:.1f} est/s on the cut schedule "
+          f"({rate * EVAL_LEVELS / 2311:.4f} full-schedule); NMSE dB of the "
+          f"average {rounded(mean_db, 5)}, of one sample "
+          f"{rounded(single_db, 5)} at {MMSE_SNRS.tolist()}; "
+          f"launches {n}")
+    out["mmse"] = dict(seconds=sec, est_per_s=rate,
+                       est_per_s_full=rate * EVAL_LEVELS / 2311,
+                       mean_db=rounded(mean_db, 6),
+                       single_db=rounded(single_db, 6))
+    _, out["mmse_ref"] = card_vs_cpu(
+        "mmse", lambda fn, dev: run_mmse_estimation(
+            fn, config, snr_range=MMSE_SNRS, num_channels=len(REF_CHANNELS),
+            mmse_avg=2, init="ls", stop_step=stop, coef_cap="auto",
+            beta_noise=0.0, device=dev),
+        lambda r: np.stack([r.nmse_mean_est, r.nmse_single]))
+
+    # -- lmmse --cov analytic (host solves, measurements on the card) --------
+    with tempfile.TemporaryDirectory() as tmp:
+        buf = io.StringIO()
+        lm_out = os.path.join(tmp, "lmmse.npz")
+        with contextlib.redirect_stdout(buf):
+            _, sec = timed(lambda: lmmse_main([
+                "--cov", "analytic", "--train", "CDL-C", "--snr", "0", "10",
+                "--num_channels", "10", "--output", lm_out]))
+        with np.load(lm_out) as f:
+            lm_db = 10 * np.log10(f["nmse"].mean(-1))
+            pred_db = 10 * np.log10(f["predicted"])
+    assert np.isfinite(lm_db).all() and np.all(np.abs(lm_db - pred_db) < 3)
+    print(f"# eval lmmse --cov analytic (CDL-C, 10 channels): {sec:.2f} s; "
+          f"NMSE dB {rounded(lm_db)} (predicted {rounded(pred_db)}) at "
+          f"[0, 10]")
+    out["lmmse"] = dict(seconds=sec, nmse_db=rounded(lm_db, 6),
+                        predicted_db=rounded(pred_db, 6))
+    return out
 
 
 def per_forward(rows, dtype):
@@ -1219,8 +1496,14 @@ def main():
     # -- conv probe -----------------------------------------------------------
     probe = conv_probe_phase(convs, conv_rows, model, g)
 
-    # -- train path -----------------------------------------------------------
-    train = train_phase(convs, norms, card, g)
+    # -- train path, then the comparison side from its checkpoint -------------
+    with tempfile.TemporaryDirectory() as tmp:
+        ck_path = os.path.join(tmp, "final_model.npz")
+        train = train_phase(convs, norms, card, g, ck_path)
+        t0 = time.perf_counter()
+        evals = eval_phase(ck_path, card)
+        evals["seconds"] = time.perf_counter() - t0
+        print(f"# eval phase: {evals['seconds']:.1f} s")
 
     kernel_json = []
     for name, rows in (("conv2d_taps", conv_rows),
@@ -1287,7 +1570,7 @@ def main():
         res.best_nmse_db().ravel().tolist(), bench_runs=bench_runs,
         bench_levels=levels, bench_est_per_s_full=est_per_s,
         profile_wall_ms=wall_ms, profile_busy_ms=busy, profile_top=top,
-        profile_ms_per_forward=path_ms, train=train,
+        profile_ms_per_forward=path_ms, train=train, eval=evals,
         total_seconds=time.perf_counter() - t_start), indent=1))
     print(f"# total {time.perf_counter() - t_start:.1f} s; details in "
           f"chiprun_out/chip_smoke.json")

@@ -1,1 +1,3 @@
-"""Linear-MMSE baseline (the default warm start of `estimate`)."""
+"""Baselines the paper sets against the score-based estimator: LS, exact
+LMMSE, Lasso (FISTA), EM-GM-AMP and approximate MMSE by posterior
+averaging."""

@@ -32,6 +32,18 @@ def to_complex(x: torch.Tensor) -> np.ndarray:
     return (x[..., 0] + 1j * x[..., 1]).astype(np.complex64)
 
 
+def as_complex(x: torch.Tensor) -> torch.Tensor:
+    """c2 float32 (..., 2) -> complex64 (...), a view where x is contiguous
+    (a copy otherwise)."""
+    return torch.view_as_complex(x.contiguous())
+
+
+def as_c2(z: torch.Tensor) -> torch.Tensor:
+    """complex64 (...) -> c2 float32 (..., 2), a view where z is
+    contiguous."""
+    return torch.view_as_real(z.contiguous())
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(..., M, K, 2) @ (..., K, N, 2) -> (..., M, N, 2), four real matmuls."""
     ar, ai = a[..., 0], a[..., 1]

@@ -63,6 +63,21 @@ def score_fn_from_params(model: torch.nn.Module,
     return score_fn
 
 
+def load_score_fn(path: str, device, dtype: Optional[torch.dtype] = None):
+    """A checkpoint of either package -> (config, score_fn) on `device`,
+    with the EMA parameters where the checkpoint has them."""
+    from ..models import jax_params_to_state_dict, make_score_model
+    from ..utils.checkpoint import load_checkpoint
+
+    ck = load_checkpoint(path)
+    config = ck["config"]
+    model = make_score_model(config.model, config.data.channels,
+                             device=device)
+    params = ck["ema"] if ck["ema"] is not None else ck["params"]
+    model.load_state_dict(jax_params_to_state_dict(params), strict=True)
+    return config, score_fn_from_params(model, dtype=dtype)
+
+
 def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
     """Pad the batch axis to n rows by repeating rows from the start
     (the JAX package's parallel/mesh.py::pad_to_multiple)."""
@@ -88,6 +103,7 @@ def langevin_chunked(
     chunk_size: Optional[int] = None,
     capture_level=None,
     start_level=None,
+    coef_cap=None,
     device=None,
 ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """Run the c2 posterior sampler over a large batch in chunks of one
@@ -95,8 +111,10 @@ def langevin_chunked(
 
     Returns host arrays (x_final complex64 (B,Nt,Nr), nmse_log (L*S, B) or
     None); with capture_level (B,) the estimates are the per-sample
-    early-stopped iterates. Chunk k draws its Langevin noise from a
-    generator seeded by (seed, first row of the chunk).
+    early-stopped iterates; coef_cap (scalar or (B,)) caps the
+    data-consistency coefficient as the sampler's does. Chunk k draws its
+    Langevin noise from a generator seeded by (seed, first row of the
+    chunk).
     """
     dev = resolve_device(device)
     B = x2_init.shape[0]
@@ -111,6 +129,7 @@ def langevin_chunked(
                      if capture_level is not None else None)
     start_level = (per(start_level, torch.int64)
                    if start_level is not None else None)
+    coef_cap = per(coef_cap) if coef_cap is not None else None
 
     t0 = time.time()
     finals, traces = [], []
@@ -125,15 +144,16 @@ def langevin_chunked(
                  alpha_step[sl], beta_noise[sl],
                  oracle2[sl] if oracle2 is not None else None,
                  capture_level[sl] if capture_level is not None else None,
-                 start_level[sl] if start_level is not None else None]
+                 start_level[sl] if start_level is not None else None,
+                 coef_cap[sl] if coef_cap is not None else None]
         parts = [None if p is None else _pad_rows(p, chunk).to(dev)
                  for p in parts]
-        a, y, npow, x0, al, be, orc, cap, slv = parts
+        a, y, npow, x0, al, be, orc, cap, slv, ccap = parts
         xf2, trace = annealed_langevin_posterior_c2(
             score_fn, a, y, sigmas, npow, x0,
             generator=_generator(seed, start, device=dev),
             alpha_step=al, beta_noise=be, steps_each=steps_each, oracle=orc,
-            capture_level=cap, start_level=slv)
+            capture_level=cap, start_level=slv, coef_cap=ccap)
         finals.append(cplx.to_complex(xf2)[:n_valid])
         if trace is not None:
             traces.append(trace.cpu().numpy()[:, :n_valid])
@@ -193,9 +213,8 @@ def run_snr_sweep(
 
     Semantics of the JAX run_snr_sweep (test_score.py:107-171): channels
     and the Langevin init fixed across SNR, fresh measurement noise per
-    SNR, per-step NMSE trace. init in {"noise", "lmmse", "auto"} ("ls" is
-    not ported yet); see the JAX docstring for the warm-start and
-    residual-gated auto protocols.
+    SNR, per-step NMSE trace. init in {"noise", "ls", "lmmse", "auto"}; see
+    the JAX docstring for the warm-start and residual-gated auto protocols.
     """
     dev = resolve_device(device)
     cfg = config
@@ -244,9 +263,9 @@ def run_snr_sweep(
     start_b = None
     matched = None
     if init == "ls":
-        raise NotImplementedError(
-            "--init ls is not ported yet (ROADMAP: baselines); use noise, "
-            "lmmse or auto")
+        from ..baselines.ls import ls_estimate
+
+        x0_b = ls_estimate(A_b.to(dev), Y_b.to(dev), npow_b.to(dev)).cpu()
     elif init == "lmmse":
         from ..baselines.lmmse import lmmse_estimate_c2
 
@@ -444,7 +463,7 @@ def main(argv=None):
     p.add_argument("--init", type=str, default=None,
                    choices=["noise", "ls", "lmmse", "auto"],
                    help="chain initialization; default 'auto' ('noise' "
-                        "under --blind). 'ls' is not ported yet")
+                        "under --blind)")
     p.add_argument("--auto_threshold", type=float, default=1.15,
                    help="residual-ratio threshold of --init auto")
     p.add_argument("--sigma_start", type=float, default=None,
@@ -466,17 +485,10 @@ def main(argv=None):
                         "plain PyTorch path)")
     args = p.parse_args(argv)
 
-    from ..models import jax_params_to_state_dict, make_score_model
-    from ..utils.checkpoint import load_checkpoint
-
     dev = resolve_device(args.device)
     ckpt_path = args.checkpoint or f"models/score/{args.train}/final_model.npz"
-    ck = load_checkpoint(ckpt_path)
-    config = ck["config"]
-    model = make_score_model(config.model, config.data.channels, device=dev)
-    params = ck["ema"] if ck["ema"] is not None else ck["params"]
-    model.load_state_dict(jax_params_to_state_dict(params), strict=True)
-    score_fn = score_fn_from_params(model, dtype=getattr(torch, args.dtype))
+    config, score_fn = load_score_fn(ckpt_path, dev,
+                                     dtype=getattr(torch, args.dtype))
 
     if args.init is None:
         args.init = "noise" if args.blind else "auto"
@@ -518,6 +530,16 @@ def main(argv=None):
     out = args.output or (f"results/score/train-{args.train}_test-{args.test}"
                           "/results.npz")
     res.save(out)
+    # the tuner's stop steps index the full schedule's trace; map them onto
+    # this run's strided and truncated trace as run_snr_sweep maps them
+    sig = sigmas_from_config(config.model)
+    if args.stride > 1:
+        sig = subsample_schedule(sig, args.stride)[0]
+    cut = sig.shape[0] * config.sampling.steps_each - res.avg_nmse.shape[-1]
+
+    def trace_step(n):
+        return max(int(n) // args.stride - cut, 0)
+
     db = res.best_nmse_db()
     for i_al, al in enumerate(res.pilot_alpha_range):
         print(f"# pilot_alpha={al}")
@@ -525,10 +547,10 @@ def main(argv=None):
             line = (f"SNR {snr:6.1f} dB   NMSE {db[0, i_al, s]:7.2f} dB   "
                     f"best step {res.avg_nmse[0, i_al, s].argmin()}")
             if stop_steps is not None:
-                known = res.avg_nmse[0, i_al, s, int(stop_steps[s])]
+                known = res.avg_nmse[0, i_al, s, trace_step(stop_steps[s])]
                 line += f"   known-SNR stop {10 * np.log10(known):7.2f} dB"
             if blind_step is not None:
-                blind = res.avg_nmse[0, i_al, s, blind_step]
+                blind = res.avg_nmse[0, i_al, s, trace_step(blind_step)]
                 line += (f"   blind stop N={blind_step} "
                          f"{10 * np.log10(blind):7.2f} dB")
             print(line)

@@ -699,3 +699,108 @@ def test_train_step_gradients_match_the_cpu(card):
     assert counts()["conv2d_taps"]["plain"] == 0
     assert all(conv.has_kernel_layout(m.weight) for m in state.model.modules()
                if hasattr(m, "dilation") and hasattr(m, "weight"))
+
+
+# -- the comparison side: baselines and the tuner on the card -----------------
+
+# noise powers 0.5 (the CPU parity test's, tests/test_torch_baselines.py)
+# to 6.4: the regularized LS block's condition number stays below ~200, so
+# f32 round-off in two summation orders stays below 1e-4 of max|h|
+NOISE = torch.linspace(0.5, 6.4, 6)
+
+
+def _baseline_inputs(B=6, Np=38, seed=7):
+    from score_based_channels_torch import cplx, physics
+
+    g = torch.Generator().manual_seed(seed)
+    A = cplx.conj_transpose(cplx.qpsk_pilots(g, B, 64, Np))
+    X = cplx.randn(g, (B, 64, 16))
+    Y = physics.measure_c2(g, A, X, NOISE)
+    return A, X, Y
+
+
+def test_ls_estimate_on_the_card_matches_the_cpu(card):
+    from score_based_channels_torch.baselines.ls import ls_estimate
+
+    A, X, Y = _baseline_inputs()
+    npow = NOISE
+    want = ls_estimate(A, Y, npow)
+    got = ls_estimate(A.to(card), Y.to(card), npow.to(card))
+    assert got.device.type == "cuda"
+    assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+    with pytest.raises(torch.linalg.LinAlgError):
+        ls_estimate(A.to(card), Y.to(card), -100.0)
+    # at noise 0.064 (20 dB without the Nt factor, as `ls` runs it) against
+    # float64 normal equations, at the JAX package's bar
+    # (tests/test_baselines.py:24-42)
+    from score_based_channels_torch import cplx
+
+    got = cplx.to_complex(ls_estimate(A.to(card), Y.to(card), 0.064))
+    Ac = cplx.to_complex(A).astype(np.complex128)
+    Yc = cplx.to_complex(Y).astype(np.complex128)
+    for b in range(A.shape[0]):
+        G = Ac[b].conj().T @ Ac[b] + 0.064 * np.eye(64)
+        want = np.linalg.solve(G, Ac[b].conj().T @ Yc[b])
+        np.testing.assert_allclose(got[b], want, rtol=2e-2, atol=2e-3)
+
+
+def test_fista_on_the_card_matches_the_cpu(card):
+    from score_based_channels_torch import cplx
+    from score_based_channels_torch.baselines.lasso import (
+        fista_l1_lifted, lifted_fourier_dicts,
+    )
+
+    A, X, Y = _baseline_inputs()
+    L2, R2 = (cplx.from_complex(d) for d in lifted_fourier_dicts(64, 16, 4))
+    want, wtr = fista_l1_lifted(A, Y, L2, R2, 0.3, 3e-3, num_iters=50,
+                                oracle2=X)
+    got, gtr = fista_l1_lifted(*(t.to(card) for t in (A, Y, L2, R2)), 0.3,
+                               3e-3, num_iters=50, oracle2=X.to(card))
+    assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+    assert torch.allclose(gtr.cpu(), wtr, rtol=1e-4)
+
+
+def test_em_bg_amp_on_the_card_matches_the_cpu(card):
+    from score_based_channels_torch import cplx
+    from score_based_channels_torch.baselines.amp import em_bg_amp
+    from score_based_channels_torch.baselines.lasso import lifted_fourier_dicts
+
+    A, X, Y = _baseline_inputs()
+    L2, R2 = (cplx.from_complex(d) for d in lifted_fourier_dicts(64, 16, 4))
+    want, wtr = em_bg_amp(A, Y, L2, R2, num_iters=20, oracle2=X)
+    got, gtr = em_bg_amp(*(t.to(card) for t in (A, Y, L2, R2)),
+                         num_iters=20, oracle2=X.to(card))
+    db = 10 * torch.log10(gtr[-1].cpu() / wtr[-1]).abs()
+    assert db.max() <= 0.01, db
+    assert (got.cpu() - want).abs().max() <= 1e-3 * X.abs().max()
+
+
+def test_hparam_search_on_the_card_runs_the_kernels(card):
+    """The tuner on a tiny network: every forward launches 113 convs and
+    25 norms, no plain call, and the selection is the argmin of its log."""
+    from score_based_channels_torch.config import Config, DataConfig
+    from score_based_channels_torch.eval.tune import run_hparam_search
+
+    cfg = Config(model=ModelConfig(ngf=8, num_classes=4, sigma_rate=0.3),
+                 data=DataConfig(num_channels=8))
+    model = make_score_model(cfg.model, device=card,
+                             generator=torch.Generator().manual_seed(2))
+    nfe = [0]
+    score = score_fn_from_params(model)
+
+    def counted(x, s):
+        nfe[0] += 1
+        return score(x, s)
+
+    reset_counts()
+    res = run_hparam_search(counted, cfg, snr_range=np.array([0.0, 20.0]),
+                            alpha_step_range=(1e-5, 1e-4),
+                            beta_noise_range=(0.01, 0.001), num_channels=3,
+                            chunk_size=16, device=card)
+    assert nfe[0] == 2 * 4 * 3  # two chunks (24 rows), 4 levels x 3 steps
+    assert counts()["conv2d_taps"] == {"launches": 113 * nfe[0], "plain": 0}
+    assert counts()["instance_norm_plus"] == {"launches": 25 * nfe[0],
+                                              "plain": 0}
+    assert np.isfinite(res.nmse_log).all()
+    s = int(np.argmin(res.avg_nmse.reshape(-1, 2, 12)[:, 1].min(-1)))
+    assert res.best_alpha_snr[1] == (1e-5, 1e-5, 1e-4, 1e-4)[s]
