@@ -57,11 +57,35 @@ Phases (any failure propagates and the exit code is non-zero):
      at beta 0 on the card and the CPU (NMSE within rtol 1e-3), the
      tuner's slim table driving `run_estimation`, and `lmmse --cov
      analytic`;
-  9. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
+  9. the other score models: NCSNv2 and NCSNv2Deeper at ngf 32, every conv
+     and norm shape that NCSNv2-Deepest lacks held against its plain
+     version at batch 256 in f32 and bf16 (timed beside cuDNN), the kernel
+     forward against the plain CPU forward with its launch counts,
+     `ScoreTrainer` with arch ncsnv2_deeper (one epoch) and
+     `run_estimation` from its checkpoint;
+ 10. the samplers: unconditional, inpainting and interpolation on the
+     full-width NCSNv2-Deepest, with their launch counts, each held against
+     the CPU on a 2-sample slice fed the same draws;
+ 11. LDAMP: `train_ldamp_snr` at the JAX package's defaults (10 unrolls,
+     chans 16, batch 128) for 4 steps with its launch counts (conv2d_taps
+     forward and dgrad), the card's gradient against the CPU's at batch 4,
+     ms per step, `run_ldamp_eval` from the checkpoint;
+ 12. WGAN: `train_wgan` at the defaults (2 generator iterations of 100
+     critic steps), ms per D and G step, `run_wgan_eval` on a reduced grid
+     held against the CPU and float64 on 2 channels (the whole run on the
+     card's ReLU branches), an inversion step at 4,096 chains;
+ 13. `generate-data --backend native` against the torch generator's
+     moments;
+ 14. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
+
+The train phase's gradient at the trained parameters is held norm-wise
+against float64 with the card's max-pool selections replayed
+(`trained_gradient_check`).
 
 Details too long for the output go to chiprun_out/chip_smoke.json.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -251,7 +275,9 @@ def check_convs(convs, g):
     return rows
 
 
-def check_norms(norms, g):
+def check_norms(norms, g, summary=True):
+    """Each norm variant against its plain version, timed; with summary,
+    the sums over one forward (norms holds a whole forward's census)."""
     from score_based_channels_torch.kernels import instance_norm as inorm
 
     rows = []
@@ -294,7 +320,7 @@ def check_norms(norms, g):
                   f"{max(r['bytes_ms'], r['ops_ms']):.4f}  ({p.copy}, "
                   f"{p.threads} threads, cluster {p.cluster}, {p.chunks} "
                   "chunks)", flush=True)
-    for dt in ("bfloat16", "float32"):
+    for dt in ("bfloat16", "float32") if summary else ():
         pf = per_forward(rows, dt)
         dev = sum(r["device_ms"] * r["per_forward"] for r in rows
                   if r["dtype"] == dt)
@@ -806,6 +832,145 @@ def train_norm_rows(norms, g):
     return rows
 
 
+TRAINED_GRAD_TOL = 1e-3  # norm-wise relative error of each tensor
+
+
+def pooling(record=None, replay=None):
+    """A stand-in for models/layers.py::max_pool_5x5 that appends the
+    selections of each call to `record` (indices into H*W, on the CPU)
+    or, with `replay`, takes its values at the given selections (a gather,
+    whose gradient goes where max pooling's would)."""
+    calls = iter(replay or [])
+
+    def pool(x):
+        if replay is not None:
+            idx = next(calls).to(x.device)
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        out, idx = F.max_pool2d(x, 5, stride=1, padding=2,
+                                return_indices=True)
+        record.append(idx.cpu())
+        return out
+
+    return pool
+
+
+@contextlib.contextmanager
+def leaky_branches(record=None, replay=None):
+    """models/unet.py's InstanceNorm -> LeakyReLU(0.2) while the block
+    runs, appending each call's branch mask (pre-activation > 0) to
+    `record`, or taking the slopes from `replay`'s masks in order."""
+    from score_based_channels_torch.models import unet
+
+    calls = iter(replay or [])
+
+    def norm_act(x):
+        y = F.instance_norm(x, eps=1e-5)
+        if replay is not None:
+            keep = next(calls).to(y.device)
+        else:
+            keep = y > 0
+            record.append(keep)
+        return torch.where(keep, y, 0.2 * y).contiguous(
+            memory_format=torch.channels_last)
+
+    saved = unet._norm_act
+    unet._norm_act = norm_act
+    try:
+        yield
+    finally:
+        unet._norm_act = saved
+
+
+def trained_gradient_check(model, cfg, x4, labels, noise, sigmas, where):
+    """The card's DSM gradient at trained parameters against float64 on
+    the CPU, batch 4.
+
+    A max pool (CRPBlock) is piecewise: where two inputs of a window
+    nearly tie, f32 and float64 may select different ones, and the
+    gradient then goes elsewhere for every implementation (the plain f32
+    one included). So the float64 reference (and the plain f32 one,
+    reported beside it) replays the card's selections, and each tensor is
+    held norm-wise: ||g - g64|| / ||g64|| <= TRAINED_GRAD_TOL. The
+    selections of free float64 and f32 CPU runs are compared with the
+    card's and reported, with the worst tensor's elementwise distance and
+    share of elements off by more than the bar times its max|g64|."""
+    from score_based_channels_torch.diffusion.dsm import anneal_dsm_loss
+    from score_based_channels_torch.models import layers, make_score_model
+
+    def grads(m, dev, dt, **pool_kw):
+        saved = layers.max_pool_5x5
+        layers.max_pool_5x5 = pooling(**pool_kw)
+        try:
+            m.zero_grad()
+            anneal_dsm_loss(m, x4.to(dev, dt), sigmas.to(dev, dt),
+                            labels=labels.to(dev),
+                            noise=noise.to(dev, dt)).backward()
+        finally:
+            layers.max_pool_5x5 = saved
+        return [p.grad.detach().cpu().double() for p in m.parameters()]
+
+    names = [n for n, _ in model.named_parameters()]
+    cpu = {dt: make_score_model(cfg.model, device="cpu").to(dt)
+           for dt in (torch.float32, torch.float64)}
+    for m in cpu.values():
+        m.load_state_dict(model.state_dict())
+    sel = {"card": [], "free32": [], "free64": []}
+    g = {"card": grads(model, next(model.parameters()).device,
+                       torch.float32, record=sel["card"]),
+         "free32": grads(cpu[torch.float32], "cpu", torch.float32,
+                         record=sel["free32"]),
+         "free64": grads(cpu[torch.float64], "cpu", torch.float64,
+                         record=sel["free64"]),
+         "cpu32": grads(cpu[torch.float32], "cpu", torch.float32,
+                        replay=sel["card"]),
+         "cpu64": grads(cpu[torch.float64], "cpu", torch.float64,
+                        replay=sel["card"])}
+    model.zero_grad()
+
+    def against(tag, ref):
+        rows = []
+        for name, a, b in zip(names, g[tag], g[ref]):
+            d, scale = (a - b).abs(), b.abs().max().item()
+            rows.append(dict(name=name,
+                             norm=(torch.linalg.norm(a - b)
+                                   / torch.linalg.norm(b)).item(),
+                             elem=d.max().item() / scale,
+                             share_off=(d > TRAINED_GRAD_TOL * scale)
+                             .double().mean().item()))
+        return rows
+
+    differ = lambda a, b: sum(int((x != y).sum()) for x, y in
+                              zip(sel[a], sel[b]))
+    n_sel = sum(x.numel() for x in sel["card"])
+    out = dict(selections=n_sel, pools=len(sel["card"]),
+               differ={f"{a}/{b}": differ(a, b) for a, b in
+                       (("card", "free32"), ("card", "free64"),
+                        ("free32", "free64"))})
+    for tag, ref in (("card", "cpu64"), ("cpu32", "cpu64"),
+                     ("card", "free64"), ("free32", "free64")):
+        rows = against(tag, ref)
+        out[f"{tag}_vs_{ref}"] = dict(
+            worst_norm=max(rows, key=lambda r: r["norm"]),
+            worst_elem=max(rows, key=lambda r: r["elem"]))
+    print(f"# gradient at the trained parameters ({where}), batch "
+          f"{x4.shape[0]}, {len(names)} tensors; max-pool selections that "
+          f"differ from the card's, of {n_sel} in {out['pools']} pools: "
+          f"{out['differ']}")
+    for key in ("card_vs_cpu64", "cpu32_vs_cpu64", "card_vs_free64",
+                "free32_vs_free64"):
+        wn, we = out[key]["worst_norm"], out[key]["worst_elem"]
+        print(f"#   {key:17s} worst norm-wise {wn['norm']:.2e} ({wn['name']});"
+              f" worst elementwise {we['elem']:.2e} ({we['name']}, "
+              f"{100 * we['share_off']:.3f}% of it off by > "
+              f"{TRAINED_GRAD_TOL} max|g64|)")
+    worst = out["card_vs_cpu64"]["worst_norm"]
+    assert worst["norm"] <= TRAINED_GRAD_TOL, (
+        f"card gradient at the trained parameters: {worst['name']} is "
+        f"{worst['norm']:.2e} from float64 (norm-wise, tol "
+        f"{TRAINED_GRAD_TOL}); {out}")
+    return out
+
+
 def train_phase(convs, norms, card, g, ck_path):
     """Phase 7: `ScoreTrainer.train` (the train-score entry point) on CDL-C
     at full width in f32, its launch counts, the card's gradient against
@@ -897,29 +1062,8 @@ def train_phase(convs, norms, card, g, ck_path):
           f"parameter {worst[1]} at {worst[0]:.2e} of its max|g| (tol "
           f"1e-3) over {len(list(cpu.parameters()))} tensors")
     assert loss_rel < 2e-4 and worst[0] <= 1e-3, (loss_rel, worst)
-    # at the trained parameters, each f32 gradient against float64 on
-    # the CPU: the card's may be no further off than the plain f32 one
-    cpu.load_state_dict(state.model.state_dict())
-    cpu64 = make_score_model(cfg.model, device="cpu").double()
-    cpu64.load_state_dict(state.model.state_dict())
-    trained_grads = {}
-    for tag, m, dev, dt in (("card", state.model, "cuda", torch.float32),
-                            ("cpu32", cpu, "cpu", torch.float32),
-                            ("cpu64", cpu64, "cpu", torch.float64)):
-        m.zero_grad()
-        anneal_dsm_loss(m, x4.to(dev, dt), trainer.sigmas.to(dev, dt),
-                        labels=labels.to(dev),
-                        noise=noise.to(dev, dt)).backward()
-        trained_grads[tag] = [p.grad.detach().cpu().double()
-                              for p in m.parameters()]
-    off64 = {tag: max(((a - b).abs().max() / b.abs().max()).item()
-                      for a, b in zip(trained_grads[tag],
-                                      trained_grads["cpu64"]))
-             for tag in ("card", "cpu32")}
-    print(f"# gradient at the trained parameters (step {steps}), worst "
-          f"tensor against float64 on the CPU: card {off64['card']:.2e}, "
-          f"plain f32 on the CPU {off64['cpu32']:.2e}")
-    assert off64["card"] <= max(2 * off64["cpu32"], 1e-3), off64
+    trained = trained_gradient_check(state.model, cfg, x4, labels, noise,
+                                     trainer.sigmas, f"step {steps}")
     state.opt.zero_grad()
 
     # dgrad / forward / wgrad / norm at every training shape
@@ -1018,7 +1162,7 @@ def train_phase(convs, norms, card, g, ck_path):
     return dict(steps=steps, seconds=train_s, counts=n, grad_counts=ng,
                 train_loss=logs["train_loss"].tolist(),
                 val_loss=logs["val_loss"].tolist(), grad_check_worst=worst,
-                grad_check_loss_rel=loss_rel, trained_grad_off64=off64,
+                grad_check_loss_rel=loss_rel, trained_grad=trained,
                 conv_rows=conv_rows,
                 norm_rows=norm_rows, est_best_nmse_db=
                 res.best_nmse_db().ravel().tolist(), phase_ms=med,
@@ -1295,6 +1439,606 @@ def eval_phase(ck_path, card):
     return out
 
 
+def max_rel(got, want):
+    """max|got - want| / max|want| of two tensors or arrays, on the host."""
+    got, want = (torch.as_tensor(np.asarray(t.cpu() if torch.is_tensor(t)
+                                            else t)).double()
+                 for t in (got, want))
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+ARCH_TRAIN_BATCH = 32
+ARCH_EST_STRIDE = 256   # every 256th level of the 2311: 10 levels
+
+
+def archs_phase(deepest_convs, deepest_norms, g):
+    """Phase 9: NCSNv2 and NCSNv2Deeper at the config's ngf 32 from a seed:
+    each conv and norm shape that NCSNv2-Deepest's census lacks, held
+    against its plain version at batch 256 in f32 and bf16 and timed
+    beside cuDNN; the kernel forward against the plain CPU forward at
+    batch 16 with its launch counts; `ScoreTrainer` with
+    arch="ncsnv2_deeper" (one epoch at batch 32) and `run_estimation`
+    from its checkpoint on every 256th level."""
+    from score_based_channels_torch import kernels
+    from score_based_channels_torch.config import (
+        ModelConfig, TrainingConfig, default_score_config,
+    )
+    from score_based_channels_torch.eval.estimate import (
+        load_score_fn, run_estimation,
+    )
+    from score_based_channels_torch.models import make_score_model
+    from score_based_channels_torch.train import ScoreTrainer
+
+    out = {}
+    for arch in ("ncsnv2", "ncsnv2_deeper"):
+        model = make_score_model(ModelConfig(arch=arch), device="cuda",
+                                 generator=g)
+        convs, norms = census(model)
+        n_conv, n_norm = sum(convs.values()), sum(norms.values())
+        new_c = {k: v for k, v in convs.items() if k not in deepest_convs}
+        new_n = {k: v for k, v in norms.items() if k not in deepest_norms}
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"# {arch}: {n_params} parameters; {n_conv} convs and "
+              f"{n_norm} norms a forward; shapes new to the kernels: "
+              f"{len(new_c)} conv, {len(new_n)} norm", flush=True)
+        conv_rows = check_convs(new_c, g)
+        norm_rows = check_norms(new_n, g, summary=False)
+        x = torch.randn(16, 64, 16, 2, generator=g)
+        sig = torch.rand(16, generator=g) * 2 + 0.05
+        cpu = make_score_model(ModelConfig(arch=arch), device="cpu")
+        cpu.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            want = cpu(x, sig)
+            kernels.reset_counts()
+            got = model(x.cuda(), sig.cuda())
+            n = kernels.counts()
+        err = max_rel(got, want)
+        print(f"# {arch} forward, kernels on the card vs plain on the CPU, "
+              f"batch 16, f32: max rel err {err:.2e} (tol 2e-4); launches "
+              f"{n}")
+        assert err < 2e-4, (arch, err)
+        assert n["conv2d_taps"] == {"launches": n_conv, "plain": 0}, n
+        assert n["instance_norm_plus"] == {"launches": n_norm, "plain": 0}, n
+        out[arch] = dict(params=n_params, convs=n_conv, norms=n_norm,
+                         conv_rows=conv_rows, norm_rows=norm_rows,
+                         forward_rel_err=err, forward_counts=n)
+
+    arch = "ncsnv2_deeper"
+    n_conv, n_norm = out[arch]["convs"], out[arch]["norms"]
+    cfg = default_score_config("CDL-C")
+    cfg = cfg.replace(model=ModelConfig(arch=arch), training=TrainingConfig(
+        batch_size=ARCH_TRAIN_BATCH, n_epochs=1, log_every_steps=6))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "deeper.npz")
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        state, logs = ScoreTrainer(cfg, device="cuda").train(
+            checkpoint_path=ck, log_fn=lambda s: print("# " + s))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        n, ng = kernels.counts(), kernels.grad_counts()
+        steps, n_val = state.step, len(logs["val_loss"])
+        print(f"# train-score arch {arch}, batch {ARCH_TRAIN_BATCH}, f32: "
+              f"{steps} steps + {n_val} validation in {train_s:.2f} s "
+              f"(data generation included); launches {n}; gradient work "
+              f"{ng}")
+        assert steps == 200 // ARCH_TRAIN_BATCH, steps
+        assert np.isfinite(logs["train_loss"]).all()
+        assert ng["conv2d_taps"] == {"functions": n_conv * steps,
+                                     "dgrad": (n_conv - 1) * steps}, ng
+        assert n["conv2d_taps"] == {
+            "launches": (2 * n_conv - 1) * steps + n_conv * n_val,
+            "plain": 0}, n
+        assert n["instance_norm_plus"] == {
+            "launches": n_norm * (steps + n_val), "plain": 0}, n
+        train_counts = n
+        config, score_fn = load_score_fn(ck, "cuda", torch.bfloat16)
+        assert config.model.arch == arch
+        nfe = [0]
+
+        def counted(xx, s):
+            nfe[0] += 1
+            return score_fn(xx, s)
+
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        res = run_estimation(counted, config, snr_range=np.array([0., 20.]),
+                             num_channels=32, level_stride=ARCH_EST_STRIDE,
+                             init="noise", chunk_size=64, device="cuda")
+        torch.cuda.synchronize()
+        est_s = time.perf_counter() - t0
+        n = kernels.counts()
+    print(f"# estimate from the {arch} checkpoint (level_stride "
+          f"{ARCH_EST_STRIDE}, 32 CDL-C channels, bf16): {nfe[0]} forwards "
+          f"in {est_s:.2f} s; best NMSE dB "
+          f"{np.round(res.best_nmse_db().ravel(), 2).tolist()}; launches {n}")
+    assert np.isfinite(res.nmse_log).all()
+    assert n["conv2d_taps"] == {"launches": n_conv * nfe[0], "plain": 0}, n
+    assert n["instance_norm_plus"] == {"launches": n_norm * nfe[0],
+                                       "plain": 0}, n
+    out["train"] = dict(arch=arch, steps=steps, seconds=train_s,
+                        counts=train_counts, grad_counts=ng,
+                        train_loss=logs["train_loss"].tolist())
+    out["estimate"] = dict(forwards=nfe[0], seconds=est_s, counts=n,
+                           best_nmse_db=res.best_nmse_db().ravel().tolist())
+    return out
+
+
+SAMPLER_LEVELS = 4       # sigma 39.15, 1.93, 0.095, 0.0047 ...
+SAMPLER_EVERY = 600      # ... every 600th level of the schedule
+SAMPLER_STEPS = 2
+SAMPLER_BATCH = 64
+SAMPLER_RTOL = 1e-3
+
+
+def samplers_phase(model, g):
+    """Phase 10: the unconditional, inpainting and interpolation samplers
+    on the full-width NCSNv2-Deepest (f32) on the card, 4 levels x 2 steps
+    at 64 chains each, with their launch counts; each again on a 2-sample
+    slice on the card and on the CPU, fed the same draws (noise_fn), held
+    within SAMPLER_RTOL of max|CPU|."""
+    from score_based_channels_torch import kernels
+    from score_based_channels_torch.config import ModelConfig
+    from score_based_channels_torch.diffusion import (
+        annealed_langevin_inpainting, annealed_langevin_interpolation,
+        annealed_langevin_unconditional, get_sigmas,
+    )
+    from score_based_channels_torch.eval.estimate import score_fn_from_params
+    from score_based_channels_torch.models import make_score_model
+
+    mc = ModelConfig()
+    sig = get_sigmas(mc.sigma_begin, mc.sigma_end, mc.num_classes)[
+        ::SAMPLER_EVERY][:SAMPLER_LEVELS].float()
+    card_fn = score_fn_from_params(model)
+    cpu = make_score_model(mc, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    cpu_fn = score_fn_from_params(cpu)
+    refer = torch.randn(SAMPLER_BATCH, 64, 16, 2, generator=g)
+    mask = torch.zeros(1, 64, 16, 1)
+    mask[:, :, :8] = 1.0  # the known half of every channel
+    runs = {
+        "unconditional": (lambda fn, x, **k: annealed_langevin_unconditional(
+            fn, x, sig, n_steps_each=SAMPLER_STEPS, **k), 1, 1),
+        "inpainting": (lambda fn, x, **k: annealed_langevin_inpainting(
+            fn, x, refer[:x.shape[0]].to(x.device), mask.to(x.device), sig,
+            n_steps_each=SAMPLER_STEPS, **k), 2, 1),
+        "interpolation": (lambda fn, x, **k: annealed_langevin_interpolation(
+            fn, x, sig, n_interpolations=8 if x.shape[0] > 1 else 2,
+            n_steps_each=SAMPLER_STEPS, **k), 2, 8),
+    }
+    out = {}
+    for name, (run, n_draws, ni) in runs.items():
+        x0 = torch.randn(SAMPLER_BATCH // ni, 64, 16, 2, generator=g)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        y = run(card_fn, x0.cuda(),
+                generator=torch.Generator(device="cuda").manual_seed(5))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = kernels.counts()
+        nfe = SAMPLER_LEVELS * SAMPLER_STEPS + (name == "unconditional")
+        assert y.shape == (SAMPLER_BATCH, 64, 16, 2) and torch.isfinite(y).all()
+        assert n["conv2d_taps"] == {"launches": 113 * nfe, "plain": 0}, n
+        assert n["instance_norm_plus"] == {"launches": 25 * nfe,
+                                           "plain": 0}, n
+        # a 2-sample slice (1 row x 2 for the interpolation), same draws
+        xs = x0[:2 if ni == 1 else 1]
+        rows = 2 if ni == 1 else 1
+        draws = {(lvl, i): tuple(torch.randn(rows, 64, 16, 2, generator=g)
+                                 for _ in range(n_draws))
+                 for lvl in range(SAMPLER_LEVELS)
+                 for i in range(SAMPLER_STEPS)}
+        noise_fn = lambda lvl, i: draws[(lvl, i)]
+        got = run(card_fn, xs.cuda(), noise_fn=noise_fn).cpu()
+        want = run(cpu_fn, xs, noise_fn=noise_fn)
+        err = max_rel(got, want)
+        print(f"# sampler {name}: {SAMPLER_BATCH} chains x "
+              f"{SAMPLER_LEVELS} levels x {SAMPLER_STEPS} steps on the card "
+              f"in {secs:.2f} s, launches {n}; 2-sample slice card vs CPU "
+              f"on the same draws: max rel err {err:.2e} (tol "
+              f"{SAMPLER_RTOL})", flush=True)
+        assert err <= SAMPLER_RTOL, (name, err)
+        out[name] = dict(seconds=secs, counts=n, forwards=nfe,
+                         slice_rel_err=err)
+    return out
+
+
+LDAMP_STEPS = 4      # epochs of one step: 200 realizations, batch 128
+LDAMP_SNR = 10.0
+
+
+def ldamp_phase(card):
+    """Phase 11: `train_ldamp_snr` at the JAX package's defaults (10
+    unrolls, chans 16, 3 pools, batch 128, alpha 0.6) at one SNR on CDL-C
+    made on the host, with its launch counts (conv2d_taps forward and
+    dgrad, 0 plain); the card's gradient against the plain CPU gradient at
+    batch 4 at the initial parameters with the same divergence directions
+    and the card's LeakyReLU branches replayed (1e-3 of each tensor's
+    max|g|, the train phase's bar); ms per step (forward, backward,
+    optimizer) and steps/s; `run_ldamp_eval` from the saved checkpoint."""
+    from score_based_channels_torch import kernels
+    from score_based_channels_torch.config import default_score_config
+    from score_based_channels_torch.data import ChannelDataset
+    from score_based_channels_torch.eval.estimate import derive_seed
+    from score_based_channels_torch.eval.ldamp import run_ldamp_eval
+    from score_based_channels_torch.train.ldamp import (
+        LDAMPTrainConfig, checkpoint_name, ldamp_batch, ldamp_losses,
+        ldamp_train_step, make_ldamp_model, make_ldamp_optimizer,
+        train_ldamp_snr,
+    )
+
+    cfg = default_score_config("CDL-C")
+    tc = LDAMPTrainConfig()
+    unet_convs = 15  # per denoiser apply at 3 pools (tests count them)
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        model, logs = train_ldamp_snr(
+            cfg, LDAMP_SNR, tc, n_epochs=LDAMP_STEPS, device="cuda",
+            checkpoint_path=checkpoint_name(tmp, "CDL-C", LDAMP_SNR,
+                                            tc.alpha),
+            log_fn=lambda s: print("# " + s))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        n, ng = kernels.counts(), kernels.grad_counts()
+        fwd = tc.max_unrolls * unet_convs  # applies under grad, per step
+        print(f"# train-ldamp CDL-C SNR {LDAMP_SNR}, {tc.max_unrolls} "
+              f"unrolls, chans {tc.chans}, batch {tc.batch_size}, f32: "
+              f"{LDAMP_STEPS} steps in {train_s:.2f} s (data generation "
+              f"included); launches {n}; gradient work {ng}")
+        assert np.isfinite(logs["loss_log"]).all(), logs["loss_log"]
+        # the first unroll's first conv sees no input that requires grad
+        assert ng["conv2d_taps"] == {"functions": fwd * LDAMP_STEPS,
+                                     "dgrad": (fwd - 1) * LDAMP_STEPS}, ng
+        assert n["conv2d_taps"] == {"launches": (3 * fwd - 1) * LDAMP_STEPS,
+                                    "plain": 0}, n
+        assert n["instance_norm_plus"] == {"launches": 0, "plain": 0}, n
+        train_counts, train_grad_counts = n, ng
+
+        # card vs CPU gradient at the initial parameters, batch 4
+        ds = ChannelDataset(1234, dataclasses.replace(
+            cfg.data, noise_std=float(10 ** (-LDAMP_SNR / 20) * 8),
+            num_pilots=int(64 * tc.alpha)), norm="global")
+        gb = torch.Generator().manual_seed(21)
+        b4 = ldamp_batch(ds, gb, 4, "cpu")
+        dirs = [torch.randn(4, 64, 16, 2, generator=gb)
+                for _ in range(tc.max_unrolls)]
+        init = lambda dev: make_ldamp_model(tc, dev, torch.Generator()
+                                            .manual_seed(derive_seed(tc.seed,
+                                                                     0)))
+        # LeakyReLU is piecewise: a pre-activation within rounding of 0
+        # takes slope 1 in one run and 0.2 in another, and over 10 unrolls
+        # a few such flips move the f32 gradient ~5e-2 off float64 on the
+        # CPU alone. The CPU run replays the card's branches.
+        masks, free_masks, losses, grads = [], [], {}, {}
+        for tag, dev, kw in (("card", "cuda", dict(record=masks)),
+                             ("cpu", "cpu", dict(replay=masks)),
+                             ("free", "cpu", dict(record=free_masks))):
+            m = init(dev)
+            with leaky_branches(**kw):
+                mse, _ = ldamp_losses(m, {k: v.to(dev) for k, v in
+                                          b4.items()}, directions=dirs)
+                mse.backward()
+            losses[tag] = mse.item()
+            grads[tag] = [(nm, p.grad.cpu()) for nm, p in m.named_parameters()]
+        flips = sum(int((a.cpu() != b).sum()) for a, b in
+                    zip(masks, free_masks))
+        worst = max((max_rel(a, b), nm) for (nm, a), (_, b) in
+                    zip(grads["card"], grads["cpu"]))
+        free_worst = max(max_rel(a, b) for (_, a), (_, b) in
+                         zip(grads["card"], grads["free"]))
+        loss_rel = abs(losses["card"] - losses["cpu"]) / losses["cpu"]
+        n_masks = sum(x.numel() for x in masks)
+        print(f"# LDAMP gradient at the initial parameters, card (kernels) "
+              f"vs CPU (plain, replaying the card's {n_masks} LeakyReLU "
+              f"branches), batch 4, same directions: loss rel err "
+              f"{loss_rel:.2e}; worst parameter {worst[1]} at {worst[0]:.2e} "
+              f"of its max|g| (tol 1e-3) over {len(grads['cpu'])} tensors; "
+              f"a free CPU run takes {flips} other branches and is "
+              f"{free_worst:.2e} off the card")
+        assert loss_rel < 2e-4 and worst[0] <= 1e-3, (loss_rel, worst)
+
+        # ms per step: forward, backward, optimizer (synchronised)
+        opt = make_ldamp_optimizer(model, tc, 1)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        batch = ldamp_batch(ds, gb, tc.batch_size, "cuda")
+        phases = {"forward": [], "backward": [], "optimizer": []}
+        for i in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mse, _ = ldamp_losses(model, batch, gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            opt.zero_grad()
+            mse.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            opt.step()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            if i >= 2:
+                phases["forward"].append((t1 - t0) * 1e3)
+                phases["backward"].append((t2 - t1) * 1e3)
+                phases["optimizer"].append((t3 - t2) * 1e3)
+        med = {k: float(np.median(v)) for k, v in phases.items()}
+        reps = 5
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ldamp_train_step(model, opt, batch, gen)
+        torch.cuda.synchronize()
+        steps_per_s = reps / (time.perf_counter() - t0)
+        print(f"# LDAMP train step, batch {tc.batch_size} f32, ms (median of "
+              f"6, synchronised): forward {med['forward']:.2f}, backward "
+              f"{med['backward']:.2f}, optimizer {med['optimizer']:.2f}; "
+              f"{steps_per_s:.2f} steps/s unsynchronised; on {card}")
+
+        kernels.reset_counts()
+        res = run_ldamp_eval(cfg, snr_range=[LDAMP_SNR], model_dir=tmp,
+                             num_channels=100, device="cuda")
+        n = kernels.counts()
+    print(f"# eval-ldamp from the saved checkpoint, 100 channels: NMSE "
+          f"{res.avg_db().round(2).tolist()} dB; launches {n}")
+    assert np.isfinite(res.nmse).all()
+    assert n["conv2d_taps"] == {"launches": 2 * tc.max_unrolls * unet_convs,
+                                "plain": 0}, n
+    return dict(steps=LDAMP_STEPS, seconds=train_s, counts=train_counts,
+                grad_counts=train_grad_counts,
+                loss_log=logs["loss_log"].tolist(), grad_check_worst=worst,
+                grad_check_loss_rel=loss_rel, grad_check_flips=flips,
+                grad_check_free_worst=free_worst, phase_ms=med,
+                steps_per_s=steps_per_s, eval_nmse_db=res.avg_db().tolist(),
+                eval_counts=n)
+
+
+WGAN_EPOCHS = 2          # generator steps, each after 100 boosted D steps
+WGAN_RESTARTS = 2
+WGAN_CHANNELS = 8
+WGAN_STEPS = 100
+WGAN_RTOL = 1e-3         # card vs CPU on the traces' first WGAN_HELD steps
+WGAN_HELD = 25
+WGAN_GAP_DB = 0.01       # on the slice's best NMSE
+WGAN_CHUNK = 4096        # chains of the timed inversion step
+
+
+@contextlib.contextmanager
+def relu_branches(record=None, replay=None):
+    """models/dcgan.py's ReLUs while the block runs, appending each call's
+    branch mask (pre-activation > 0) to `record`, or taking the branches
+    from `replay`'s masks in order."""
+    from score_based_channels_torch.models import dcgan
+
+    calls = iter(replay or [])
+
+    class Functional:
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        @staticmethod
+        def relu(y):
+            if replay is not None:
+                keep = next(calls).to(y.device)
+            else:
+                keep = y > 0
+                record.append(keep)
+            return torch.where(keep, y, torch.zeros((), dtype=y.dtype,
+                                                    device=y.device))
+
+    saved = dcgan.F
+    dcgan.F = Functional()
+    try:
+        yield
+    finally:
+        dcgan.F = saved
+
+
+@contextlib.contextmanager
+def float64_generator():
+    """`run_wgan_eval` with its generator in float64 (fed float64 draws,
+    the inversion runs in float64)."""
+    from score_based_channels_torch.eval import wgan
+
+    saved = wgan.load_generator
+    wgan.load_generator = lambda *args: saved(*args).double()
+    try:
+        yield
+    finally:
+        wgan.load_generator = saved
+
+
+def wgan_phase(card):
+    """Phase 12: `train_wgan` at the JAX package's defaults (nz 60, ngf
+    128, ndf 64, one extra layer, batch 200) for 2 generator iterations of
+    100 boosted critic steps, with ms per D and G step; `run_wgan_eval`
+    from its checkpoint on a reduced grid (1 lambda x 1 lr x 2 SNR x 8
+    channels x 2 restarts, 100 steps) on the card, held against the CPU on
+    the same z0, channels, pilots and noise on 2 channels: rtol 1e-3 on
+    the NMSE traces' first 25 steps; over all 100 steps with the card's
+    ReLU branches replayed (`relu_branches`), rtol 1e-3 against the CPU
+    and against float64 on the card, 0.01 dB on the best NMSE; each free
+    f32 run's drift from float64 by quarter. One inversion step timed at a
+    chunk of 4,096 chains."""
+    from score_based_channels_torch import cplx
+    from score_based_channels_torch.config import default_score_config
+    from score_based_channels_torch.data import ChannelDataset
+    from score_based_channels_torch.eval.wgan import (
+        load_generator, run_wgan_eval, wgan_invert,
+    )
+    from score_based_channels_torch.train.wgan import (
+        WGANTrainConfig, train_wgan, wgan_d_step, wgan_g_step,
+    )
+
+    cfg = default_score_config("CDL-C")
+    tc = WGANTrainConfig()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "wgan.npz")
+        t0 = time.perf_counter()
+        state, logs = train_wgan(cfg, tc, checkpoint_path=ck,
+                                 n_epochs=WGAN_EPOCHS, device="cuda",
+                                 log_fn=lambda s: print("# " + s))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        assert state.gen_iterations == WGAN_EPOCHS
+        assert np.isfinite(logs["d_log"]).all()
+        assert np.isfinite(logs["g_log"]).all()
+        train_ds = ChannelDataset(1234, cfg.data, norm="entrywise")
+        H = cplx.as_c2(torch.from_numpy(train_ds.normalized())).cuda()
+        z = torch.randn(tc.batch_size, tc.nz, device="cuda")
+        ms = {"d_step": [], "g_step": []}
+        for i in range(12):
+            for key, fn in (("d_step", lambda: wgan_d_step(
+                    state, H[:tc.batch_size], z, tc.clamp)),
+                            ("g_step", lambda: wgan_g_step(state, z))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if i >= 2:
+                    ms[key].append((time.perf_counter() - t0) * 1e3)
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        print(f"# train-wgan, nz {tc.nz} ngf {tc.ngf} ndf {tc.ndf}, batch "
+              f"{tc.batch_size}, f32: {WGAN_EPOCHS} generator steps after "
+              f"{tc.d_iters_boost} critic steps each in {train_s:.2f} s "
+              f"(data generation included); D step {med['d_step']:.2f} ms, G "
+              f"step {med['g_step']:.2f} ms (median of 10, synchronised) on "
+              f"{card}", flush=True)
+
+        # the reduced grid, card, and CPU on 2 of its channels
+        g = torch.Generator().manual_seed(7)
+        C, R, S, Np = WGAN_CHANNELS, WGAN_RESTARTS, 2, 38
+        val_ds = ChannelDataset(4321, cfg.data,
+                                norm=list(train_ds.norm_stats),
+                                num_pilots=Np)
+        z_init = torch.randn(R, C, tc.nz, generator=g)
+        X2 = cplx.as_c2(torch.from_numpy(val_ds.normalized()[:C]))
+        P2 = cplx.qpsk_pilots(g, C, 64, Np)
+        w = cplx.randn(g, (S * C, 16, Np))
+        kw = dict(snr_range=np.array([0.0, 10.0]), l2lam_range=(1.0,),
+                  lr_range=(0.01,), num_steps=WGAN_STEPS, restarts=R)
+        t0 = time.perf_counter()
+        card_res = run_wgan_eval(cfg, ck, num_channels=C, device="cuda",
+                                 _draws=(z_init, [(X2, P2, w)]), **kw)
+        eval_s = time.perf_counter() - t0
+        ws = w.view(S, C, 16, Np, 2)[:, :2].reshape(S * 2, 16, Np, 2)
+        d32 = (z_init[:, :2], [(X2[:2], P2[:2], ws)])
+        d64 = (d32[0].double(), [tuple(t.double() for t in d32[1][0])])
+        slice_log = lambda dev, draws: run_wgan_eval(
+            cfg, ck, num_channels=2, device=dev, _draws=draws,
+            **kw).oracle_log
+        t0 = time.perf_counter()
+        cpu_free = slice_log("cpu", d32)
+        cpu_s = time.perf_counter() - t0
+        # the per-sample Adam is chaotic: where f32 and float64 (or two
+        # f32 runs) take the other side of one of the generator's ReLUs,
+        # their chains part, faster step by step. So the free runs are
+        # held over their first WGAN_HELD steps only, and the whole run
+        # with the card's ReLU branches replayed: the CPU's f32 and the
+        # card's float64 on the branches the card's f32 took
+        masks = []
+        with relu_branches(record=masks):
+            card_rec = slice_log("cuda", d32)
+        with relu_branches(replay=masks):
+            cpu_rep = slice_log("cpu", d32)
+        with float64_generator():
+            with relu_branches(replay=masks):
+                f64_rep = slice_log("cuda", d64)
+            f64_free = slice_log("cuda", d64)
+        del masks
+        q = WGAN_STEPS // 4
+        rel = lambda a, b: np.abs(a - b) / np.abs(b)  # (.., steps, chans)
+        quarters = lambda r: [float(r[..., i:i + q, :].max())
+                              for i in range(0, WGAN_STEPS, q)]
+        best_db = lambda log: 10 * np.log10(log.mean(-1).min(-1))
+        card_free = card_res.oracle_log[..., :2]
+        free = rel(card_free, cpu_free)
+        err = float(free[..., :WGAN_HELD, :].max())
+        err_rep = float(rel(card_rec, cpu_rep).max())
+        err_f64 = float(rel(card_rec, f64_rep).max())
+        gap = float(np.abs(best_db(card_rec) - best_db(cpu_rep)).max())
+        drift = {"card": quarters(rel(card_free, f64_free)),
+                 "cpu": quarters(rel(cpu_free, f64_free))}
+        best = np.round(card_res.best_nmse_db().ravel(), 3).tolist()
+        fmt = lambda v: ["%.2e" % x for x in v]
+        print(f"# eval-wgan from the checkpoint, 1 x 1 x 2 SNR x {C} "
+              f"channels x {R} restarts, {WGAN_STEPS} steps: {eval_s:.2f} s "
+              f"(CPU slice {cpu_s:.2f} s); best NMSE dB {best}; NMSE traces "
+              f"on 2 channels, max rel err: card vs CPU {err:.2e} over the "
+              f"first {WGAN_HELD} steps (tol {WGAN_RTOL}), by quarter "
+              f"{fmt(quarters(free))}; on the card's ReLU branches over all "
+              f"{WGAN_STEPS} steps: card vs CPU {err_rep:.2e}, card vs "
+              f"float64 {err_f64:.2e} (tol {WGAN_RTOL}), best NMSE gap "
+              f"{gap:.2e} dB (tol {WGAN_GAP_DB}); free f32 vs float64 by "
+              f"quarter: card {fmt(drift['card'])}, CPU {fmt(drift['cpu'])}")
+        assert np.isfinite(card_res.oracle_log).all()
+        assert err <= WGAN_RTOL, err
+        assert max(err_rep, err_f64) <= WGAN_RTOL, (err_rep, err_f64)
+        assert gap <= WGAN_GAP_DB, gap
+
+        # one inversion step at a chunk of 4,096 chains
+        gen = load_generator(ck, cfg, "cuda")
+        B = WGAN_CHUNK
+        idx = torch.arange(B) % C
+        args = (torch.randn(B, tc.nz, generator=g).cuda(), P2[idx].cuda(),
+                cplx.matmul(X2[idx], P2[idx]).cuda(), 1.0, 0.01)
+        torch.cuda.reset_peak_memory_stats()
+        wgan_invert(gen, *args, num_steps=1, oracle2=X2[idx].cuda())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wgan_invert(gen, *args, num_steps=5, oracle2=X2[idx].cuda())
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 5
+        print(f"# wgan_invert at {B} chains: {step_ms:.2f} ms a step "
+              f"(mean of 5, synchronised; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB)")
+    out.update(seconds=train_s, step_ms=med, d_log=logs["d_log"].tolist(),
+               g_log=logs["g_log"].tolist(), eval_seconds=eval_s,
+               eval_best_nmse_db=card_res.best_nmse_db().ravel().tolist(),
+               eval_card_vs_cpu_rel_err=err,
+               eval_rel_err_by_quarter=quarters(free),
+               eval_replayed_rel_err=err_rep,
+               eval_replayed_f64_rel_err=err_f64,
+               eval_best_gap_db=gap, eval_cpu_seconds=cpu_s,
+               eval_f32_drift_by_quarter=drift, invert_chunk=B,
+               invert_step_ms=step_ms)
+    return out
+
+
+def native_phase():
+    """Phase 13: `generate-data --backend native` (the g++-built host
+    generator) for one small file, its moments against the torch
+    generator's within the bars of tests/test_cdl_native.py:29-44."""
+    from score_based_channels_torch.data.cdl import generate_cdl_channels
+    from score_based_channels_torch.data.generate import main as gen_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        gen_main(["--profiles", "CDL-C", "--seeds", "3", "--num_channels",
+                  "64", "--out_dir", tmp, "--backend", "native"])
+        secs = time.perf_counter() - t0
+        with np.load(os.path.join(
+                tmp, "CDL-C_Nt64_Nr16_ULA0.50_seed3.npz")) as f:
+            Hn = f["output_h"]
+    Ht = generate_cdl_channels(seed=3, profile="CDL-C", num_channels=64)
+    pn, pt = (np.mean(np.abs(h[:, 0]) ** 2) for h in (Hn, Ht))
+
+    def tx_cov(h):
+        x = h[:, 0].reshape(-1, h.shape[-1])
+        c = x.conj().T @ x / x.shape[0]
+        return c / np.trace(c).real
+
+    cn, ct = tx_cov(Hn), tx_cov(Ht)
+    corr = float(np.abs(np.vdot(cn, ct))
+                 / (np.linalg.norm(cn) * np.linalg.norm(ct)))
+    print(f"# generate-data --backend native: 64 CDL-C channels in "
+          f"{secs:.2f} s (build included); power {pn:.3f} vs torch {pt:.3f} "
+          f"(tol 25%), tx covariance correlation {corr:.3f} (> 0.9)")
+    assert Hn.shape == (64, 10, 16, 64)
+    assert abs(pn - pt) / pt < 0.25 and corr > 0.9, (pn, pt, corr)
+    return dict(seconds=secs, power=float(pn), power_torch=float(pt),
+                tx_cov_corr=corr)
+
+
 def per_forward(rows, dtype):
     """Sum over one bf16 (or f32) forward's calls of each timing."""
     sel = [r for r in rows if r["dtype"] == dtype]
@@ -1505,6 +2249,19 @@ def main():
         evals["seconds"] = time.perf_counter() - t0
         print(f"# eval phase: {evals['seconds']:.1f} s")
 
+    # -- the other score models and samplers, LDAMP, WGAN, native CDL ---------
+    later = {}
+    for name, run in (("archs", lambda: archs_phase(convs, norms, g)),
+                      ("samplers", lambda: samplers_phase(model, g)),
+                      ("ldamp", lambda: ldamp_phase(card)),
+                      ("wgan", lambda: wgan_phase(card)),
+                      ("native_cdl", native_phase)):
+        t0 = time.perf_counter()
+        later[name] = run()
+        later[name]["phase_seconds"] = time.perf_counter() - t0
+        print(f"# {name} phase: {later[name]['phase_seconds']:.1f} s",
+              flush=True)
+
     kernel_json = []
     for name, rows in (("conv2d_taps", conv_rows),
                        ("instance_norm_plus", norm_rows)):
@@ -1571,6 +2328,7 @@ def main():
         bench_levels=levels, bench_est_per_s_full=est_per_s,
         profile_wall_ms=wall_ms, profile_busy_ms=busy, profile_top=top,
         profile_ms_per_forward=path_ms, train=train, eval=evals,
+        **later,
         total_seconds=time.perf_counter() - t_start), indent=1))
     print(f"# total {time.perf_counter() - t_start:.1f} s; details in "
           f"chiprun_out/chip_smoke.json")

@@ -6,6 +6,10 @@ runs on the card by default, `--device cpu` for the plain PyTorch path;
   train-score    train_score.py — DSM+EMA score-model training on CDL data
   estimate       test_score.py — annealed-Langevin SNR sweep (incl. OOD)
   tune           tune_hparams_score.py — (alpha, beta, stop) grid search
+  train-ldamp    train_ldamp.py — per-SNR LDAMP training
+  eval-ldamp     test_ldamp.py — LDAMP NMSE sweep
+  train-wgan     train_wgan.py — WGAN prior training
+  eval-wgan      test_wgan.py — latent-inversion estimation
   ls             test_ml.py — regularized LS baseline
   lmmse          (extension) — exact LMMSE baseline / warm start
   lasso          test_l1Fourier_lifted.py — lifted-Fourier FISTA baseline
@@ -13,7 +17,8 @@ runs on the card by default, `--device cpu` for the plain PyTorch path;
   amp            matlab/test_em_gm_amp.m — EM-GM-AMP compressed sensing
   link           test_end_to_end.m + testPackets.m: LDPC-coded BER/BLER
                  with estimated vs ideal CSI from `estimate --save_channels`
-  generate-data  matlab/generate_data.m — CDL data set files (on the host)
+  generate-data  matlab/generate_data.m — CDL data set files (on the host;
+                 --backend auto|torch|native)
   chanstats      generator statistics vs the TR 38.901 analytic tables
 """
 
@@ -31,6 +36,14 @@ def main() -> None:
         from .eval.estimate import main as m
     elif cmd == "tune":
         from .eval.tune import main as m
+    elif cmd == "train-ldamp":
+        from .train.ldamp import main as m
+    elif cmd == "eval-ldamp":
+        from .eval.ldamp import main as m
+    elif cmd == "train-wgan":
+        from .train.wgan import main as m
+    elif cmd == "eval-wgan":
+        from .eval.wgan import main as m
     elif cmd == "ls":
         from .baselines.ls import main as m
     elif cmd == "lmmse":

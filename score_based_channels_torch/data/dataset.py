@@ -7,6 +7,12 @@ subcarrier 0 of each file is used; 'global' norm is mean 0 and the std of
 the whole complex train tensor, 'entrywise' is per-entry mean/std, and an
 explicit [mean, std] passes the TRAIN stats to a val/test set; the network
 sees the normalised Hermitian H^H.
+
+`sample_batch` assembles a batch with pilots and measurements
+(loaders.py:52-106), as LDAMP trains and evaluates on it. Deliberate
+deviation, kept from the JAX package (data/dataset.py:21-24): `eig1` is the
+true largest eigenvalue of P P^H (eigvalsh), where the reference takes the
+first, unsorted eigenvalue of np.linalg.eigvals.
 """
 
 from __future__ import annotations
@@ -79,6 +85,7 @@ class ChannelDataset:
             self.mean, self.std = 0.0, 1.0
         else:
             raise ValueError(f"unknown norm {norm!r}")
+        self.noise_amp = data.noise_std / np.sqrt(2.0)  # loaders.py:58
 
     def __len__(self) -> int:
         return self.channels.shape[0]
@@ -106,3 +113,47 @@ class ChannelDataset:
         """(N, Nt, Nr, 2) float32 CPU tensor, the normalised H^H as the
         score network takes it (loaders.py:90-91), contiguous."""
         return self.hermitian_c2(normalized=True).contiguous()
+
+    def sample_batch(self, generator: torch.Generator,
+                     batch_size: Optional[int] = None,
+                     with_measurements: bool = True) -> dict:
+        """A batch as loaders.py:97-106 builds it (the JAX package's
+        data/dataset.py:148-204), drawn from `generator` (a CPU generator:
+        the draws are the same whatever the run's device). CPU tensors:
+
+          H           (B, Nr, Nt)     normalised complex channel
+          H_herm      (B, Nt, Nr, 2)  normalised Hermitian, c2
+          H_herm_cplx (B, Nt, Nr)     unnormalised Hermitian, complex
+          P           (B, Nt, Np)     QPSK pilots
+          P_herm      (B, Np, Nt)     conjugate-transposed pilots (operator A)
+          Y           (B, Nr, Np)     unnormalised measurements H P (+ noise)
+          Y_herm      (B, Np, Nr)
+          eig1        (B,)            lambda_max(P P^H), float32
+          sigma_n     ()              per-component noise amplitude
+          idx         (B,)            realization indices (without replacement)
+        """
+        from .. import cplx
+
+        n = len(self)
+        idx = (torch.arange(n) if batch_size is None else
+               torch.randperm(n, generator=generator)[:batch_size])
+        H_raw = torch.from_numpy(self.channels)[idx]
+        H_norm = ((H_raw - torch.as_tensor(self.mean))
+                  / torch.as_tensor(self.std)).to(torch.complex64)
+        herm = lambda t: t.transpose(-1, -2).conj().resolve_conj()
+        P = torch.view_as_complex(cplx.qpsk_pilots(
+            generator, H_raw.shape[0], self.config.num_tx, self.num_pilots))
+        out = {"H": H_norm, "H_herm": cplx.as_c2(herm(H_norm)),
+               "H_herm_cplx": herm(H_raw), "P": P, "P_herm": herm(P),
+               "sigma_n": torch.tensor(self.noise_amp, dtype=torch.float32),
+               "idx": idx}
+        if with_measurements:
+            Y = H_raw @ P  # loaders.py:77
+            if self.noise_amp > 0:
+                Y = Y + self.noise_amp * torch.view_as_complex(torch.randn(
+                    Y.shape + (2,), generator=generator))
+            out["Y"] = Y
+            out["Y_herm"] = herm(Y)
+            gram = P @ herm(P)
+            out["eig1"] = torch.linalg.eigvalsh(gram)[..., -1].float()
+        return out

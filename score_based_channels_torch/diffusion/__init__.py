@@ -1,9 +1,15 @@
-"""sigma-schedules and the annealed-Langevin posterior sampler."""
+"""sigma-schedules and the annealed-Langevin samplers."""
 
-from .sampling import annealed_langevin_posterior_c2
+from .sampling import (
+    annealed_langevin_inpainting, annealed_langevin_interpolation,
+    annealed_langevin_posterior, annealed_langevin_posterior_c2,
+    annealed_langevin_unconditional,
+)
 from .sigmas import (
     get_sigmas, sigmas_from_config, song_step_size, subsample_schedule,
 )
 
-__all__ = ["annealed_langevin_posterior_c2", "get_sigmas",
+__all__ = ["annealed_langevin_inpainting", "annealed_langevin_interpolation",
+           "annealed_langevin_posterior", "annealed_langevin_posterior_c2",
+           "annealed_langevin_unconditional", "get_sigmas",
            "sigmas_from_config", "song_step_size", "subsample_schedule"]

@@ -4,6 +4,15 @@ the JAX package's models/torch_compat.py:34-100.
   params['res1_0']['conv1']['kernel'] (kh,kw,I,O) <-> 'res1.0.conv1.weight' (O,I,kh,kw)
   RCU's '{i}_{j}_conv', norm alpha/gamma/beta, biases -> same names
 
+  a transposed conv's kernel (parent 'tconv'): the JAX package's ConvTranspose
+  (transpose_kernel=False) applies its (kh,kw,I,O) kernel unflipped, torch's
+  conv_transpose2d the adjoint of a conv: (I,O,kh,kw), spatially flipped
+  a Dense kernel (in,out) <-> a Linear weight (out,in)
+  the JAX models' batch statistics (`batch_stats` tree: BatchNorm
+  mean/var) <-> the
+  module's buffers of the same names (`jax_variables_to_state_dict`,
+  `module_to_jax_variables`)
+
 Digit-suffixed names become ModuleList indices only for the list
 containers of the reference (res*, convs, adapt_convs); the other way,
 every ModuleList index joins its parent's name.
@@ -11,13 +20,14 @@ every ModuleList index joins its parent's name.
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 _LIST_PARENTS = ("res1", "res2", "res3", "res31", "res4", "res5",
                  "convs", "adapt_convs")
+_TRANSPOSED = "tconv"  # parent name of a transposed conv's kernel
 
 
 def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -39,7 +49,10 @@ def jax_params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             arr = np.asarray(child, dtype=np.float32)
             if toks[-1] == "kernel":
                 toks[-1] = "weight"
-                if arr.ndim == 4:
+                if arr.ndim == 4 and toks[-2:-1] == [_TRANSPOSED]:
+                    arr = np.ascontiguousarray(
+                        np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1])
+                elif arr.ndim == 4:
                     arr = np.transpose(arr, (3, 2, 0, 1))
                 elif arr.ndim == 2:
                     arr = arr.T
@@ -64,7 +77,9 @@ def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
                 toks.append(t)
         if toks[-1] == "weight":
             toks[-1] = "kernel"
-            if arr.ndim == 4:
+            if arr.ndim == 4 and toks[-2:-1] == [_TRANSPOSED]:
+                arr = np.transpose(arr[:, :, ::-1, ::-1], (2, 3, 0, 1))
+            elif arr.ndim == 4:
                 arr = np.transpose(arr, (2, 3, 1, 0))
             elif arr.ndim == 2:
                 arr = arr.T
@@ -73,6 +88,28 @@ def state_dict_to_jax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             node = node.setdefault(t, {})
         node[toks[-1]] = np.ascontiguousarray(arr)
     return params
+
+
+def jax_variables_to_state_dict(
+        params: Mapping,
+        batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """A JAX model's `params` and `batch_stats` trees -> one state dict:
+    parameters and buffers (BatchNorm's running `mean` and `var`)."""
+    def merge(a, b):
+        out = dict(a)
+        for k, v in b.items():
+            out[k] = merge(out[k], v) if k in out else v
+        return out
+
+    return jax_params_to_state_dict(merge(params, batch_stats or {}))
+
+
+def module_to_jax_variables(module: torch.nn.Module) -> Tuple[Dict, Dict]:
+    """-> (params, batch_stats) in the JAX package's layout: the module's
+    parameters and its buffers, each as `state_dict_to_jax_params` gives
+    them ({} when the module has no buffers)."""
+    return (state_dict_to_jax_params(dict(module.named_parameters())),
+            state_dict_to_jax_params(dict(module.named_buffers())))
 
 
 def tree_paths(tree: Mapping) -> List[Tuple[str, ...]]:

@@ -238,3 +238,57 @@ class ResidualBlock(nn.Module):
         h = self.conv2(h)
         shortcut = x if self.shortcut is None else self.shortcut(x)
         return shortcut + h
+
+
+class BatchNorm2d(nn.Module):
+    """BatchNorm over (N, H, W) with the rule of the JAX package's
+    BatchNorm (its DnCNN and DCGAN use it), which torch's BatchNorm2d
+    does not follow:
+
+      train: mean = E[x], var = max(E[x^2] - mean^2, 0) (biased, the
+             JAX package's fast variance);
+             y = (x - mean) rsqrt(var + eps) scale + bias;
+             running <- momentum running + (1 - momentum) batch, with the
+             BIASED batch variance (torch stores the unbiased one and
+             weighs the new value by its momentum);
+      eval:  the running mean and var.
+
+    Parameters `scale`, `bias` and buffers `mean`, `var` carry the JAX
+    package's names, so `convert.jax_variables_to_state_dict` maps a
+    `params` + `batch_stats` pair onto them. Init: scale ~ N(1, scale_std^2) (1 when
+    scale_std is 0), bias 0, mean 0, var 1.
+    """
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5, scale_std: float = 0.0):
+        super().__init__()
+        self.momentum, self.eps, self.scale_std = momentum, eps, scale_std
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            if self.scale_std:
+                self.scale.normal_(1.0, self.scale_std, generator=generator)
+            else:
+                self.scale.fill_(1.0)
+            self.bias.zero_()
+            self.mean.zero_()
+            self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        view = (1, -1, 1, 1)
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean.view(view)) * mul.view(view) + self.bias.view(view)

@@ -1,5 +1,5 @@
-"""NCSNv2-Deepest score network in PyTorch, the counterpart of
-the JAX package's models/ncsnv2.py:44-118,218.
+"""NCSNv2 score networks in PyTorch (NCSNv2, NCSNv2Deeper and
+NCSNv2Deepest), the counterpart of the JAX package's models/ncsnv2.py.
 
 The forward takes x (B, Nt, Nr, 2), the JAX package's NHWC layout, and
 views it as an NCHW tensor in channels_last memory (no copy); it returns
@@ -28,11 +28,16 @@ def _apply_sigma_scaling(out: torch.Tensor, used_sigmas) -> torch.Tensor:
     return out / s.reshape((out.shape[0],) + (1,) * (out.dim() - 1))
 
 
-class NCSNv2Deepest(nn.Module):
-    """The channel-estimation score network (reference ncsnv2.py:198-300):
-    6 residual stages, 6 refine stages; 5,890,082 parameters at ngf=32."""
+class _RefineNet(nn.Module):
+    """The NCSNv2 family (reference ncsnv2.py): begin conv, residual stages,
+    refine stages that walk back up the stages (refine k takes stage
+    [-1-k] and refine k-1's output), InstanceNorm++ + ELU, end conv.
 
-    def __init__(self, config: ModelConfig, channels: int = 2):
+    `stages`: (name, [(in, out, resample, dilation), ...]) in order;
+    `refines`: (name, in_planes, features), the last one with end=True.
+    """
+
+    def __init__(self, config: ModelConfig, channels: int, stages, refines):
         super().__init__()
         if config.nonlinearity.lower() != "elu":
             raise NotImplementedError("the port's blocks fuse ELU; "
@@ -45,26 +50,14 @@ class NCSNv2Deepest(nn.Module):
         self.config = config
         ngf = config.ngf
         self.begin_conv = Conv2d(channels, ngf, 3)
-        self.res1 = nn.ModuleList([ResidualBlock(ngf, ngf),
-                                   ResidualBlock(ngf, ngf)])
-        self.res2 = nn.ModuleList([ResidualBlock(ngf, 2 * ngf, "down"),
-                                   ResidualBlock(2 * ngf, 2 * ngf)])
-        self.res3 = nn.ModuleList([ResidualBlock(2 * ngf, 2 * ngf, "down"),
-                                   ResidualBlock(2 * ngf, 2 * ngf)])
-        self.res31 = nn.ModuleList([ResidualBlock(2 * ngf, 2 * ngf, "down"),
-                                    ResidualBlock(2 * ngf, 2 * ngf)])
-        self.res4 = nn.ModuleList([
-            ResidualBlock(2 * ngf, 4 * ngf, "down", dilation=2),
-            ResidualBlock(4 * ngf, 4 * ngf, dilation=2)])
-        self.res5 = nn.ModuleList([
-            ResidualBlock(4 * ngf, 4 * ngf, "down", dilation=4),
-            ResidualBlock(4 * ngf, 4 * ngf, dilation=4)])
-        self.refine1 = RefineBlock([4 * ngf], 4 * ngf)
-        self.refine2 = RefineBlock([4 * ngf, 4 * ngf], 2 * ngf)
-        self.refine31 = RefineBlock([2 * ngf, 2 * ngf], 2 * ngf)
-        self.refine3 = RefineBlock([2 * ngf, 2 * ngf], 2 * ngf)
-        self.refine4 = RefineBlock([2 * ngf, 2 * ngf], ngf)
-        self.refine5 = RefineBlock([ngf, ngf], ngf, end=True)
+        self.stage_names = [name for name, _ in stages]
+        for name, blocks in stages:
+            self.add_module(name, nn.ModuleList(
+                [ResidualBlock(i, o, r, d) for i, o, r, d in blocks]))
+        self.refine_names = [name for name, _, _ in refines]
+        for k, (name, planes, features) in enumerate(refines):
+            self.add_module(name, RefineBlock(
+                planes, features, end=k == len(refines) - 1))
         self.normalizer = InstanceNorm2dPlus(ngf)
         self.end_conv = Conv2d(ngf, channels, 3)
 
@@ -79,30 +72,81 @@ class NCSNv2Deepest(nn.Module):
         if self.config.input_transform == "affine_2x_minus_1":
             h = 2.0 * h - 1.0
         out = self.begin_conv(h)
-
-        def stage(blocks, t):
-            for block in blocks:
-                t = block(t)
-            return t
-
-        layer1 = stage(self.res1, out)
-        layer2 = stage(self.res2, layer1)
-        layer3 = stage(self.res3, layer2)
-        layer31 = stage(self.res31, layer3)
-        layer4 = stage(self.res4, layer31)
-        layer5 = stage(self.res5, layer4)
-
-        hw = lambda t: tuple(t.shape[-2:])
-        ref1 = self.refine1([layer5], hw(layer5))
-        ref2 = self.refine2([layer4, ref1], hw(layer4))
-        ref31 = self.refine31([layer31, ref2], hw(layer31))
-        ref3 = self.refine3([layer3, ref31], hw(layer3))
-        ref4 = self.refine4([layer2, ref3], hw(layer2))
-        out = self.refine5([layer1, ref4], hw(layer1))
-
-        out = self.normalizer(out, elu=True)
+        layers = []
+        for name in self.stage_names:
+            for block in getattr(self, name):
+                out = block(out)
+            layers.append(out)
+        ref = None
+        for k, name in enumerate(self.refine_names):
+            skip = layers[-1 - k]
+            ref = getattr(self, name)([skip] if ref is None else [skip, ref],
+                                      tuple(skip.shape[-2:]))
+        out = self.normalizer(ref, elu=True)
         out = self.end_conv(out)
         return _apply_sigma_scaling(out.permute(0, 2, 3, 1), used_sigmas)
+
+
+def _pair(i, o, resample=None, dilation=None):
+    """A stage of two residual blocks: i -> o (resampled), then o -> o."""
+    return [(i, o, resample, dilation), (o, o, None, dilation)]
+
+
+class NCSNv2Deepest(_RefineNet):
+    """The channel-estimation score network (reference ncsnv2.py:198-300,
+    JAX ncsnv2.py:44-118): 6 residual stages, 6 refine stages; 5,890,082
+    parameters at ngf=32."""
+
+    def __init__(self, config: ModelConfig, channels: int = 2):
+        n = config.ngf
+        super().__init__(config, channels, [
+            ("res1", _pair(n, n)), ("res2", _pair(n, 2 * n, "down")),
+            ("res3", _pair(2 * n, 2 * n, "down")),
+            ("res31", _pair(2 * n, 2 * n, "down")),
+            ("res4", _pair(2 * n, 4 * n, "down", 2)),
+            ("res5", _pair(4 * n, 4 * n, "down", 4))], [
+            ("refine1", [4 * n], 4 * n),
+            ("refine2", [4 * n, 4 * n], 2 * n),
+            ("refine31", [2 * n, 2 * n], 2 * n),
+            ("refine3", [2 * n, 2 * n], 2 * n),
+            ("refine4", [2 * n, 2 * n], n),
+            ("refine5", [n, n], n)])
+
+
+class NCSNv2Deeper(_RefineNet):
+    """5-stage variant (reference ncsnv2.py:104-195, JAX ncsnv2.py:121-165)."""
+
+    def __init__(self, config: ModelConfig, channels: int = 2):
+        n = config.ngf
+        super().__init__(config, channels, [
+            ("res1", _pair(n, n)), ("res2", _pair(n, 2 * n, "down")),
+            ("res3", _pair(2 * n, 2 * n, "down")),
+            ("res4", _pair(2 * n, 4 * n, "down", 2)),
+            ("res5", _pair(4 * n, 4 * n, "down", 4))], [
+            ("refine1", [4 * n], 4 * n),
+            ("refine2", [4 * n, 4 * n], 2 * n),
+            ("refine3", [2 * n, 2 * n], 2 * n),
+            ("refine4", [2 * n, 2 * n], n),
+            ("refine5", [n, n], n)])
+
+
+class NCSNv2(_RefineNet):
+    """4-stage variant (reference ncsnv2.py:11-101, JAX ncsnv2.py:168-215)."""
+
+    def __init__(self, config: ModelConfig, channels: int = 2):
+        n = config.ngf
+        super().__init__(config, channels, [
+            ("res1", _pair(n, n)), ("res2", _pair(n, 2 * n, "down")),
+            ("res3", _pair(2 * n, 2 * n, "down", 2)),
+            ("res4", _pair(2 * n, 2 * n, "down", 4))], [
+            ("refine1", [2 * n], 2 * n),
+            ("refine2", [2 * n, 2 * n], 2 * n),
+            ("refine3", [2 * n, 2 * n], n),
+            ("refine4", [n, n], n)])
+
+
+_ARCHS = {"ncsnv2": NCSNv2, "ncsnv2_deeper": NCSNv2Deeper,
+          "ncsnv2_deepest": NCSNv2Deepest}
 
 
 def make_score_model(model_cfg: ModelConfig, channels: int = 2,
@@ -111,14 +155,10 @@ def make_score_model(model_cfg: ModelConfig, channels: int = 2,
     """Build the configured score network on `device` (None: the card),
     with random parameters drawn from `generator` (a CPU generator; seed 0
     when None). Load trained weights with `load_state_dict`."""
-    dev = resolve_device(device)
-    if model_cfg.arch in ("ncsnv2", "ncsnv2_deeper"):
-        raise NotImplementedError(
-            f"arch {model_cfg.arch!r} is not ported yet (ROADMAP: other score "
-            "models); the port has ncsnv2_deepest")
-    if model_cfg.arch != "ncsnv2_deepest":
+    if model_cfg.arch not in _ARCHS:
         raise ValueError(f"unknown arch {model_cfg.arch!r}")
-    model = NCSNv2Deepest(model_cfg, channels)
+    dev = resolve_device(device)
+    model = _ARCHS[model_cfg.arch](model_cfg, channels)
     model.init_parameters(generator if generator is not None
                           else torch.Generator().manual_seed(0))
     return model.to(dev)

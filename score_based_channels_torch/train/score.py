@@ -67,9 +67,14 @@ class Optimizer:
     The rule of reference ncsnv2/losses/__init__.py:3-13 as the JAX
     package's make_optimizer:49 builds it. State: `count` and one list of
     tensors per moment, aligned with `names`.
+
+    `schedule`, when given, maps the update's 0-based index to its
+    learning rate in place of `optim_cfg.lr` (optax's
+    `scale_by_schedule`, e.g. `staircase_decay`).
     """
 
-    def __init__(self, named_params, optim_cfg):
+    def __init__(self, named_params, optim_cfg,
+                 schedule: Optional[Callable[[int], float]] = None):
         name = optim_cfg.optimizer.lower()
         if name == "adam":
             self.rule = "amsgrad" if optim_cfg.amsgrad else "adam"
@@ -79,6 +84,7 @@ class Optimizer:
             raise NotImplementedError(
                 f"Optimizer {optim_cfg.optimizer} not understood.")
         self.cfg = optim_cfg
+        self.schedule = schedule
         self.names, self.params = map(list, zip(*named_params))
         self.count = 0
         self.moments: Dict[str, List[torch.Tensor]] = {
@@ -90,6 +96,7 @@ class Optimizer:
         """One update from each parameter's .grad."""
         c, p = self.cfg, self.params
         g = [q.grad for q in p]
+        lr = c.lr if self.schedule is None else self.schedule(self.count)
         self.count += 1
         if self.rule in ("adam", "amsgrad"):
             if c.weight_decay:
@@ -112,19 +119,19 @@ class Optimizer:
             torch._foreach_sqrt_(v_hat)
             torch._foreach_add_(v_hat, c.eps)
             torch._foreach_div_(m_hat, v_hat)
-            torch._foreach_add_(p, m_hat, alpha=-c.lr)
+            torch._foreach_add_(p, m_hat, alpha=-lr)
         elif self.rule == "rmsprop":
             nu = self.moments["nu"]
             torch._foreach_mul_(nu, 0.99)
             torch._foreach_add_(nu, torch._foreach_mul(g, g), alpha=1 - 0.99)
             scale = torch._foreach_add(nu, 1e-8)
             torch._foreach_rsqrt_(scale)
-            torch._foreach_add_(p, torch._foreach_mul(g, scale), alpha=-c.lr)
+            torch._foreach_add_(p, torch._foreach_mul(g, scale), alpha=-lr)
         else:  # sgd with momentum 0.9
             tr = self.moments["trace"]
             torch._foreach_mul_(tr, 0.9)
             torch._foreach_add_(tr, g)
-            torch._foreach_add_(p, tr, alpha=-c.lr)
+            torch._foreach_add_(p, tr, alpha=-lr)
 
     def zero_grad(self) -> None:
         for q in self.params:
@@ -139,12 +146,16 @@ class Optimizer:
         for m in _MOMENTS[self.rule]:
             leaves += tree_leaves(state_dict_to_jax_params(
                 dict(zip(self.names, self.moments[m]))))
+        if self.schedule is not None:  # scale_by_schedule's own count
+            leaves.append(np.asarray(self.count, np.int32))
         return leaves
 
     @torch.no_grad()
     def load_state_leaves(self, leaves) -> None:
         """The inverse of `state_leaves`, from either package's checkpoint."""
         leaves = list(leaves)
+        if self.schedule is not None:
+            leaves.pop()
         if self.rule in ("adam", "amsgrad"):
             self.count = int(leaves.pop(0))
         paths = tree_paths(state_dict_to_jax_params(dict(zip(self.names,
@@ -157,6 +168,17 @@ class Optimizer:
             sd = jax_params_to_state_dict(tree_from_leaves(paths, chunk))
             for name, t in zip(self.names, self.moments[m]):
                 t.copy_(sd[name])
+
+
+def staircase_decay(lr: float, transition_steps: int,
+                    decay_rate: float) -> Callable[[int], float]:
+    """optax.exponential_decay(lr, transition_steps, decay_rate,
+    staircase=True): lr * decay_rate ** (count // transition_steps) in
+    float32 (constant lr when transition_steps <= 0, as optax)."""
+    if transition_steps <= 0:
+        return lambda count: lr
+    return lambda count: float(np.float32(lr) * np.float32(decay_rate) ** (
+        np.float32(count // transition_steps)))
 
 
 def make_optimizer(model: nn.Module, optim_cfg) -> Optimizer:

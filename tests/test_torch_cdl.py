@@ -176,7 +176,7 @@ def test_cdl_dataset_views():
 
 def test_generate_data_cli_writes_reference_files(tmp_path, capsys):
     generate_main(["--profiles", "CDL-D", "--seeds", "5", "--num_channels",
-                   "3", "--out_dir", str(tmp_path)])
+                   "3", "--out_dir", str(tmp_path), "--backend", "torch"])
     H = load_output_h(str(tmp_path / "CDL-D_Nt64_Nr16_ULA0.50_seed5.npz"))
     np.testing.assert_array_equal(
         H, generate_cdl_channels(seed=5, profile="CDL-D", num_channels=3))

@@ -804,3 +804,114 @@ def test_hparam_search_on_the_card_runs_the_kernels(card):
     assert np.isfinite(res.nmse_log).all()
     s = int(np.argmin(res.avg_nmse.reshape(-1, 2, 12)[:, 1].min(-1)))
     assert res.best_alpha_snr[1] == (1e-5, 1e-5, 1e-4, 1e-4)[s]
+
+
+# the conv and norm shapes of NCSNv2Deeper and NCSNv2 (ngf 32) that an
+# NCSNv2-Deepest forward lacks (tests/test_torch_archs.py counts them)
+OTHER_ARCH_CONVS = [
+    (16, 4, 64, 64, 3, 2, True, False), (16, 4, 64, 128, 3, 2, True, False),
+    (16, 4, 128, 64, 3, 1, True, False), (16, 4, 128, 128, 3, 1, False, False),
+    (16, 4, 128, 128, 3, 1, False, True), (16, 4, 128, 128, 3, 2, True, False),
+    (16, 4, 128, 128, 3, 4, True, False),  # Deeper's res5: 3 live taps
+    (32, 8, 64, 64, 3, 2, True, False), (32, 8, 64, 64, 3, 4, True, False)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B", [256, 3])
+@pytest.mark.parametrize("H,W,Cin,Cout,k,d,bias,elu", OTHER_ARCH_CONVS)
+def test_other_arch_convs_match_plain(card, H, W, Cin, Cout, k, d, bias, elu,
+                                      B, dtype, tol):
+    test_conv_kernel_matches_plain(card, H, W, Cin, Cout, k, d, bias, elu, B,
+                                   dtype, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("elu", [False, True])
+@pytest.mark.parametrize("B", [32, 257])
+def test_deeper_norm_shape_matches_plain(card, B, elu, dtype):
+    """NCSNv2Deeper's 16x4 c128 stage, the one norm shape Deepest lacks."""
+    test_norm_kernel_matches_plain(card, 16, 4, 128, B, elu, dtype)
+
+
+@pytest.mark.parametrize("H,W,Cin,Cout,k,d,bias,elu", OTHER_ARCH_CONVS)
+def test_other_arch_conv_gradients_match_cudnn_autograd(card, H, W, Cin, Cout,
+                                                        k, d, bias, elu):
+    test_conv_gradients_match_cudnn_autograd(card, H, W, Cin, Cout, k, d,
+                                             bias, elu)
+
+
+# the convs of one LDAMP denoiser (FlippedNormUnet, chans 16, 3 pools)
+UNET_CONVS = [
+    (64, 16, 2, 16, 3, 1, False, False), (64, 16, 16, 16, 3, 1, False, False),
+    (32, 8, 16, 32, 3, 1, False, False), (32, 8, 32, 32, 3, 1, False, False),
+    (16, 4, 32, 64, 3, 1, False, False), (16, 4, 64, 64, 3, 1, False, False),
+    (8, 2, 64, 128, 3, 1, False, False), (8, 2, 128, 128, 3, 1, False, False),
+    (16, 4, 128, 64, 3, 1, False, False), (32, 8, 64, 32, 3, 1, False, False),
+    (64, 16, 32, 16, 3, 1, False, False), (64, 16, 16, 2, 1, 1, True, False)]
+
+
+@pytest.mark.parametrize("B", [128, 4])
+@pytest.mark.parametrize("H,W,Cin,Cout,k,d,bias,elu", UNET_CONVS)
+def test_unet_convs_match_plain(card, H, W, Cin, Cout, k, d, bias, elu, B):
+    test_conv_kernel_matches_plain(card, H, W, Cin, Cout, k, d, bias, elu, B,
+                                   torch.float32, 1e-5)
+
+
+@pytest.mark.parametrize("H,W,Cin,Cout,k,d,bias,elu", UNET_CONVS)
+def test_unet_conv_gradients_match_cudnn_autograd(card, H, W, Cin, Cout, k, d,
+                                                  bias, elu):
+    """The Unet's forward and dgrad in f32 (the 2->16 conv's dgrad too:
+    inside LDAMP its input takes a gradient from the second unroll on)."""
+    test_conv_gradients_match_cudnn_autograd(card, H, W, Cin, Cout, k, d,
+                                             bias, elu)
+
+
+@pytest.mark.parametrize("arch,convs,norms", [("ncsnv2", 75, 17),
+                                              ("ncsnv2_deeper", 94, 21)])
+def test_other_archs_forward_on_the_card_match_the_cpu(card, arch, convs,
+                                                       norms):
+    cfg = ModelConfig(arch=arch)
+    model = make_score_model(cfg, device=card,
+                             generator=torch.Generator().manual_seed(4))
+    cpu = make_score_model(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(4, 64, 16, 2, generator=g)
+    sig = torch.rand(4, generator=g) + 0.1
+    with torch.no_grad():
+        want = cpu(x, sig)
+        reset_counts()
+        got = model(x.to(card), sig.to(card)).cpu()
+    assert counts()["conv2d_taps"] == {"launches": convs, "plain": 0}
+    assert counts()["instance_norm_plus"] == {"launches": norms, "plain": 0}
+    assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+
+
+def test_ldamp_gradient_on_the_card_matches_the_cpu(card):
+    """A small LDAMP (2 unrolls, chans 16, 3 pools) at batch 4 with the
+    same directions: loss and every parameter's gradient within 1e-3 of
+    its max|g| (the train phase's bar), the dgrads on the kernel."""
+    from score_based_channels_torch.models.ldamp import LDAMP
+
+    g = torch.Generator().manual_seed(6)
+    Y = torch.randn(4, 38, 16, 2, generator=g)
+    P = torch.sign(torch.randn(4, 38, 64, 2, generator=g)) * 0.5 ** 0.5
+    eig = torch.full((4,), 100.0)
+    dirs = [torch.randn(4, 64, 16, 2, generator=g) for _ in range(2)]
+    H = torch.randn(4, 64, 16, 2, generator=g)
+    grads = {}
+    for dev in (card, "cpu"):
+        m = LDAMP(max_unrolls=2)
+        m.init_parameters(torch.Generator().manual_seed(7))
+        m.to(dev)
+        reset_counts()
+        h = m(Y.to(dev), P.to(dev), eig.to(dev), directions=dirs)
+        ((h - H.to(dev)) ** 2).sum().backward()
+        grads[str(dev)] = [p.grad.cpu() for p in m.parameters()]
+        if dev != "cpu":
+            assert grad_counts()["conv2d_taps"] == {"functions": 30,
+                                                    "dgrad": 29}
+            assert counts()["conv2d_taps"] == {"launches": 89, "plain": 0}
+    for a, b in zip(grads[str(card)], grads["cpu"]):
+        assert (a - b).abs().max() <= 1e-3 * b.abs().max()

@@ -139,5 +139,5 @@ def test_forward_gives_the_kernels_what_they_take(pair, monkeypatch, dtype):
 
 
 def test_other_archs_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_score_model(ModelConfig(arch="ncsnv2"), device="cpu")
+    with pytest.raises(ValueError, match="unknown arch"):
+        make_score_model(ModelConfig(arch="ncsnv3"), device="cpu")
