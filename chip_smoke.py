@@ -76,7 +76,18 @@ Phases (any failure propagates and the exit code is non-zero):
      card's ReLU branches), an inversion step at 4,096 chains;
  13. `generate-data --backend native` against the torch generator's
      moments;
- 14. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
+ 14. variants: NCSNv2Deepest at full width (batch 256, f32) with each
+     config-chosen activation (relu, lrelu, swish) and norm (InstanceNorm,
+     VarianceNorm, None) and the default, against the plain CPU forward on
+     8 rows, with the launch counts of a forward and its device ms;
+ 15. distributed: parallel/mp_smoke.run_smoke on NCCL at world size 1 (2
+     data-parallel DSM steps at batch 32 in f32, the checkpoint round trip,
+     a sweep chunk on every 100th level from the restored EMA) against the
+     same run with no process group, to 1e-6;
+ 16. trace: 2 bench forwards under torch.profiler, the exported chrome
+     trace read by utils/trace_analysis.summarize and held against the
+     profiler's own device total (1%), its top 5 lines;
+ 17. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
 
 The train phase's gradient at the trained parameters is held norm-wise
 against float64 with the card's max-pool selections replayed
@@ -2039,6 +2050,212 @@ def native_phase():
                 tx_cov_corr=corr)
 
 
+VARIANTS = [("elu", "InstanceNorm++"),  # the default: the launch counts
+            ("relu", "InstanceNorm++"), ("lrelu", "InstanceNorm++"),
+            ("swish", "InstanceNorm++"), ("elu", "InstanceNorm"),
+            ("elu", "VarianceNorm"), ("elu", "None")]
+VARIANT_CPU_ROWS = 8      # of the card's 256, run again on the CPU
+VARIANT_TOL = 2e-4        # f32, relative to max|CPU| (the full-width bar)
+
+
+def variants_phase(g):
+    """NCSNv2Deepest at full width (ngf 32, batch 256, f32) with each
+    config-chosen activation and norm: the kernel forward on the card
+    against the plain CPU forward of the same parameters on the batch's
+    first VARIANT_CPU_ROWS rows, its launch counts (113 conv whatever the
+    variant; InstanceNorm++ only where the norm is, 1 otherwise: the final
+    normalizer), and its device ms a forward."""
+    from score_based_channels_torch import kernels
+    from score_based_channels_torch.config import ModelConfig
+    from score_based_channels_torch.models import make_score_model
+
+    x = torch.randn(BATCH, 64, 16, 2, generator=g)
+    sig = torch.rand(BATCH, generator=g) * 2 + 0.05
+    xc, sc = x.cuda(), sig.cuda()
+    rows = []
+    for act, norm in VARIANTS:
+        cfg = ModelConfig(nonlinearity=act, normalization=norm)
+        model = make_score_model(cfg, device="cuda",
+                                 generator=torch.Generator().manual_seed(5))
+        cpu = make_score_model(cfg, device="cpu")
+        cpu.load_state_dict(model.state_dict())
+        kernels.reset_counts()
+        with torch.no_grad():
+            got = model(xc, sc)
+        torch.cuda.synchronize()
+        c = kernels.counts()
+        with torch.no_grad():
+            want = cpu(x[:VARIANT_CPU_ROWS], sig[:VARIANT_CPU_ROWS])
+        err = ((got[:VARIANT_CPU_ROWS].cpu() - want).abs().max()
+               / want.abs().max()).item()
+        n_norm = 25 if norm == "InstanceNorm++" else 1
+        assert c["conv2d_taps"] == {"launches": 113, "plain": 0}, c
+        assert c["instance_norm_plus"] == {"launches": n_norm, "plain": 0}, c
+        assert torch.isfinite(got).all() and err <= VARIANT_TOL, (act, norm,
+                                                                   err)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: model(xc, sc), reps=5)
+        rows.append(dict(act=act, norm=norm, max_rel_err=err, ms=ms,
+                         conv2d_taps=c["conv2d_taps"]["launches"],
+                         instance_norm_plus=c["instance_norm_plus"][
+                             "launches"]))
+        print(f"# variant {act:5s} {norm:14s}: launches conv2d_taps "
+              f"{rows[-1]['conv2d_taps']}, instance_norm_plus "
+              f"{rows[-1]['instance_norm_plus']} a forward; max rel err vs "
+              f"CPU {err:.2e} (tol {VARIANT_TOL:g}); {ms:.3f} ms a forward "
+              "(f32, batch 256, device)", flush=True)
+        del model, cpu
+    return dict(rows=rows)
+
+
+DIST_STEPS = 2
+DIST_BATCH = 32           # the reference recipe (train_score.py:54)
+DIST_STRIDE = 100         # the sweep chunk: every 100th level of the 2311
+DIST_TOL = 1e-6           # tests/test_torch_train.py's bar
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch.use_deterministic_algorithms(True) while the block runs. Two
+    training runs differ by default (the bilinear resize's backward and
+    cuDNN's weight gradient accumulate in no fixed order: up to 1.1e-5
+    norm-wise on a parameter after 2 steps on an H100); with it they
+    are equal bit for bit, so a difference left is the code's."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+
+
+def distributed_phase():
+    """parallel/mp_smoke.run_smoke on NCCL at world size 1 (tcp on
+    127.0.0.1): DIST_STEPS data-parallel DSM steps of the full-width
+    network in f32 at batch 32, rank 0's checkpoint restored bit for bit,
+    a sweep chunk (every 100th level) from the restored EMA; then the same
+    run with no process group, held to it: losses, each parameter and EMA
+    tensor norm-wise, and the traces, to DIST_TOL. Both runs take
+    deterministic algorithms (`deterministic_algorithms`)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from score_based_channels_torch import kernels
+    from score_based_channels_torch.config import ModelConfig
+    from score_based_channels_torch.diffusion.sigmas import (
+        sigmas_from_config, subsample_schedule,
+    )
+    from score_based_channels_torch.models.convert import tree_leaves
+    from score_based_channels_torch.parallel import multihost
+    from score_based_channels_torch.parallel.mp_smoke import run_smoke
+
+    mcfg = ModelConfig()
+    sig, scale = subsample_schedule(sigmas_from_config(mcfg), DIST_STRIDE)
+    # the WGAN phase's inversion leaves ~76 GiB in the caching allocator;
+    # NCCL allocates its buffers outside it, and fails on a full card
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(device="cuda", ngf=mcfg.ngf, num_classes=mcfg.num_classes,
+                  batch=DIST_BATCH, steps=DIST_STEPS, sigmas=sig,
+                  alpha_step=3e-11 * scale)
+        with deterministic_algorithms():
+            backend = multihost.initialize(f"127.0.0.1:{port}", 1, 0,
+                                           device="cuda")
+            assert backend == "nccl" and dist.get_backend() == "nccl"
+            try:
+                kernels.reset_counts()
+                t0 = time.perf_counter()
+                dp = run_smoke(ckpt_path=os.path.join(tmp, "dp.npz"), **kw)
+                torch.cuda.synchronize()
+                dp_s = time.perf_counter() - t0
+                launches = kernels.counts()
+                grads = kernels.grad_counts()
+            finally:
+                dist.destroy_process_group()
+            t0 = time.perf_counter()
+            one = run_smoke(ckpt_path=os.path.join(tmp, "one.npz"), **kw)
+            one_s = time.perf_counter() - t0
+    for k in ("conv2d_taps", "instance_norm_plus"):
+        assert launches[k]["launches"] > 0 and launches[k]["plain"] == 0, \
+            launches
+    assert grads["conv2d_taps"]["dgrad"] > 0, grads
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(dp["losses"],
+                                                      one["losses"]))
+    par_err = max(float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                  for name in ("params", "ema")
+                  for a, b in zip(tree_leaves(dp[name]), tree_leaves(one[name])))
+    trace_err = float(np.abs(dp["trace"] - one["trace"]).max()
+                      / np.abs(one["trace"]).max())
+    print(f"# distributed (NCCL, world 1): {DIST_STEPS} steps at batch "
+          f"{DIST_BATCH} f32 + checkpoint round trip ({dp['ckpt']}) + sweep "
+          f"chunk of {sig.shape[0]} levels: {dp_s:.2f} s (no group "
+          f"{one_s:.2f} s); losses {np.round(dp['losses'], 3).tolist()}, "
+          f"NMSE {dp['nmse_db']:.2f} dB; vs no group: loss {loss_err:.1e}, "
+          f"params {par_err:.1e}, trace {trace_err:.1e} (tol {DIST_TOL:g}); "
+          f"launches {launches}", flush=True)
+    assert np.isfinite(dp["trace"]).all()
+    assert max(loss_err, par_err, trace_err) <= DIST_TOL
+    return dict(seconds=dp_s, seconds_no_group=one_s, losses=dp["losses"],
+                nmse_db=dp["nmse_db"], loss_err=loss_err, param_err=par_err,
+                trace_err=trace_err, levels=int(sig.shape[0]),
+                launches=launches, grad_counts=grads)
+
+
+def trace_phase(model):
+    """Two bench forwards (bf16, batch 256) under torch.profiler, the
+    chrome trace exported and read by utils/trace_analysis.summarize: its
+    device total against the profiler's own key_averages within 1%, the
+    two kernels under their names, its top 5 lines."""
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from score_based_channels_torch import kernels
+    from score_based_channels_torch.eval.estimate import score_fn_from_params
+    from score_based_channels_torch.utils import trace_analysis
+
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn(BATCH, 64, 16, 2, generator=g).cuda()
+    sig = (torch.rand(BATCH, generator=g) + 0.1).cuda()
+    score = score_fn_from_params(model, torch.bfloat16)
+    score(x, sig)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            score(x, sig)
+        torch.cuda.synchronize()
+    launches = kernels.counts()
+    assert launches["conv2d_taps"] == {"launches": 226, "plain": 0}, launches
+    assert launches["instance_norm_plus"] == {"launches": 50, "plain": 0}
+    prof_ms = sum(device_ms_by_name(prof).values())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench_forward.pt.trace.json")
+        prof.export_chrome_trace(path)
+        summary = trace_analysis.summarize(tmp, top=5, out=io.StringIO())
+    names = list(summary["by_name"])
+    share = {k: sum(r["share"] for n, r in summary["by_name"].items()
+                    if k in n) for k in ("conv2d_taps", "instance_norm_plus")}
+    top = trace_analysis.top_lines(summary, 5)
+    print(f"# trace: 2 bf16 forwards at batch 256, trace_analysis device "
+          f"total {summary['total_ms']:.3f} ms in {summary['events']} events, "
+          f"profiler key_averages {prof_ms:.3f} ms; shares {share}")
+    for line in top:
+        print("#   " + line)
+    assert prof_ms > 0
+    assert abs(summary["total_ms"] - prof_ms) <= 0.01 * prof_ms
+    assert all(any(k in n for n in names) for k in share), names[:20]
+    return dict(total_ms=summary["total_ms"], profiler_ms=prof_ms,
+                events=summary["events"], shares=share, top=top,
+                by_category=summary["by_category"], launches=launches)
+
+
 def per_forward(rows, dtype):
     """Sum over one bf16 (or f32) forward's calls of each timing."""
     sel = [r for r in rows if r["dtype"] == dtype]
@@ -2255,7 +2472,10 @@ def main():
                       ("samplers", lambda: samplers_phase(model, g)),
                       ("ldamp", lambda: ldamp_phase(card)),
                       ("wgan", lambda: wgan_phase(card)),
-                      ("native_cdl", native_phase)):
+                      ("native_cdl", native_phase),
+                      ("variants", lambda: variants_phase(g)),
+                      ("distributed", distributed_phase),
+                      ("trace", lambda: trace_phase(model))):
         t0 = time.perf_counter()
         later[name] = run()
         later[name]["phase_seconds"] = time.perf_counter() - t0

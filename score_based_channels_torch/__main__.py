@@ -1,8 +1,9 @@
 """CLI: `python -m score_based_channels_torch <command> [args]`.
 
-Commands ported so far, beside the reference scripts they mirror (each
-runs on the card by default, `--device cpu` for the plain PyTorch path;
-`generate-data` and `chanstats` are host computations and take no device):
+Every command of the JAX package, beside the reference scripts they mirror
+(each runs on the card by default, `--device cpu` for the plain PyTorch
+path; `generate-data`, `chanstats` and `plots` are host computations and
+take no device):
   train-score    train_score.py — DSM+EMA score-model training on CDL data
   estimate       test_score.py — annealed-Langevin SNR sweep (incl. OOD)
   tune           tune_hparams_score.py — (alpha, beta, stop) grid search
@@ -20,6 +21,8 @@ runs on the card by default, `--device cpu` for the plain PyTorch path;
   generate-data  matlab/generate_data.m — CDL data set files (on the host;
                  --backend auto|torch|native)
   chanstats      generator statistics vs the TR 38.901 analytic tables
+  plots          test_score.py:177-189 + plot_ood_results.py: NMSE curves,
+                 OOD overlays, the all-methods and pilot-density figures
 """
 
 import sys
@@ -60,9 +63,11 @@ def main() -> None:
         from .data.generate import main as m
     elif cmd == "chanstats":
         from .eval.chanstats import main as m
+    elif cmd == "plots":
+        from .eval.plots import main as m
     else:
         print(__doc__)
-        raise SystemExit(f"unknown or not yet ported command: {cmd}")
+        raise SystemExit(f"unknown command: {cmd}")
     m(argv)
 
 

@@ -6,7 +6,9 @@ sigma^anneal_power.
 
 The draws come from an explicit `torch.Generator` on the batch's device;
 `labels` and `noise` (the unit normal z) may be given instead, so a test
-can feed both packages the same draws.
+can feed both packages the same draws. `rows` keeps a slice of the
+batch after the draws (a data-parallel rank's share), so a row's draws do
+not depend on the number of ranks.
 """
 
 from __future__ import annotations
@@ -24,12 +26,15 @@ def anneal_dsm_loss(
     labels: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
     anneal_power: float = 2.0,
+    rows: Optional[slice] = None,
 ) -> torch.Tensor:
     """Mean annealed DSM loss over the batch, a 0-dim tensor.
 
     score_fn(x, used_sigmas) -> score, with x (B, H, W, 2) NHWC and
     used_sigmas (B,); the network divides by sigma itself
-    (ncsnv2.py:295-298). Labels are drawn before the noise.
+    (ncsnv2.py:295-298). Labels are drawn before the noise. With `rows`,
+    labels and noise are drawn (or given) for the whole batch and the loss
+    is the mean over samples[rows].
     """
     b = samples.shape[0]
     if labels is None:
@@ -40,6 +45,10 @@ def anneal_dsm_loss(
     if noise is None:
         noise = torch.randn(samples.shape, generator=generator,
                             device=samples.device, dtype=samples.dtype)
+    if rows is not None:
+        samples, labels, noise = samples[rows], labels[rows], noise[rows]
+        used, bcast = used[rows], bcast[rows]
+        b = samples.shape[0]
     noise = noise * bcast
     target = -noise / bcast**2
     scores = score_fn(samples + noise, used)

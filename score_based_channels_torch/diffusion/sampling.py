@@ -48,6 +48,7 @@ def annealed_langevin_posterior_c2(
     coef_cap=None,
     start_level: Optional[torch.Tensor] = None,
     noise_fn: Optional[Callable[[int, int], torch.Tensor]] = None,
+    noise_rows: Optional[Tuple[int, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run the annealed-Langevin posterior schedule (c2).
 
@@ -66,6 +67,9 @@ def annealed_langevin_posterior_c2(
         level per sample (before it the sample holds its init).
       noise_fn: optional (level, step) -> z (B, Nt, Nr, 2) in place of the
         generator's draws (lets a test inject another sampler's draws).
+      noise_rows: (n, keep): each step draws z for n rows and keeps rows
+        `keep` (a data-parallel rank's rows of its chunk), so a row's
+        noise does not depend on how the chunk is split.
 
     Returns (x_final or the captured iterate, nmse trace or None).
     """
@@ -110,8 +114,13 @@ def annealed_langevin_posterior_c2(
         for step in range(steps_each):
             score = score_fn(x, sigma)
             meas_grad = cplx.matmul(Ah, cplx.matmul(A, x) - Y)
-            z = (noise_fn(lvl, step).to(dev) if noise_fn is not None
-                 else cplx.randn(generator, x.shape[:-1]))
+            if noise_fn is not None:
+                z = noise_fn(lvl, step).to(dev)
+            elif noise_rows is None:
+                z = cplx.randn(generator, x.shape[:-1])
+            else:
+                z = cplx.randn(generator, (noise_rows[0],)
+                               + tuple(x.shape[1:-1]))[noise_rows[1]]
             x = (x + cplx.scale(score, alpha) - cplx.scale(meas_grad, coef)
                  + cplx.scale(z, noise_scale))
             if trace is not None:

@@ -29,6 +29,7 @@ from ..config import Config
 from ..data.dataset import ChannelDataset
 from ..diffusion.sampling import annealed_langevin_posterior_c2
 from ..diffusion.sigmas import sigmas_from_config, subsample_schedule
+from ..parallel.mesh import pad_to_multiple
 
 
 def derive_seed(seed: int, *path: int) -> int:
@@ -78,16 +79,6 @@ def load_score_fn(path: str, device, dtype: Optional[torch.dtype] = None):
     return config, score_fn_from_params(model, dtype=dtype)
 
 
-def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
-    """Pad the batch axis to n rows by repeating rows from the start
-    (the JAX package's parallel/mesh.py::pad_to_multiple)."""
-    rem = n - t.shape[0]
-    if rem <= 0:
-        return t
-    idx = torch.arange(rem, device=t.device) % t.shape[0]
-    return torch.cat([t, t[idx]], dim=0)
-
-
 def langevin_chunked(
     score_fn,
     A2: torch.Tensor,
@@ -105,6 +96,7 @@ def langevin_chunked(
     start_level=None,
     coef_cap=None,
     device=None,
+    mesh=None,
 ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     """Run the c2 posterior sampler over a large batch in chunks of one
     shape (the ragged tail is padded) on `device` (None: the card).
@@ -115,6 +107,12 @@ def langevin_chunked(
     data-consistency coefficient as the sampler's does. Chunk k draws its
     Langevin noise from a generator seeded by (seed, first row of the
     chunk).
+
+    mesh (parallel.mesh.Mesh): each rank runs its rows of every chunk
+    (the chunk padded to a multiple of the ranks) and the traces and
+    estimates are all-gathered back into row order, on every rank. Each
+    rank draws the whole chunk's Langevin noise and keeps its rows, so at
+    a given chunk_size a row's trace does not depend on the world size.
     """
     dev = resolve_device(device)
     B = x2_init.shape[0]
@@ -146,14 +144,27 @@ def langevin_chunked(
                  capture_level[sl] if capture_level is not None else None,
                  start_level[sl] if start_level is not None else None,
                  coef_cap[sl] if coef_cap is not None else None]
-        parts = [None if p is None else _pad_rows(p, chunk).to(dev)
+        parts = [None if p is None else pad_to_multiple(p, chunk)[0]
                  for p in parts]
-        a, y, npow, x0, al, be, orc, cap, slv, ccap = parts
+        noise_rows = None
+        if mesh is not None:  # this rank's rows of the chunk
+            world = mesh.world_size
+            rows = mesh.rows(-(-chunk // world) * world)
+            parts = [None if p is None else
+                     pad_to_multiple(p, world)[0][rows] for p in parts]
+            noise_rows = (chunk, torch.arange(rows.start, rows.stop,
+                                              device=dev).clamp_max(chunk - 1))
+        a, y, npow, x0, al, be, orc, cap, slv, ccap = (
+            None if p is None else p.to(dev) for p in parts)
         xf2, trace = annealed_langevin_posterior_c2(
             score_fn, a, y, sigmas, npow, x0,
             generator=_generator(seed, start, device=dev),
             alpha_step=al, beta_noise=be, steps_each=steps_each, oracle=orc,
-            capture_level=cap, start_level=slv, coef_cap=ccap)
+            capture_level=cap, start_level=slv, coef_cap=ccap,
+            noise_rows=noise_rows)
+        if mesh is not None:
+            xf2 = mesh.gather(xf2)
+            trace = None if trace is None else mesh.gather(trace, dim=1)
         finals.append(cplx.to_complex(xf2)[:n_valid])
         if trace is not None:
             traces.append(trace.cpu().numpy()[:, :n_valid])
@@ -208,6 +219,7 @@ def run_snr_sweep(
     auto_threshold: float = 1.15,
     auto_calib: Optional[np.ndarray] = None,
     device=None,
+    mesh=None,
 ):
     """One (spacing, pilot_alpha) sweep -> nmse (n_snr, n_steps, n_channels).
 
@@ -215,6 +227,7 @@ def run_snr_sweep(
     and the Langevin init fixed across SNR, fresh measurement noise per
     SNR, per-step NMSE trace. init in {"noise", "ls", "lmmse", "auto"}; see
     the JAX docstring for the warm-start and residual-gated auto protocols.
+    mesh: split each chunk's rows over the ranks (`langevin_chunked`).
     """
     dev = resolve_device(device)
     cfg = config
@@ -329,7 +342,7 @@ def run_snr_sweep(
         score_fn, A_b, Y_b, sigmas, npow_b, x0_b, derive_seed(seed, 1),
         al_b, be_b, steps_each=sampling.steps_each, oracle2=X_b,
         chunk_size=chunk_size, capture_level=cap_b, start_level=start_b,
-        device=dev)
+        device=dev, mesh=mesh)
     n_steps = trace.shape[0]  # (L*steps, S*C) -> (S, steps, C)
     nmse = np.transpose(trace.reshape(n_steps, S, C), (1, 0, 2))
     if return_estimates:
@@ -359,11 +372,12 @@ def run_estimation(
     sigma_start: Optional[float] = None,
     auto_threshold: float = 1.15,
     device=None,
+    mesh=None,
 ) -> EstimationResults:
     """test_score.py's protocol, including cross-distribution (OOD) eval:
     train_profile fixes the normalisation stats and the LMMSE covariance,
     test_profile selects the evaluated channels. Runs on `device` (None:
-    the card)."""
+    the card); mesh splits every chunk over the ranks (`langevin_chunked`)."""
     dev = resolve_device(device)
     if snr_range is None:
         snr_range = np.arange(-10, 32.5, 2.5)  # test_score.py:72
@@ -409,7 +423,8 @@ def run_estimation(
                 stop_steps=stop_steps, level_stride=level_stride,
                 init=init, sigma_start=sigma_start, init_cov=init_cov,
                 auto_threshold=auto_threshold, auto_calib=auto_calib,
-                return_estimates=save_channels_to is not None, device=dev)
+                return_estimates=save_channels_to is not None, device=dev,
+                mesh=mesh)
             if save_channels_to is not None:
                 nmse_log[i_sp, i_al], est = out
                 tag = f"sp{i_sp}_al{i_al}"
@@ -477,9 +492,6 @@ def main(argv=None):
                    choices=["float32", "bfloat16"],
                    help="score-network compute dtype (the Langevin state "
                         "stays f32)")
-    p.add_argument("--cache", type=str, default=None,
-                   help="accepted for the JAX package's command line; the "
-                        "port compiles no graphs and keeps no cache")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; --device cpu runs the "
                         "plain PyTorch path)")

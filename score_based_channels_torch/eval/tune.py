@@ -129,6 +129,7 @@ def run_hparam_search(
     seed: int = 2023,
     chunk_size: Optional[int] = None,
     device=None,
+    mesh=None,
     _draws: Optional[Tuple[torch.Tensor, ...]] = None,
 ) -> TuneResults:
     """Grid defaults follow tune_hparams_score.py:20-24. Runs on `device`
@@ -138,7 +139,8 @@ def run_hparam_search(
     (alpha, beta) grid (the JAX package's tune.py:143-160): the combo index
     is g = iA*nB + iB, the batch row g*(S*C) + s*C + c. Pilots, the
     Langevin init and the measurement noise come from a CPU generator
-    seeded by (seed, 0), the Langevin noise from (seed, 1).
+    seeded by (seed, 0), the Langevin noise from (seed, 1). mesh splits
+    every chunk over the ranks (`langevin_chunked`).
 
     _draws: (A (C,Np,Nt,2), Y (S*C,Np,Nr,2), X (C,Nt,Nr,2), x_init
     (C,Nt,Nr,2)) given instead of drawn (the parity tests pass the JAX
@@ -193,7 +195,7 @@ def run_hparam_search(
         score_fn, A_b, Y_b, sigmas_from_config(config.model), npow_b, x0_b,
         derive_seed(seed, 1), al_b, be_b,
         steps_each=config.sampling.steps_each, oracle2=X_b,
-        chunk_size=chunk_size, device=dev)
+        chunk_size=chunk_size, device=dev, mesh=mesh)
     n_steps = trace.shape[0]
     nmse_log = np.transpose(
         trace.reshape(n_steps, nA, nB, S, C), (1, 2, 3, 0, 4))

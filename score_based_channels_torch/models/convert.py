@@ -13,6 +13,10 @@ the JAX package's models/torch_compat.py:34-100.
   module's buffers of the same names (`jax_variables_to_state_dict`,
   `module_to_jax_variables`)
 
+`load_reference_checkpoint` reads the reference's own `final_model.pt`
+(the JAX package's models/torch_compat.py:103-112), whose state dict
+already has the port's names.
+
 Digit-suffixed names become ModuleList indices only for the list
 containers of the reference (res*, convs, adapt_convs); the other way,
 every ModuleList index joins its parent's name.
@@ -150,3 +154,22 @@ def tree_from_leaves(paths: List[Tuple[str, ...]], leaves) -> Dict:
             node = node.setdefault(t, {})
         node[path[-1]] = leaf
     return tree
+
+
+def load_reference_checkpoint(path: str):
+    """A reference `final_model.pt` (train_score.py:211-216: `model_state`,
+    `config`, ...) -> (state dict, sigmas, raw config).
+
+    The state dict holds float32 CPU tensors and loads into the port's
+    NCSNv2Deepest with strict=True; the model's `sigmas` buffer, which the
+    port's module does not keep, comes back apart as a float32 array
+    (None when absent), as the JAX package's loader returns it."""
+    contents = torch.load(path, map_location="cpu", weights_only=False)
+    state, sigmas = {}, None
+    for key, val in contents["model_state"].items():
+        t = torch.as_tensor(val).detach().to("cpu", torch.float32)
+        if key == "sigmas":
+            sigmas = t.numpy().copy()
+        else:
+            state[key] = t.contiguous()
+    return state, sigmas, contents.get("config")

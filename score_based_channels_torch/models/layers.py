@@ -8,15 +8,19 @@ run their plain versions on the CPU. Module and parameter names follow the
 reference state dict (`res1.0.conv1.weight`, RCU's `{i}_{j}_conv`), so a
 converted JAX parameter tree loads with strict=True.
 
-Fusions: every InstanceNorm++ of the path is followed by ELU, so the norm
-takes `elu=True`; in an RCU the first conv of a stage pair takes the ELU
-that follows it as its epilogue.
+Activations and norms come from the config (`get_act`, `get_normalization`,
+the JAX package's layers.py:35,222). With ELU, the default, every norm
+followed by the activation takes `elu=True`, and in an RCU the first conv
+of a stage pair takes the ELU that follows it as its epilogue, so the
+kernels apply it. Any other activation runs as one torch op after a
+kernel launched with `elu=False`. InstanceNorm, VarianceNorm and None are
+plain torch ops here, as they are outside Pallas in the JAX package.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +28,36 @@ from torch import nn
 
 from ..kernels import conv as conv_kernel
 from ..kernels import instance_norm as norm_kernel
+
+Act = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _lrelu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope=0.2)
+
+
+def _swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def get_act(nonlinearity: str) -> Act:
+    """Activation factory (layers.py:35; reference layers.py:11-23): elu,
+    relu, lrelu (slope 0.2), swish = x sigmoid(x). ELU is F.elu itself, so
+    the blocks can tell it apart and fuse it into the kernels."""
+    name = nonlinearity.lower()
+    acts = {"elu": F.elu, "relu": F.relu, "lrelu": _lrelu, "swish": _swish}
+    if name not in acts:
+        raise NotImplementedError("activation function does not exist!")
+    return acts[name]
+
+
+def act_after(fn: Callable[..., torch.Tensor], x: torch.Tensor,
+              act: Act) -> torch.Tensor:
+    """act(fn(x)) for a conv or norm `fn` that takes `elu=`: ELU is fused
+    into its kernel, any other activation follows as a torch op."""
+    if act is F.elu:
+        return fn(x, elu=True)
+    return act(fn(x))
 
 
 class Conv2d(nn.Module):
@@ -80,6 +114,85 @@ class InstanceNorm2dPlus(nn.Module):
                                               self.beta, elu=elu)
 
 
+def _affine_out(h: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
+                shift: Optional[torch.Tensor], elu: bool) -> torch.Tensor:
+    """scale h (+ shift) per channel in f32, then ELU, in x's dtype."""
+    view = (1, -1, 1, 1)
+    out = h * scale.float().view(view)
+    if shift is not None:
+        out = out + shift.float().view(view)
+    out = out.to(x.dtype)
+    return F.elu(out) if elu else out
+
+
+class InstanceNorm2d(nn.Module):
+    """Instance norm with affine parameters (layers.py:166; torch's
+    InstanceNorm2d(affine=True)): biased per-sample variance, eps 1e-5,
+    gamma = 1, beta = 0. A plain torch op; statistics in f32."""
+
+    def __init__(self, features: int, bias: bool = True):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(features))
+        self.beta = nn.Parameter(torch.zeros(features)) if bias else None
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.gamma.fill_(1.0)
+            if self.beta is not None:
+                self.beta.zero_()
+
+    def forward(self, x: torch.Tensor, elu: bool = False) -> torch.Tensor:
+        xs = x.float()
+        var, mu = torch.var_mean(xs, dim=(2, 3), correction=0, keepdim=True)
+        h = (xs - mu) / torch.sqrt(var + 1e-5)
+        return _affine_out(h, x, self.gamma, self.beta, elu)
+
+
+class VarianceNorm2d(nn.Module):
+    """Variance-only norm (layers.py:188; reference normalization.py:
+    107-121): h = x / sqrt(unbiased per-sample variance + 1e-5), times
+    alpha ~ N(1, 0.02^2); no shift unless `bias`. A plain torch op."""
+
+    def __init__(self, features: int, bias: bool = False):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.ones(features))
+        self.beta = nn.Parameter(torch.zeros(features)) if bias else None
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.alpha.normal_(1.0, 0.02, generator=generator)
+            if self.beta is not None:
+                self.beta.zero_()
+
+    def forward(self, x: torch.Tensor, elu: bool = False) -> torch.Tensor:
+        xs = x.float()
+        var = torch.var(xs, dim=(2, 3), correction=1, keepdim=True)
+        h = xs / torch.sqrt(var + 1e-5)
+        return _affine_out(h, x, self.alpha, self.beta, elu)
+
+
+class NoneNorm2d(nn.Module):
+    """Identity (layers.py:211; reference normalization.py:142-147)."""
+
+    def __init__(self, features: int, bias: bool = True):
+        super().__init__()
+
+    def forward(self, x: torch.Tensor, elu: bool = False) -> torch.Tensor:
+        return F.elu(x) if elu else x
+
+
+_NORMS = {"InstanceNorm++": InstanceNorm2dPlus, "InstanceNorm": InstanceNorm2d,
+          "VarianceNorm": VarianceNorm2d, "None": NoneNorm2d}
+
+
+def get_normalization(name: str) -> Callable[..., nn.Module]:
+    """Norm factory of the unconditional path (layers.py:222; reference
+    normalization.py:8-33)."""
+    if name not in _NORMS:
+        raise NotImplementedError(f"normalization {name!r} not implemented")
+    return _NORMS[name]
+
+
 # -----------------------------------------------------------------------------
 # pooling / resampling
 # -----------------------------------------------------------------------------
@@ -88,6 +201,12 @@ class InstanceNorm2dPlus(nn.Module):
 def max_pool_5x5(x: torch.Tensor) -> torch.Tensor:
     """MaxPool2d(kernel=5, stride=1, padding=2) (layers.py:240)."""
     return F.max_pool2d(x, 5, stride=1, padding=2)
+
+
+def avg_pool_5x5(x: torch.Tensor) -> torch.Tensor:
+    """AvgPool2d(kernel=5, stride=1, padding=2), count_include_pad=True
+    (layers.py:245)."""
+    return F.avg_pool2d(x, 5, stride=1, padding=2, count_include_pad=True)
 
 
 def mean_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -117,37 +236,68 @@ class ConvMeanPool(nn.Module):
         return mean_pool_2x2(self.conv(x))
 
 
+class MeanPoolConv(nn.Module):
+    """2x2 mean downsample -> conv (layers.py:317)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 bias: bool = True):
+        super().__init__()
+        self.conv = Conv2d(in_ch, out_ch, kernel_size, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(mean_pool_2x2(x))
+
+
+class UpsampleConv(nn.Module):
+    """2x nearest upsample (the reference's 4 copies + PixelShuffle(2)) ->
+    conv (layers.py:330)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 bias: bool = True):
+        super().__init__()
+        self.conv = Conv2d(in_ch, out_ch, kernel_size, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        up = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        return self.conv(up.contiguous(memory_format=torch.channels_last))
+
+
 # -----------------------------------------------------------------------------
 # RefineNet blocks
 # -----------------------------------------------------------------------------
 
 
 class CRPBlock(nn.Module):
-    """Chained residual pooling (layers.py:352): ELU, then n_stages of
-    maxpool -> conv (no bias), each added to the running sum."""
+    """Chained residual pooling (layers.py:352): the activation, then
+    n_stages of pool (5x5 max, or mean with maxpool=False) -> conv (no
+    bias), each added to the running sum."""
 
-    def __init__(self, features: int, n_stages: int = 2):
+    def __init__(self, features: int, n_stages: int = 2, act: Act = F.elu,
+                 maxpool: bool = True):
         super().__init__()
+        self.act, self.maxpool = act, maxpool
         self.convs = nn.ModuleList(
             [Conv2d(features, features, 3, bias=False) for _ in range(n_stages)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.elu(x)
+        pool = max_pool_5x5 if self.maxpool else avg_pool_5x5
+        x = self.act(x)
         path = x
         for conv in self.convs:
-            path = conv(max_pool_5x5(path))
+            path = conv(pool(path))
             x = path + x
         return x
 
 
 class RCUBlock(nn.Module):
     """Residual conv units (layers.py:372), parameters named `{i}_{j}_conv`.
-    Each stage is ELU -> conv (no bias); the ELU opening a stage that
-    follows a conv is that conv's fused epilogue."""
+    Each stage is the activation -> conv (no bias); an ELU opening a stage
+    that follows a conv is that conv's fused epilogue."""
 
-    def __init__(self, features: int, n_blocks: int, n_stages: int):
+    def __init__(self, features: int, n_blocks: int, n_stages: int,
+                 act: Act = F.elu):
         super().__init__()
-        self.n_blocks, self.n_stages = n_blocks, n_stages
+        self.n_blocks, self.n_stages, self.act = n_blocks, n_stages, act
         for i in range(n_blocks):
             for j in range(n_stages):
                 self.add_module(f"{i + 1}_{j + 1}_conv",
@@ -156,10 +306,11 @@ class RCUBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_blocks):
             residual = x
-            x = F.elu(x)
+            x = self.act(x)
             for j in range(self.n_stages):
                 conv = getattr(self, f"{i + 1}_{j + 1}_conv")
-                x = conv(x, elu=j + 1 < self.n_stages)
+                x = (act_after(conv, x, self.act) if j + 1 < self.n_stages
+                     else conv(x))
             x = x + residual
         return x
 
@@ -185,14 +336,14 @@ class RefineBlock(nn.Module):
     """RCU adapters -> MSF -> CRP -> output RCUs (layers.py:411)."""
 
     def __init__(self, in_planes: Sequence[int], features: int,
-                 end: bool = False):
+                 end: bool = False, act: Act = F.elu, maxpool: bool = True):
         super().__init__()
         self.adapt_convs = nn.ModuleList(
-            [RCUBlock(c, n_blocks=2, n_stages=2) for c in in_planes])
+            [RCUBlock(c, n_blocks=2, n_stages=2, act=act) for c in in_planes])
         self.msf = MSFBlock(in_planes, features) if len(in_planes) > 1 else None
-        self.crp = CRPBlock(features, n_stages=2)
+        self.crp = CRPBlock(features, n_stages=2, act=act, maxpool=maxpool)
         self.output_convs = RCUBlock(features, n_blocks=3 if end else 1,
-                                     n_stages=2)
+                                     n_stages=2, act=act)
 
     def forward(self, xs: Sequence[torch.Tensor],
                 out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -208,15 +359,17 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, input_dim: int, output_dim: int,
                  resample: Optional[str] = None,
-                 dilation: Optional[int] = None):
+                 dilation: Optional[int] = None, act: Act = F.elu,
+                 normalization: Callable[..., nn.Module] = InstanceNorm2dPlus):
         super().__init__()
         if resample not in (None, "down"):
             raise ValueError("invalid resample value")
+        self.act = act
         d = dilation or 1
         mid = input_dim if resample == "down" else output_dim
-        self.normalize1 = InstanceNorm2dPlus(input_dim)
+        self.normalize1 = normalization(input_dim)
         self.conv1 = Conv2d(input_dim, mid, 3, dilation=d)
-        self.normalize2 = InstanceNorm2dPlus(mid)
+        self.normalize2 = normalization(mid)
         if resample == "down" and dilation is None:
             self.conv2 = ConvMeanPool(mid, output_dim, 3)
         else:
@@ -232,9 +385,9 @@ class ResidualBlock(nn.Module):
             self.shortcut = Conv2d(input_dim, output_dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.normalize1(x, elu=True)
+        h = act_after(self.normalize1, x, self.act)
         h = self.conv1(h)
-        h = self.normalize2(h, elu=True)
+        h = act_after(self.normalize2, h, self.act)
         h = self.conv2(h)
         shortcut = x if self.shortcut is None else self.shortcut(x)
         return shortcut + h

@@ -16,7 +16,10 @@ from torch import nn
 
 from .._device import resolve_device
 from ..config import ModelConfig
-from .layers import Conv2d, InstanceNorm2dPlus, RefineBlock, ResidualBlock
+from .layers import (
+    Conv2d, InstanceNorm2d, InstanceNorm2dPlus, RefineBlock, ResidualBlock,
+    VarianceNorm2d, act_after, get_act, get_normalization,
+)
 
 
 def _apply_sigma_scaling(out: torch.Tensor, used_sigmas) -> torch.Tensor:
@@ -31,7 +34,10 @@ def _apply_sigma_scaling(out: torch.Tensor, used_sigmas) -> torch.Tensor:
 class _RefineNet(nn.Module):
     """The NCSNv2 family (reference ncsnv2.py): begin conv, residual stages,
     refine stages that walk back up the stages (refine k takes stage
-    [-1-k] and refine k-1's output), InstanceNorm++ + ELU, end conv.
+    [-1-k] and refine k-1's output), InstanceNorm++ + the activation, end
+    conv. The activation and the residual blocks' norm come from
+    `config.nonlinearity` and `config.normalization` (JAX ncsnv2.py:77-78);
+    the final norm is InstanceNorm++ whatever the config, as there.
 
     `stages`: (name, [(in, out, resample, dilation), ...]) in order;
     `refines`: (name, in_planes, features), the last one with end=True.
@@ -39,32 +45,30 @@ class _RefineNet(nn.Module):
 
     def __init__(self, config: ModelConfig, channels: int, stages, refines):
         super().__init__()
-        if config.nonlinearity.lower() != "elu":
-            raise NotImplementedError("the port's blocks fuse ELU; "
-                                      f"nonlinearity {config.nonlinearity!r}")
-        if config.normalization != "InstanceNorm++":
-            raise NotImplementedError(
-                f"normalization {config.normalization!r} is not ported")
+        act = get_act(config.nonlinearity)
+        norm = get_normalization(config.normalization)
         if config.input_transform not in ("affine_2x_minus_1", "identity"):
             raise ValueError(config.input_transform)
-        self.config = config
+        self.config, self.act = config, act
         ngf = config.ngf
         self.begin_conv = Conv2d(channels, ngf, 3)
         self.stage_names = [name for name, _ in stages]
         for name, blocks in stages:
             self.add_module(name, nn.ModuleList(
-                [ResidualBlock(i, o, r, d) for i, o, r, d in blocks]))
+                [ResidualBlock(i, o, r, d, act, norm)
+                 for i, o, r, d in blocks]))
         self.refine_names = [name for name, _, _ in refines]
         for k, (name, planes, features) in enumerate(refines):
             self.add_module(name, RefineBlock(
-                planes, features, end=k == len(refines) - 1))
+                planes, features, end=k == len(refines) - 1, act=act))
         self.normalizer = InstanceNorm2dPlus(ngf)
         self.end_conv = Conv2d(ngf, channels, 3)
 
     def init_parameters(self, generator: torch.Generator) -> None:
         """Reference-style random init, drawn from `generator`."""
         for m in self.modules():
-            if isinstance(m, (Conv2d, InstanceNorm2dPlus)):
+            if isinstance(m, (Conv2d, InstanceNorm2dPlus, InstanceNorm2d,
+                              VarianceNorm2d)):
                 m.init_parameters(generator)
 
     def forward(self, x: torch.Tensor, used_sigmas) -> torch.Tensor:
@@ -82,7 +86,7 @@ class _RefineNet(nn.Module):
             skip = layers[-1 - k]
             ref = getattr(self, name)([skip] if ref is None else [skip, ref],
                                       tuple(skip.shape[-2:]))
-        out = self.normalizer(ref, elu=True)
+        out = act_after(self.normalizer, ref, self.act)
         out = self.end_conv(out)
         return _apply_sigma_scaling(out.permute(0, 2, 3, 1), used_sigmas)
 

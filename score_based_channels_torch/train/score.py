@@ -18,6 +18,14 @@ CPU (so both are the same on every device), and each step's labels and
 noise on the run's device from (seed, step), so a run does not depend on
 its chunk length or on restarts.
 
+Data parallelism (the JAX package's train/score.py:143-182): with
+`config.training.data_parallel` and an initialised process group
+(parallel/multihost.py), every rank draws the whole batch, its labels and
+its noise from the shared seeds, keeps its own rows, and the gradients
+are all-reduced to their mean before the update, so a step on k ranks is
+the one-process step on the whole batch. Only rank 0 writes checkpoints
+and logs.
+
 The optimizers follow optax's update rules (the JAX package's), with
 their state kept in optax's leaf order so that a checkpoint resumes in
 either package.
@@ -27,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
@@ -45,6 +54,8 @@ from ..models import (
     jax_params_to_state_dict, make_score_model, state_dict_to_jax_params,
 )
 from ..models.convert import tree_from_leaves, tree_leaves, tree_paths
+from ..parallel.mesh import Mesh, make_mesh
+from ..parallel.multihost import is_primary
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.metrics import MetricsLogger
 
@@ -195,36 +206,54 @@ class ScoreTrainState:
 
 
 def make_score_train_step(sigmas: torch.Tensor, ema_rate: float,
-                          anneal_power: float) -> Callable:
+                          anneal_power: float,
+                          mesh: Optional[Mesh] = None) -> Callable:
     """-> step(state, x, generator, labels=None, noise=None): the DSM loss
     at the current parameters, backward, the optimizer step, the EMA
-    update; returns the loss as a 0-dim device tensor (no host sync)."""
+    update; returns the loss as a 0-dim device tensor (no host sync).
+
+    With a mesh, x, labels and noise are the whole batch; this rank's
+    loss is the mean over its rows (`mesh.rows`), and the gradients and
+    the returned loss are all-reduced to their mean over the ranks."""
 
     def step(state: ScoreTrainState, x: torch.Tensor,
              generator: Optional[torch.Generator] = None,
              labels: Optional[torch.Tensor] = None,
              noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        rows = mesh.rows(x.shape[0]) if mesh is not None else None
         loss = anneal_dsm_loss(state.model, x, sigmas, generator, labels,
-                               noise, anneal_power)
+                               noise, anneal_power, rows=rows)
         state.opt.zero_grad()
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            mesh.mean([p.grad for p in state.opt.params] + [loss])
         state.opt.step()
         ema_update(state.ema, state.model, ema_rate)
         state.step += 1
-        return loss.detach()
+        return loss
 
     return step
 
 
-def make_eval_loss(sigmas: torch.Tensor, anneal_power: float) -> Callable:
+def make_eval_loss(sigmas: torch.Tensor, anneal_power: float,
+                   mesh: Optional[Mesh] = None) -> Callable:
     """-> eval_loss(model, x, generator): the DSM loss under no_grad (the
-    trainer passes the EMA copy)."""
+    trainer passes the EMA copy). With a mesh, a batch that divides by the
+    ranks is split and its loss all-reduced to the mean; one that does not
+    (the fixed validation set) is evaluated whole on every rank, as the
+    JAX package replicates it."""
 
     @torch.no_grad()
     def eval_loss(model: nn.Module, x: torch.Tensor,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return anneal_dsm_loss(model, x, sigmas, generator,
-                               anneal_power=anneal_power)
+        split = mesh is not None and x.shape[0] % mesh.world_size == 0
+        loss = anneal_dsm_loss(model, x, sigmas, generator,
+                               anneal_power=anneal_power,
+                               rows=mesh.rows(x.shape[0]) if split else None)
+        if split:
+            mesh.mean([loss])
+        return loss
 
     return eval_loss
 
@@ -248,18 +277,25 @@ def matmul_precision(precision: str):
 
 class ScoreTrainer:
     """A full training run (the reference train_score.py recipe) on
-    `device` (None: the card). One device: the JAX package's data-parallel
-    mesh has nothing to shard here."""
+    `device` (None: the card). Data-parallel over the ranks of the process
+    group (`self.mesh`) when `config.training.data_parallel` is set and one
+    is initialised."""
 
     def __init__(self, config: Config,
                  device: Optional[Union[str, torch.device]] = None):
         self.config = config
         self.device = resolve_device(device)
         self.sigmas = sigmas_from_config(config.model).to(self.device)
+        grouped = (torch.distributed.is_available()
+                   and torch.distributed.is_initialized())
+        self.mesh = (make_mesh() if grouped and config.training.data_parallel
+                     else None)
         self.train_step = make_score_train_step(
-            self.sigmas, config.model.ema_rate, config.training.anneal_power)
+            self.sigmas, config.model.ema_rate, config.training.anneal_power,
+            self.mesh)
         self.eval_loss = make_eval_loss(self.sigmas,
-                                        config.training.anneal_power)
+                                        config.training.anneal_power,
+                                        self.mesh)
 
     def init_state(self, seed: int) -> ScoreTrainState:
         """Random parameters drawn on the CPU from (seed, 0), a fresh
@@ -320,7 +356,8 @@ class ScoreTrainer:
         state = (self.restore_state(resume_from) if resume_from
                  else self.init_state(rng_seed))
         start_step = state.step
-        metrics = MetricsLogger(metrics_path)
+        primary = is_primary()
+        metrics = MetricsLogger(metrics_path if primary else None)
         batch = cfg.training.batch_size
         n = x_all.shape[0]
         steps_per_epoch = n // batch  # drop_last (train_score.py:75)
@@ -357,9 +394,10 @@ class ScoreTrainer:
                 v = float(self.eval_loss(state.ema, x_val, gen))
                 val_loss_log.append(v)
                 sps = (done - start_step) / (time.time() - t0)
-                log_fn(f"Epoch {epoch}, Step {done}, "
-                       f"Train Loss (EMA) {running:.3f}, Val. Loss {v:.3f}, "
-                       f"{sps:.2f} steps/s")
+                if primary:
+                    log_fn(f"Epoch {epoch}, Step {done}, "
+                           f"Train Loss (EMA) {running:.3f}, "
+                           f"Val. Loss {v:.3f}, {sps:.2f} steps/s")
                 metrics.log("val", epoch=epoch, step=done,
                             train_loss_ema=running, val_loss=v,
                             steps_per_s=sps)
@@ -368,9 +406,11 @@ class ScoreTrainer:
                 "val_loss": np.asarray(val_loss_log),
                 "norm_stats": np.asarray([np.real(train_ds.mean),
                                           float(train_ds.std)])}
-        if checkpoint_path:
+        if checkpoint_path and primary:
             self.save(checkpoint_path, state, extra_arrays=logs)
             log_fn(f"saved checkpoint to {checkpoint_path}")
+        if self.mesh is not None:  # no rank returns before the file is whole
+            self.mesh.barrier()
         return state, logs
 
 
@@ -391,9 +431,6 @@ def main(argv=None):
     p.add_argument("--ray_coupling", type=str, default="random",
                    choices=["random", "fixed"],
                    help="generator ensemble (DataConfig.ray_coupling)")
-    p.add_argument("--cache", type=str, default=None,
-                   help="accepted for the JAX package's command line; the "
-                        "port compiles no graphs and keeps no cache")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; --device cpu runs the "
                         "plain PyTorch path)")
@@ -409,8 +446,19 @@ def main(argv=None):
         cfg = cfg.replace(data=dataclasses.replace(
             cfg.data, ray_coupling=args.ray_coupling))
     out = args.output or f"models/score/{args.train}/final_model.npz"
-    ScoreTrainer(cfg, device=args.device).train(checkpoint_path=out,
-                                                n_epochs=args.epochs)
+    if "WORLD_SIZE" not in os.environ:
+        ScoreTrainer(cfg, device=args.device).train(checkpoint_path=out,
+                                                    n_epochs=args.epochs)
+        return
+    # started by torchrun: data-parallel over its ranks
+    from ..parallel.multihost import initialize
+
+    initialize(device=args.device)
+    try:
+        ScoreTrainer(cfg, device=args.device).train(checkpoint_path=out,
+                                                    n_epochs=args.epochs)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -915,3 +915,72 @@ def test_ldamp_gradient_on_the_card_matches_the_cpu(card):
             assert counts()["conv2d_taps"] == {"launches": 89, "plain": 0}
     for a, b in zip(grads[str(card)], grads["cpu"]):
         assert (a - b).abs().max() <= 1e-3 * b.abs().max()
+
+
+@pytest.mark.parametrize("act,norm,norms", [("relu", "InstanceNorm++", 25),
+                                            ("elu", "VarianceNorm", 1)])
+def test_variant_forward_on_the_card_matches_the_cpu(card, act, norm, norms):
+    """A config-chosen activation or norm: the convs (and the IN++ norms)
+    still launch the kernels, with ELU off where the activation is not
+    ELU; the forward matches the CPU's at the full-width bar."""
+    cfg = ModelConfig(nonlinearity=act, normalization=norm)
+    model = make_score_model(cfg, device=card,
+                             generator=torch.Generator().manual_seed(8))
+    cpu = make_score_model(cfg, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(4, 64, 16, 2, generator=g)
+    sig = torch.rand(4, generator=g) + 0.1
+    with torch.no_grad():
+        want = cpu(x, sig)
+        reset_counts()
+        got = model(x.to(card), sig.to(card)).cpu()
+    assert counts()["conv2d_taps"] == {"launches": 113, "plain": 0}
+    assert counts()["instance_norm_plus"] == {"launches": norms, "plain": 0}
+    assert (got - want).abs().max() <= 2e-4 * want.abs().max()
+
+
+def test_nccl_world_size_one_dsm_step_equals_no_group(card, tmp_path):
+    """parallel/mp_smoke's train steps, checkpoint round trip and sweep
+    chunk on NCCL at world size 1 (tcp://127.0.0.1) equal the same run with
+    no process group, to 1e-6 (tests/test_torch_train.py's bar). Both take
+    deterministic algorithms: by default two runs differ by themselves
+    (the resize's backward and cuDNN's weight gradient accumulate in no
+    fixed order)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from score_based_channels_torch.models.convert import tree_leaves
+    from score_based_channels_torch.parallel import multihost
+    from score_based_channels_torch.parallel.mp_smoke import run_smoke
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    kw = dict(device=card, ngf=8, num_classes=16, batch=8, steps=2)
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        assert multihost.initialize(f"127.0.0.1:{port}", 1, 0,
+                                    device=card) == "nccl"
+        try:
+            reset_counts()
+            dp = run_smoke(ckpt_path=str(tmp_path / "dp.npz"), **kw)
+            c = counts()
+        finally:
+            dist.destroy_process_group()
+        one = run_smoke(ckpt_path=str(tmp_path / "one.npz"), **kw)
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+    assert (dp["world"], one["world"]) == (1, 1)
+    assert c["conv2d_taps"]["launches"] > 0 and c["conv2d_taps"]["plain"] == 0
+    assert c["instance_norm_plus"]["plain"] == 0
+    np.testing.assert_allclose(dp["losses"], one["losses"], rtol=1e-6)
+    for name in ("params", "ema"):
+        for a, b in zip(tree_leaves(dp[name]), tree_leaves(one[name])):
+            assert np.linalg.norm(a - b) <= 1e-6 * np.linalg.norm(b)
+    assert np.isfinite(dp["trace"]).all()
+    assert np.abs(dp["trace"] - one["trace"]).max() <= \
+        1e-6 * np.abs(one["trace"]).max()
