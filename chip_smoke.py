@@ -10,7 +10,8 @@ Phases (any failure propagates and the exit code is non-zero):
   3. kernels: every conv and InstanceNorm++ variant of one full-width
      NCSNv2-Deepest forward (found by hooks on a census forward), at batch
      256 in float32 and bfloat16, held against its plain PyTorch version on
-     the card, and timed (CUDA events, median) beside its plain version,
+     the card (an f32 conv launched twice gives equal bits: no atomics),
+     and timed (CUDA events, median) beside its plain version,
      its bound and, for the conv, the one-call cuDNN yardstick F.conv2d
      (the norm also by its device time in a profiler window); the LDPC
      min-sum iteration against its plain version, bit for bit over 25
@@ -41,9 +42,10 @@ Phases (any failure propagates and the exit code is non-zero):
      full-width network in f32, 4 epochs of 6 steps at batch 32 with a
      validation every 10 steps; its launch counts (conv forward and dgrad,
      norm, 0 plain calls); the card's gradient against the plain CPU
-     gradient at batch 4 for every parameter; the dgrad launch against
-     F.conv2d's input gradient at every training conv shape, timed beside
-     its plain version and cuDNN's; the saved checkpoint read back and
+     gradient at batch 4 for every parameter; at every training conv
+     shape the forward and the dgrad launch (against F.conv2d's input
+     gradient), each launched twice for equal bits and timed beside its
+     plain version, cuDNN's and its bound; the saved checkpoint read back and
      run through `run_estimation`; ms per step (forward, backward,
      optimizer+EMA), steps/s and a profiler window;
   8. the comparison side: `run_ls_baseline`, `run_lasso_baseline` and
@@ -261,6 +263,9 @@ def check_convs(convs, g):
             assert err <= tol * ref, (
                 f"conv {(H, W, Cin, Cout, k, d, bias, elu)} {dt}: max err "
                 f"{err:.3e} > {tol} * {ref:.3e}")
+            if dt == torch.float32:  # no atomics: two launches, equal bits
+                assert torch.equal(got, conv.conv2d(x, w, b, d, elu)), (
+                    f"conv {(H, W, Cin, Cout, k, d)} f32: launches differ")
             pad = d * (k // 2)
             es = x.element_size()
             # x, the live taps' weights and the bias read once, out written
@@ -793,17 +798,31 @@ def train_conv_rows(convs, g):
             F.conv2d(xr, w, None, padding=pad, dilation=d), xr, gout)
         err = rel_check(got, want, TOL[("conv", dt)],
                         f"dgrad {(H, W, Cin, Cout, k, d)}")
+        fwd = conv.conv2d(x, w, b, d, elu)
+        fwd_err = rel_check(fwd, conv.conv2d_plain(x, w, b, d, elu),
+                            TOL[("conv", dt)],
+                            f"fwd {(H, W, Cin, Cout, k, d)}")
+        # no atomics: two launches of each, equal bits
+        assert torch.equal(got, conv.conv2d(gout, wt, None, d))
+        assert torch.equal(fwd, conv.conv2d(x, w, b, d, elu))
         lib = lambda: torch.ops.aten.convolution_backward(
             gout, x, w, None, [1, 1], [pad, pad], [d, d], False, [0, 0], 1,
             [True, False, False])
         dgrad_bytes = (gout.numel() + T * Cin * Cout + x.numel()) * 4
+        fwd_bytes = dgrad_bytes + (Cout if bias else 0) * 4
         flops = 2 * B * H * W * T * Cin * Cout
         rows.append(dict(
             shape=[H, W, Cin, Cout, k, d], bias=bias, elu=elu,
             per_step=per_fwd, dgrad_per_step=0 if Cin == 2 else per_fwd,
             taps=T, dgrad_max_abs_err=err,
             dgrad_rel_err=err / want.abs().max().item(),
+            fwd_max_abs_err=fwd_err,
             fwd_ms=cuda_ms(lambda: conv.conv2d(x, w, b, d, elu)),
+            fwd_plain_ms=cuda_ms(lambda: conv.conv2d_plain(x, w, b, d, elu)),
+            fwd_library_ms=cuda_ms(lambda: F.conv2d(x, w, b, padding=pad,
+                                                    dilation=d)),
+            fwd_bound_ms=max(fwd_bytes / PEAK_BYTES,
+                             flops / PEAK_OPS[dt]) * 1e3,
             dgrad_ms=cuda_ms(lambda: conv.conv2d(gout, wt, None, d)),
             dgrad_plain_ms=cuda_ms(lambda: conv.conv2d_plain(gout, wt, None,
                                                              d)),
@@ -814,7 +833,9 @@ def train_conv_rows(convs, g):
                                flops / PEAK_OPS[dt]) * 1e3))
         r = rows[-1]
         print(f"train conv {H}x{W} {Cin}->{Cout} k{k} d{d} x{per_fwd:<2d} "
-              f"fwd {r['fwd_ms']:.4f} ms  dgrad {r['dgrad_ms']:.4f} (rel_err "
+              f"fwd {r['fwd_ms']:.4f} ms (plain {r['fwd_plain_ms']:.4f}, "
+              f"cudnn {r['fwd_library_ms']:.4f}, bound "
+              f"{r['fwd_bound_ms']:.4f})  dgrad {r['dgrad_ms']:.4f} (rel_err "
               f"{r['dgrad_rel_err']:.2e}, plain {r['dgrad_plain_ms']:.4f}, "
               f"cudnn {r['dgrad_library_ms']:.4f}, bound "
               f"{r['dgrad_bound_ms']:.4f})  wgrad {r['wgrad_ms']:.4f}",
@@ -1149,6 +1170,9 @@ def train_phase(convs, norms, card, g, ck_path):
     per_step = lambda key: sum(r[key] * r["per_step"] for r in conv_rows)
     split = dict(
         conv_fwd_ms=per_step("fwd_ms"),
+        conv_fwd_plain_ms=per_step("fwd_plain_ms"),
+        conv_fwd_library_ms=per_step("fwd_library_ms"),
+        conv_fwd_bound_ms=per_step("fwd_bound_ms"),
         dgrad_ms=sum(r["dgrad_ms"] * r["dgrad_per_step"] for r in conv_rows),
         dgrad_plain_ms=sum(r["dgrad_plain_ms"] * r["dgrad_per_step"]
                            for r in conv_rows),

@@ -51,13 +51,43 @@
 //    pieces. The weight boxes are 64 channels wide because TMA moves a box
 //    row by row: N-major core matrices of 8 channels (16-byte rows) would
 //    stream the weights 16 bytes per request.
-//  - float32: the FP32 FMA units (the JAX package's f32 bar of 1e-5 of
-//    max|ref| rules out TF32), unchanged from the first port. One block per (group of SB samples, tile of
-//    TH output rows); per chunk of CK input channels the block stages the
-//    input rows with their halo (zero padded) and the chunk of the live
-//    taps' weights, as f32 (T, CK, cout_pad) with cout_pad = Cout rounded
-//    up to 4 and zero columns, in shared memory; each thread keeps a
-//    4-pixel x 4-channel f32 accumulator tile in registers.
+//  - float32: the FP32 FMA units, IEEE f32 products and sums (the JAX
+//    package's f32 bar of 1e-5 of max|ref| and the recipes' full-f32
+//    training rule out TF32). Operations bound it: >= 3.066 ms per forward
+//    at batch 256 and >= 0.382 ms of dgrad per training step at batch 32,
+//    at 67 TFLOP/s. It is an implicit GEMM: M = output pixels, N = output
+//    channels, K = live taps x input channels.
+//      - Register tile: a block owns BM pixels (SB samples x TH whole rows
+//        x W) x BN <= 32 channels; a thread owns 8 pixels x 4 channels, so
+//        per 4 input channels 12 16-byte shared loads (a pixel's 4
+//        channels, 8 times; 4 weights, 4 times) feed 128 FMAs. Lanes of a
+//        warp that share pixels read the same address (a broadcast); the
+//        pixels a warp reads at once are neighbours in the halo, whose
+//        pixel pitch BK + 4 floats (an odd number of 16-byte units) puts
+//        them in distinct banks; a weight row is read in one 128-byte run.
+//        An 8 x 8 tile (BN 64, 128) needed 205-211 registers, so one
+//        256-thread block an SM, and was measured no faster: the plan keeps
+//        BN <= 32, as many channel tiles as Cout needs.
+//      - Staging: a stage is one chunk of BK input channels: the halo tile
+//        ((SB, TH + 2py, W + 2px) pixels, zero outside the image: the
+//        conv's padding) and the chunk's rows of every live tap's weights
+//        (T, BK, BN). The stages cycle through a ring of 2-4 in dynamic
+//        shared memory (opted in up to 227 KB) filled by 16-byte cp.async
+//        (4-byte where Cin or Cout is not a multiple of 4, by plan), so
+//        chunk c + 1 lands while chunk c is multiplied, with one barrier a
+//        chunk; every tap reads the chunk's one halo tile at its shift.
+//        The source offsets of the halo's pixels are computed once a block
+//        (no division in the copy loop).
+//      - Split K: where the output tiles are too few to fill the card (the
+//        8x2 to 32x8 layers at batch 32, 8x2 at batch 256) a thread-block
+//        cluster of CL = 2, 4 or 8 blocks shares a tile, each block taking
+//        a contiguous range of the chunks. Every block leaves its partial
+//        tile in its shared memory, and each sums 1/CL of the tile over
+//        the cluster's blocks in rank order through distributed shared
+//        memory: no atomics, so two launches give equal bits. Then + bias,
+//        ELU (expm1f), one store.
+//      - The weight is read in place (kernel_layout); a block reads only
+//        its chunks of its BN channels, once.
 //
 // Both tile plans are computed by the Python wrapper (kernels/conv.py:
 // `plan` for float32, `wgmma_plan` for bf16), which the CPU tests reach.
@@ -73,142 +103,276 @@
 namespace {
 
 using conv_sm90::kMaxTaps;
-constexpr int RP = 4;        // output pixels per thread
-constexpr int RC = 4;        // output channels per thread
-constexpr int CK = 8;        // input channels per shared-memory stage
-constexpr int CKP = CK + 1;  // padded per-pixel stride: no bank conflicts
-
 using Taps = conv_sm90::TapTable;
 
-// four consecutive weights; p is aligned to four elements
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
+// ---------------------------------------------------------------------------
+// float32 route: implicit GEMM on the FP32 FMA units
+// ---------------------------------------------------------------------------
 
-__global__ void conv2d_taps_kernel(const float* __restrict__ x,
-                                   const float* __restrict__ w,
-                                   const float* __restrict__ bias,
-                                   float* __restrict__ out, int B, int H, int W,
-                                   int Cin, int Cout, int cout_pad, int SB,
-                                   int TH, int py, int px, Taps taps, int elu,
-                                   int wvec) {
+constexpr int kF32Threads = 256;  // most threads a block
+constexpr int TM = 8;             // output pixels a thread
+constexpr int TN = 4;             // output channels a thread
+
+// One launch of the f32 kernel, as kernels/conv.py::plan gives it.
+struct F32Plan {
+  int B, H, W, Cin, Cout;
+  int SB, TH, py, px;  // tile SB samples x TH rows x W; halo rows, columns
+  int BM, BN;          // block tile: BM pixels x BN (4..32) channels
+  int stages, CL;      // ring stages; blocks of a cluster (the K split)
+  int nchunks;         // chunks of BK input channels
+  int x16, w16, o16;   // 16-byte copies of x, of the weight; 16-byte stores
+  int elu;
+};
+
+// Shared memory of one block in floats (kernels/conv.py::f32_smem): the
+// ring of stages, each the halo tile [HP][BK + 4] and the chunk's weights
+// [T][BK][BN]; the epilogue's partial tile [BM][BN + 4] over the ring; then
+// the halo pixels' source offsets [HP] and two tap tables [kMaxTaps] (int).
+struct F32Layout {
+  int TR, TW, HP, AST, SS, tables, floats;
+  __host__ __device__ F32Layout(const F32Plan& p, int T, int BK) {
+    TR = p.TH + 2 * p.py;
+    TW = p.W + 2 * p.px;
+    HP = p.SB * TR * TW;
+    AST = BK + 4;
+    SS = HP * AST + T * BK * p.BN;
+    const int ring = p.stages * SS, part = p.BM * (p.BN + 4);
+    tables = ring > part ? ring : part;
+    floats = tables + HP + 2 * kMaxTaps;
+  }
+  __host__ __device__ int bytes() const { return (floats * 4 + 15) / 16 * 16; }
+};
+
+// Block blockIdx.x is rank blockIdx.x % CL of the cluster of output tile
+// blockIdx.x / CL (channel tile fastest). A warp holds 8 WM pixels x BN
+// channels: WN = BN / 4 lanes along the channels, WM = 32 / WN along the
+// pixels; lane l the pixels qb + WM m (m < 8), the channels nb .. nb + 3.
+template <int BK>
+__global__ void __launch_bounds__(kF32Threads)
+    conv2d_taps_f32_kernel(const float* __restrict__ x,
+                           const float* __restrict__ w,
+                           const float* __restrict__ bias,
+                           float* __restrict__ out, const F32Plan p,
+                           const Taps taps) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int TR = TH + 2 * py;  // staged rows per sample
-  const int TW = W + 2 * px;   // staged columns
-  const int in_size = SB * TR * TW * CKP;
-  float* in_s = smem;                            // [SB][TR][TW][CKP]
-  float* w_s = smem + ((in_size + 3) & ~3);      // [T][CK][cout_pad]
+  const int T = taps.n;
+  const F32Layout L(p, T, BK);
+  int* gofs = reinterpret_cast<int*>(smem + L.tables);  // x offset, or -1
+  int* toff = gofs + L.HP;      // a tap's shift in the halo, times AST
+  int* wrow = toff + kMaxTaps;  // a tap's first weight row
+  const int tid = threadIdx.x, NT = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
 
-  const int b0 = blockIdx.y * SB;
-  const int h0 = blockIdx.x * TH;
-  const int ncg = cout_pad / RC;
-  const int tile_px = TH * W;
-  const int npix = SB * tile_px;
-  const int tid = threadIdx.x;
-  const int cg = tid % ncg;
-  const int p_first = (tid / ncg) * RP;
-  const bool active = p_first < npix;
+  const int CL = p.CL, rank = blockIdx.x % CL, tile = blockIdx.x / CL;
+  const int ntn = (p.Cout + p.BN - 1) / p.BN;
+  const int n0 = (tile % ntn) * p.BN;
+  const conv_sm90::Tile tl(tile / ntn, p.H, p.TH, p.SB);
+  const int tile_px = p.TH * p.W, P = p.SB * tile_px;
 
-  int pix_off[RP];
-#pragma unroll
-  for (int j = 0; j < RP; ++j) {
-    int p = p_first + j;
-    if (p >= npix) p = 0;  // padding lane: reads a valid pixel, never stored
-    const int sb = p / tile_px;
-    const int rem = p % tile_px;
-    pix_off[j] = ((sb * TR + rem / W + py) * TW + rem % W + px) * CKP;
+  for (int hp = tid; hp < L.HP; hp += NT) {
+    const int sb = hp / (L.TR * L.TW), rem = hp - sb * L.TR * L.TW;
+    const int r = rem / L.TW;
+    const int b = tl.b0 + sb, h = tl.h0 - p.py + r;
+    const int wc = rem - r * L.TW - p.px;
+    gofs[hp] = b < p.B && h >= 0 && h < p.H && wc >= 0 && wc < p.W
+                   ? ((b * p.H + h) * p.W + wc) * p.Cin
+                   : -1;
   }
-
-  // offset of each live tap's (Cin, Cout) matrix in the weight
-  __shared__ size_t wbase_s[kMaxTaps];
-  if (tid < taps.n) wbase_s[tid] = (size_t)taps.wi[tid] * Cin * Cout;
-
-  float acc[RP][RC];
+  if (tid == 0) {
 #pragma unroll
-  for (int j = 0; j < RP; ++j)
-#pragma unroll
-    for (int k = 0; k < RC; ++k) acc[j][k] = 0.f;
-
-  for (int c0 = 0; c0 < Cin; c0 += CK) {
-    __syncthreads();  // the previous stage has been consumed
-    for (int i = tid; i < SB * TR * TW * CK; i += blockDim.x) {
-      const int ci = i % CK;
-      int rest = i / CK;
-      const int col = rest % TW;
-      rest /= TW;
-      const int row = rest % TR;
-      const int sb = rest / TR;
-      const int b = b0 + sb, h = h0 + row - py, wc = col - px, cc = c0 + ci;
-      float v = 0.f;
-      if (b < B && h >= 0 && h < H && wc >= 0 && wc < W && cc < Cin)
-        v = x[(((size_t)b * H + h) * W + wc) * Cin + cc];
-      in_s[((sb * TR + row) * TW + col) * CKP + ci] = v;
+    for (int t = 0; t < kMaxTaps; ++t) {
+      toff[t] = (taps.dy[t] * L.TW + taps.dx[t]) * L.AST;
+      wrow[t] = taps.wi[t] * p.Cin;
     }
-    // four output channels per item, one flat loop unrolled so that
-    // several loads are in flight; the tap's offset comes from shared
-    // memory, not from a divergent index into the kernel's parameters
-    const int cq = cout_pad / RC;
-#pragma unroll 4
-    for (int i = tid; i < taps.n * CK * cq; i += blockDim.x) {
-      const int co = (i % cq) * RC;
-      const int row = i / cq;  // t * CK + ci
-      const int cc = c0 + row % CK;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (cc < Cin) {
-        const float* src = w + wbase_s[row / CK] + (size_t)cc * Cout + co;
-        if (wvec) {
-          v = load4(src);
-        } else {
-          if (co < Cout) v.x = src[0];
-          if (co + 1 < Cout) v.y = src[1];
-          if (co + 2 < Cout) v.z = src[2];
-          if (co + 3 < Cout) v.w = src[3];
-        }
+  }
+  __syncthreads();
+
+  // this block's chunks of the K loop: a contiguous range, >= 1
+  const int cb = rank * p.nchunks / CL;
+  const int mine = (rank + 1) * p.nchunks / CL - cb;
+  const int lq = __ffs(p.BN) - 3;  // log2(BN / 4)
+
+  // chunk c into ring slot `slot`: the halo, zero outside the image and
+  // past Cin, and the chunk's rows of each live tap's weights, zero past
+  // Cin and Cout
+  auto load = [&](int slot, int c) {
+    float* hs = smem + slot * L.SS;
+    float* ws = hs + L.HP * L.AST;
+    const int c0 = c * BK;
+    if (p.x16) {
+      constexpr int QN = BK / 4;
+      for (int i = tid; i < L.HP * QN; i += NT) {
+        const int hp = i / QN, cc = c0 + 4 * (i % QN), g = gofs[hp];
+        const bool ok = g >= 0 && cc < p.Cin;
+        sm90::cp_async16(hs + hp * L.AST + cc - c0, ok ? x + g + cc : x,
+                         ok ? 16 : 0);
       }
-      *reinterpret_cast<float4*>(w_s + row * cout_pad + co) = v;
+    } else {
+      for (int i = tid; i < L.HP * BK; i += NT) {
+        const int hp = i / BK, cc = c0 + i % BK, g = gofs[hp];
+        const bool ok = g >= 0 && cc < p.Cin;
+        sm90::cp_async4(hs + hp * L.AST + cc - c0, ok ? x + g + cc : x,
+                        ok ? 4 : 0);
+      }
     }
-    __syncthreads();
-    if (active) {
-      for (int t = 0; t < taps.n; ++t) {
-        const int toff = (taps.dy[t] * TW + taps.dx[t]) * CKP;
-        const float* wt = w_s + t * CK * cout_pad + cg * RC;
+    const int ln = p.w16 ? lq : lq + 2;  // log2 of the pieces of a row
+    for (int i = tid; i < (T * BK) << ln; i += NT) {
+      const int row = i >> ln, k = c0 + row % BK;
+      const int col = p.w16 ? 4 * (i & ((1 << ln) - 1)) : i & (p.BN - 1);
+      const int n = n0 + col;
+      const bool ok = k < p.Cin && n < p.Cout;
+      const float* src = ok ? w + (wrow[row / BK] + k) * p.Cout + n : w;
+      if (p.w16)
+        sm90::cp_async16(ws + row * p.BN + col, src, ok ? 16 : 0);
+      else
+        sm90::cp_async4(ws + row * p.BN + col, src, ok ? 4 : 0);
+    }
+  };
+
+  const int WN = p.BN / TN, WM = 32 / WN;
+  const int nb = TN * (lane % WN);
+  const int qb = warp * TM * WM + lane / WN;
+  int hoff[TM];  // the thread's pixels in the halo tile, times AST
 #pragma unroll
-        for (int ci = 0; ci < CK; ++ci) {
-          const float4 wv = *reinterpret_cast<const float4*>(wt + ci * cout_pad);
+  for (int m = 0; m < TM; ++m) {
+    int q = qb + WM * m;
+    if (q >= P) q = P - 1;  // past the tile: reads a real pixel, not stored
+    const int sb = q / tile_px, rem = q - sb * tile_px, r = rem / p.W;
+    hoff[m] = ((sb * L.TR + r + p.py) * L.TW + rem - r * p.W + p.px) * L.AST;
+  }
+  float acc[TM][TN];
 #pragma unroll
-          for (int j = 0; j < RP; ++j) {
-            const float v = in_s[pix_off[j] + toff + ci];
-            acc[j][0] = fmaf(v, wv.x, acc[j][0]);
-            acc[j][1] = fmaf(v, wv.y, acc[j][1]);
-            acc[j][2] = fmaf(v, wv.z, acc[j][2]);
-            acc[j][3] = fmaf(v, wv.w, acc[j][3]);
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[m][j] = 0.f;
+
+  for (int s = 0; s < p.stages - 1; ++s) {
+    if (s < mine) load(s, cb + s);
+    sm90::cp_async_commit();
+  }
+  for (int i = 0; i < mine; ++i) {
+    sm90::cp_async_wait(p.stages - 2);
+    __syncthreads();  // chunk i has landed; chunk i - 1's slot is free
+    if (i + p.stages - 1 < mine)
+      load((i + p.stages - 1) % p.stages, cb + i + p.stages - 1);
+    sm90::cp_async_commit();
+    const float* hs = smem + (i % p.stages) * L.SS;
+    const float* ws = hs + L.HP * L.AST + nb;
+    for (int t = 0; t < T; ++t) {
+      const float* at = hs + toff[t];
+      const float* bt = ws + t * BK * p.BN;
+#pragma unroll
+      for (int k4 = 0; k4 < BK / 4; ++k4) {
+        float4 a[TM];
+#pragma unroll
+        for (int m = 0; m < TM; ++m)
+          a[m] = *reinterpret_cast<const float4*>(at + hoff[m] + 4 * k4);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 bv =
+              *reinterpret_cast<const float4*>(bt + (4 * k4 + kk) * p.BN);
+          const float b[TN] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int m = 0; m < TM; ++m) {
+            const float v = kk == 0   ? a[m].x
+                            : kk == 1 ? a[m].y
+                            : kk == 2 ? a[m].z
+                                      : a[m].w;
+#pragma unroll
+            for (int j = 0; j < TN; ++j) acc[m][j] = fmaf(v, b[j], acc[m][j]);
           }
         }
       }
     }
   }
 
-  if (!active) return;
+  // the partial tile, over the ring, then summed across the cluster
+  sm90::cp_async_wait(0);
+  __syncthreads();
+  const int PS = p.BN + 4;
+  float* part = smem;
 #pragma unroll
-  for (int j = 0; j < RP; ++j) {
-    const int p = p_first + j;
-    if (p >= npix) continue;
-    const int sb = p / tile_px;
-    const int rem = p % tile_px;
-    const int b = b0 + sb, h = h0 + rem / W, wc = rem % W;
-    if (b >= B || h >= H) continue;
-    float* o = out + (((size_t)b * H + h) * W + wc) * Cout;
+  for (int m = 0; m < TM; ++m) {
+    *reinterpret_cast<float4*>(part + (qb + WM * m) * PS + nb) =
+        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  }
+  if (CL > 1)
+    sm90::cluster_sync();
+  else
+    __syncthreads();
+  // this block's 1/CL of the tile's 4-channel pieces: the partials summed
+  // in rank order, + bias, ELU, one store
+  const int NQ = p.BN / 4, E = p.BM * NQ;
+  for (int e = rank * E / CL + tid; e < (rank + 1) * E / CL; e += NT) {
+    const int q = e >> lq, n = n0 + 4 * (e & (NQ - 1));
+    if (q >= P || n >= p.Cout) continue;
+    const int sb = q / tile_px, rem = q - sb * tile_px, r = rem / p.W;
+    const int b = tl.b0 + sb, h = tl.h0 + r;
+    if (b >= p.B || h >= p.H) continue;
+    const float* src = part + q * PS + n - n0;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int rr = 0; rr < CL; ++rr) {
+      const float4 v = CL == 1 ? *reinterpret_cast<const float4*>(src)
+                               : sm90::ld_peer4(src, rr);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    float v[4] = {s.x, s.y, s.z, s.w};
 #pragma unroll
-    for (int k = 0; k < RC; ++k) {
-      const int co = cg * RC + k;
-      if (co >= Cout) continue;
-      float v = acc[j][k];
-      if (bias != nullptr) v += bias[co];
-      if (elu) v = v > 0.f ? v : expm1f(v);
-      o[co] = v;
+    for (int j = 0; j < 4; ++j) {
+      if (bias != nullptr && n + j < p.Cout) v[j] += bias[n + j];
+      if (p.elu) v[j] = v[j] > 0.f ? v[j] : expm1f(v[j]);
+    }
+    float* o =
+        out + ((size_t)(b * p.H + h) * p.W + rem - r * p.W) * p.Cout + n;
+    if (p.o16) {
+      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (n + j < p.Cout) o[j] = v[j];
     }
   }
+  if (CL > 1) sm90::cluster_sync();  // the peers' reads of this tile are done
+}
+
+template <int BK>
+cudaError_t launch_f32(const F32Plan& p, const Taps& taps, const float* x,
+                       const float* w, const float* bias, float* out,
+                       int threads, int smem, cudaStream_t s) {
+  auto kernel = conv2d_taps_f32_kernel<BK>;
+  static int smem_set = 0;  // the opt-in limit set so far
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    smem_set = smem;
+  }
+  const int tiles = (p.H + p.TH - 1) / p.TH * ((p.B + p.SB - 1) / p.SB) *
+                    ((p.Cout + p.BN - 1) / p.BN);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * p.CL);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.CL > 1 ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, w, bias, out, p,
+                                           taps);
+  const cudaError_t last = cudaGetLastError();  // cleared either way
+  return e != cudaSuccess ? e : last;
 }
 
 // ---------------------------------------------------------------------------
@@ -460,27 +624,54 @@ cudaError_t launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap,
 
 }  // namespace
 
-// float32 route: the FMA kernel
+// float32 route, with the plan of kernels/conv.py::plan. A 16-byte copy the
+// plan asks for and a pointer cannot take is an error, as is a cluster the
+// card refuses; nothing falls back.
 extern "C" int sbc_conv2d_taps(const void* x, const void* w, const void* bias,
                                void* out, int B, int H, int W, int Cin,
                                int Cout, int ntaps, const int* dy,
                                const int* dx, const int* wi, int SB, int TH,
-                               int py, int px, int threads, int smem_bytes,
-                               int elu, void* stream) {
-  const int cout_pad = (Cout + RC - 1) / RC * RC;
+                               int py, int px, int BM, int BN, int BK,
+                               int stages, int CL, int x16, int w16,
+                               int threads, int smem_bytes, int elu,
+                               void* stream) {
   Taps taps;
   if (!conv_sm90::make_taps(&taps, ntaps, dy, dx, wi))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((H + TH - 1) / TH, (B + SB - 1) / SB);
-  // vector weight loads need whole, aligned groups of four channels
-  const int wvec = Cout % RC == 0 &&
-                   reinterpret_cast<size_t>(w) % (RC * sizeof(float)) == 0;
-  conv2d_taps_kernel<<<grid, threads, smem_bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out), B, H, W, Cin,
-      Cout, cout_pad, SB, TH, py, px, taps, elu, wvec);
-  return (int)cudaGetLastError();
+  for (int t = 0; t < ntaps; ++t)
+    if (dy[t] > py || -dy[t] > py || dx[t] > px || -dx[t] > px)
+      return (int)cudaErrorInvalidValue;  // a tap reaches past the halo
+  // BN in 4..32, a power of 2: a warp's WN = BN / 4 lanes span it; a warp
+  // takes TM * 32 / WN pixels of the BM
+  const bool bn = BN == 4 || BN == 8 || BN == 16 || BN == 32;
+  if (!bn || (BK != 4 && BK != 8 && BK != 16) ||
+      BM % (TM * 32 / (BN / TN)) != 0 || stages < 2 || stages > 4 ||
+      (CL != 1 && CL != 2 && CL != 4 && CL != 8) || SB < 1 || TH < 1 ||
+      SB * TH * W > BM || threads != BM * BN / TM / TN ||
+      threads > kF32Threads)
+    return (int)cudaErrorInvalidValue;
+  const int nchunks = (Cin + BK - 1) / BK;
+  if (nchunks < CL) return (int)cudaErrorInvalidValue;
+  const auto a16 = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  if ((x16 && (Cin % 4 != 0 || !a16(x))) ||
+      (w16 && (Cout % 4 != 0 || !a16(w))))
+    return (int)cudaErrorMisalignedAddress;
+  const F32Plan p = {B,  H,  W,      Cin, Cout, SB,  TH,
+                     py, px, BM,     BN,  stages, CL, nchunks,
+                     x16, w16, Cout % 4 == 0 && a16(out), elu};
+  const int need = F32Layout(p, ntaps, BK).bytes();
+  if (smem_bytes < need) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(bias);
+  float* of = static_cast<float*>(out);
+  const auto launch = BK == 4   ? launch_f32<4>
+                     : BK == 8 ? launch_f32<8>
+                               : launch_f32<16>;
+  return (int)launch(p, taps, xf, wf, bf, of, threads, smem_bytes, s);
 }
 
 // bf16 route: the wgmma kernel, with the plan of kernels/conv.py::wgmma_plan.

@@ -184,6 +184,20 @@ __device__ __forceinline__ float ld_peer(const float* p, int rank) {
                : "memory");
   return v;
 }
+// the four floats at the same shared-memory offset as p (16-byte aligned)
+// in block `rank` of the cluster
+__device__ __forceinline__ float4 ld_peer4(const float* p, int rank) {
+  uint32_t a;
+  float4 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
 
 // one arrival on the barrier at bar's offset in block `rank` of the cluster
 // (this block's own rank included), releasing at cluster scope this
@@ -236,6 +250,20 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
+}
+// closes this thread's group of cp.async copies issued since the last one
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// waits until at most n (0, 1 or 2; a larger n waits as 2) of this
+// thread's committed cp.async groups are still in flight
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if (n >= 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
   asm volatile(

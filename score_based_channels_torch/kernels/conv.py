@@ -13,8 +13,27 @@ NCSNv2-Deepest forward at batch 256 is ~203 GFLOP of convs, >= 0.21 ms on
 the bf16 tensor cores; its bf16 activations, read once and written once,
 take >= 0.35 ms at 3.35 TB/s, so in bf16 the bytes bound it. bf16 runs on
 the tensor cores (wgmma on a TMA-loaded halo tile, tile plan
-`wgmma_plan`); float32 on the FP32 FMA units (tile plan `plan`), where the
-operations take >= 3 ms (design notes in the source).
+`wgmma_plan`). float32 runs on the FP32 FMA units in IEEE f32 (no TF32:
+the recipes train in full f32), tile plan `plan`; there the operations
+bound it: >= 3.066 ms per forward at batch 256, >= 0.382 ms of dgrad per
+training step at batch 32, at 67 TFLOP/s. The f32 kernel is an implicit
+GEMM (pixels x output channels x live taps * input channels) built for
+what held the first port's kernel back:
+  - a thread keeps 8 pixels x 4 channels, so 12 16-byte shared loads
+    feed 128 FMAs, from layouts free of bank conflicts (an 8 x 8 tile took
+    205-211 registers and was no faster: blocks take at most 32 channels);
+  - chunks of BK input channels (the halo tile and every live tap's
+    weight rows) stream through a ring of 2-4 stages in dynamic shared
+    memory, opted in up to 227 KB, by 16-byte cp.async (4-byte where a
+    channel count is not a multiple of 4), so a chunk lands while the
+    one before it is multiplied; the halo's source offsets are computed
+    once a block;
+  - where the output tiles are too few to fill the card, a thread-block
+    cluster of CL = 2, 4 or 8 blocks splits the chunks and sums its
+    partial tiles in rank order through distributed shared memory (no
+    atomics: two launches give equal bits), so a batch-32 8x2 layer runs
+    on 256 blocks instead of 16;
+  - a block reads only its chunks of its channels' weights, once.
 
 The kernel reads the weight in place: an (O, I, k, k) tensor laid out in
 memory as (k, k, I, O), one (I, O) matrix per tap (`kernel_layout`), which
@@ -40,6 +59,7 @@ built and the dgrad convs.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -49,19 +69,27 @@ import torch.nn.functional as F
 COUNTS = {"launches": 0, "plain": 0}
 GRAD_COUNTS = {"functions": 0, "dgrad": 0}
 
-RP, RC, CK = 4, 4, 8       # must match csrc/conv2d_taps.cu
-MAX_THREADS = 256
-MAX_SMEM = 48 * 1024       # static limit, no opt-in attribute needed
 MAX_CHANNELS = 128
+MAX_SMEM_OPTIN = 232_448   # dynamic shared memory a block may opt in to
+SMS = 132
+
+# f32 route (FMA): must match csrc/conv2d_taps.cu
+F32_TM, F32_TN = 8, 4      # output pixels x channels a thread
+F32_BN = (4, 8, 16, 32)    # output channels a block
+F32_MAX_THREADS = 256
+F32_MAX_BM = 512           # output pixels a block
+F32_BK = (16, 8, 4)        # input channels a chunk, largest first
+F32_CLUSTERS = (1, 2, 4, 8)
+F32_MAX_TAPS = 9           # the tap tables' length (kMaxTaps)
+F32_WARPS = 1024           # the grid's warps the plan splits K to reach
+TWO_BLOCKS_SMEM = 113 * 1024  # two blocks an SM (228 KB, 1 KB each reserved)
 
 # bf16 route (wgmma): must match csrc/conv2d_taps.cu, csrc/conv_sm90.cuh
 WG_ROWS = 64               # output pixels of one consumer warpgroup
 MAX_WG = 2
 WGMMA_N = (8, 16, 32, 64, 128)  # the N of the kernels' wgmma instances
-MAX_SMEM_OPTIN = 232_448   # dynamic shared memory a block may opt in to
 MIN_BLOCKS = 128           # output channels are split down to 32 until
                            # there are this many (tile, channel tile) jobs
-SMS = 132
 
 def live_taps(k: int, dilation: int, H: int, W: int) -> List[Tuple[int, int, int, int]]:
     """(iy, ix, dy, dx) of the taps that can touch real data, row-major.
@@ -85,51 +113,166 @@ def has_kernel_layout(weight: torch.Tensor) -> bool:
     return weight.stride() == (1, O, k * I * O, I * O)
 
 
-class Plan(NamedTuple):
-    SB: int        # samples per block
-    TH: int        # output rows per block
-    py: int        # staged halo rows
-    px: int        # staged halo columns
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One f32 launch: output tiles of SB samples x TH whole rows x W
+    columns (at most BM pixels) by BN channels, a thread 8 pixels x 4
+    channels, chunks of BK input channels through a ring of `stages`, each
+    tile's chunks split over a cluster of CL blocks. x16 / w16: 16-byte
+    copies of x / the weight (else 4-byte). The grid is tiles[0] * tiles[1]
+    * tiles[2] * CL blocks; `why` says why it falls short of the card's
+    SMS, or is empty."""
+
+    SB: int
+    TH: int
+    py: int        # halo rows
+    px: int        # halo columns
+    BM: int
+    BN: int
+    BK: int
+    stages: int
+    CL: int
+    x16: bool
+    w16: bool
     threads: int
-    smem: int      # dynamic shared bytes; grid (ceil(H/TH), ceil(B/SB))
+    smem: int      # dynamic shared bytes
+    nchunks: int   # chunks of BK input channels
+    tiles: Tuple[int, int, int]  # (row tiles, sample groups, channel tiles)
+    why: str = ""
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles[0] * self.tiles[1] * self.tiles[2] * self.CL
+
+
+def _pow2_at_least(v: int) -> int:
+    p = 1
+    while p < v:
+        p *= 2
+    return p
+
+
+def f32_warp_pixels(BN: int) -> int:
+    """Pixels of one warp: BN / 4 lanes along the channels, the other
+    32 / (BN / 4) along the pixels, 8 pixels each."""
+    return F32_TM * 32 // (BN // F32_TN)
+
+
+def f32_smem(SB: int, TR: int, TW: int, T: int, BM: int, BN: int, BK: int,
+             stages: int) -> int:
+    """Dynamic shared bytes of the f32 kernel (csrc F32Layout): the ring of
+    stages (halo [HP][BK + 4], weights [T][BK][BN]) or the partial tile
+    [BM][BN + 4], whichever is larger, then HP + 2 * 9 ints of tables."""
+    hp = SB * TR * TW
+    ring = stages * (hp * (BK + 4) + T * BK * BN)
+    floats = max(ring, BM * (BN + 4)) + hp + 2 * F32_MAX_TAPS
+    return -(-floats * 4 // 16) * 16
+
+
+def tile_rows(B: int, H: int, W: int, BM: int) -> Tuple[int, int]:
+    """(SB, TH) of an output tile of at most BM pixels (both routes): SB
+    whole images of H x W while one fits, else TH whole rows of one
+    sample."""
+    if H * W <= BM:
+        return min(B, BM // (H * W)), H
+    return 1, BM // W
+
+
+def f32_config(B: int, H: int, W: int, Cin: int, Cout: int, dy, dx,
+               BN: int, BM: int, BK: int, CL: int = 1,
+               stages: Optional[int] = None) -> Optional[Plan]:
+    """The f32 launch with these choices, or None where the kernel cannot
+    take them: BN in F32_BN, BM a multiple of a warp's pixels holding a
+    row, at most 256 threads, CL <= the chunks. Without `stages`: three
+    where they fit the budget, else two; the budget is two blocks an SM
+    where a ring of two stages allows it, else one."""
+    if BN not in F32_BN or BK not in F32_BK or CL not in F32_CLUSTERS:
+        return None
+    threads = BM * BN // (F32_TM * F32_TN)
+    if (BM % f32_warp_pixels(BN) or BM < W or BM > F32_MAX_BM
+            or threads > F32_MAX_THREADS or -(-Cin // BK) < CL):
+        return None
+    T = len(dy)
+    py, px = max(abs(v) for v in dy), max(abs(v) for v in dx)
+    SB, TH = tile_rows(B, H, W, BM)
+    smem = lambda s: f32_smem(SB, TH + 2 * py, W + 2 * px, T, BM, BN, BK, s)
+    if stages is None:
+        budget = (TWO_BLOCKS_SMEM if smem(2) <= TWO_BLOCKS_SMEM
+                  else MAX_SMEM_OPTIN)
+        stages = 3 if smem(3) <= budget else 2
+    if smem(stages) > MAX_SMEM_OPTIN:
+        return None
+    return Plan(SB, TH, py, px, BM, BN, BK, stages, CL, Cin % 4 == 0,
+                Cout % 4 == 0, threads, smem(stages), -(-Cin // BK),
+                (-(-H // TH), -(-B // SB), -(-Cout // BN)))
 
 
 def plan(B: int, H: int, W: int, Cin: int, Cout: int, dy, dx) -> Plan:
-    """Tile plan of one launch; raises on a shape the kernel does not take."""
+    """Tile plan of one f32 launch; raises on a shape the kernel does not
+    take. BN is the power of 2 that holds Cout, at most 32; BK the largest
+    chunk (16 at most) whose ring of two stages leaves room for two blocks
+    an SM, else the largest that fits. The block starts at 256 threads
+    (at most 512 pixels, no more than the batch holds). Then, while the
+    grid has fewer than F32_WARPS warps, each tile's chunks are split over
+    a cluster twice as large (BK halved down to 8 where the chunks run
+    out); and while it has fewer blocks than the card has SMs, the block's
+    pixels are halved, else its chunks split further. These rules come
+    from timing every configuration at every f32 shape of the score model
+    at batch 256 and 32 (`kernels.conv_f32_bench --sweep`)."""
     if not (1 <= Cin <= MAX_CHANNELS and 1 <= Cout <= MAX_CHANNELS):
         raise ValueError(f"conv2d_taps takes 1..{MAX_CHANNELS} channels, got "
                          f"Cin={Cin} Cout={Cout}")
-    if not 1 <= len(dy) <= 9:
+    if not 1 <= len(dy) <= F32_MAX_TAPS:
         raise ValueError(f"conv2d_taps takes 1..9 live taps, got {len(dy)}")
-    ncg = -(-Cout // RC)
-    py, px = max(abs(v) for v in dy), max(abs(v) for v in dx)
+    if B * H * W * max(Cin, Cout) >= 2 ** 31:
+        raise ValueError("conv2d_taps: the f32 route's 32-bit offsets cannot "
+                         "address this tensor")
+    bk_top = max(F32_BK[-1], min(F32_BK[0], _pow2_at_least(Cin)))
 
-    def items(sb, th):
-        return ncg * -(-(sb * th * W) // RP)
+    def first(BM, CL, bk, least=F32_BK[-1]):
+        """The plan with the largest BK in [least, bk] that leaves room for
+        two blocks an SM, else that fits; or None."""
+        fits = [p for BK in F32_BK if least <= BK <= bk
+                for p in [f32_config(B, H, W, Cin, Cout, dy, dx, BN, BM, BK,
+                                     CL)] if p is not None]
+        two = [p for p in fits if p.smem <= TWO_BLOCKS_SMEM]
+        return (two or fits or [None])[0]
 
-    def smem(sb, th):
-        staged = sb * (th + 2 * py) * (W + 2 * px) * (CK + 1)
-        return 4 * (-(-staged // 4) * 4 + len(dy) * CK * ncg * RC)
+    def split(p):
+        if 2 * p.CL > F32_CLUSTERS[-1]:
+            return None
+        return first(p.BM, 2 * p.CL, p.BK, min(8, bk_top))
 
-    if items(1, H) <= MAX_THREADS:
-        TH = H
-        SB = 1
-        while (SB < B and items(SB + 1, H) <= MAX_THREADS
-               and smem(SB + 1, H) <= MAX_SMEM):
-            SB += 1
-    else:
-        SB, TH = 1, 0
-        while TH < H and items(1, TH + 1) <= MAX_THREADS:
-            TH += 1
-        if TH == 0:
-            raise ValueError(f"conv2d_taps: image width {W} too wide for "
-                             f"Cout={Cout}")
-    while smem(SB, TH) > MAX_SMEM and TH > 1:
-        TH = -(-TH // 2)
-    if smem(SB, TH) > MAX_SMEM:
+    def halve(p):
+        if p.BM // 2 < max(W, f32_warp_pixels(BN)):
+            return None
+        return first(p.BM // 2, p.CL, p.BK)
+
+    BN = min(max(_pow2_at_least(Cout), F32_BN[0]), F32_BN[-1])
+    BM = min(F32_MAX_THREADS * F32_TM * F32_TN // BN, F32_MAX_BM)
+    while BM > f32_warp_pixels(BN) and BM // 2 >= max(W, B * H * W):
+        BM //= 2
+    if W > BM:
+        raise ValueError(f"conv2d_taps: image width {W} is wider than a "
+                         f"{BM}-pixel tile")
+    p = first(BM, 1, bk_top)
+    if p is None:
         raise ValueError("conv2d_taps: tile does not fit in shared memory")
-    threads = -(-items(SB, TH) // 32) * 32
-    return Plan(SB, TH, py, px, threads, smem(SB, TH))
+    while p.blocks * p.threads // 32 < F32_WARPS:
+        q = split(p)
+        if q is None:
+            break
+        p = q
+    while p.blocks < SMS:
+        q = halve(p) or split(p)
+        if q is None:
+            return dataclasses.replace(p, why=(
+                f"{p.blocks} blocks: {B * H * W} pixels in tiles of "
+                f"{p.SB * p.TH * W}, {Cout} channels in tiles of {p.BN}, "
+                f"{p.nchunks} chunks of {p.BK} input channels split "
+                f"{p.CL} ways"))
+        p = q
+    return p
 
 
 class WgmmaPlan(NamedTuple):
@@ -156,9 +299,7 @@ def tile_geometry(B: int, H: int, W: int) -> Tuple[int, int, int]:
     BM = (MAX_WG * WG_ROWS
           if B * H * W >= MAX_WG * WG_ROWS * 2 * SMS or W > WG_ROWS
           else WG_ROWS)
-    if H * W <= BM:
-        return BM, min(B, BM // (H * W)), H
-    return BM, 1, BM // W
+    return (BM, *tile_rows(B, H, W, BM))
 
 
 def k_steps(Cin: int) -> int:
@@ -375,13 +516,17 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
 
 
 def _launch(x: torch.Tensor, weight: torch.Tensor,
-            bias: Optional[torch.Tensor], dilation: int,
-            elu: bool) -> torch.Tensor:
-    """The kernel on checked card tensors."""
+            bias: Optional[torch.Tensor], dilation: int, elu: bool,
+            p=None) -> torch.Tensor:
+    """The kernel on checked card tensors, launched as `p` says (by default
+    the shape's plan; the card tests pass others, made with
+    dataclasses.replace)."""
     B, Cin, H, W = x.shape
     Cout, k = weight.shape[0], weight.shape[-1]
     bf16 = x.dtype == torch.bfloat16
-    p, T, dy, dx, wi = _launch_args(B, H, W, Cin, Cout, k, dilation, bf16)
+    planned, T, dy, dx, wi = _launch_args(B, H, W, Cin, Cout, k, dilation,
+                                          bf16)
+    p = planned if p is None else p
     out = torch.empty((B, Cout, H, W), dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last)
     from . import _build
@@ -399,8 +544,9 @@ def _launch(x: torch.Tensor, weight: torch.Tensor,
     else:
         rc = lib.sbc_conv2d_taps(
             x.data_ptr(), weight.data_ptr(), b_ptr, out.data_ptr(), B, H, W,
-            Cin, Cout, T, dy, dx, wi, p.SB, p.TH, p.py, p.px, p.threads,
-            p.smem, int(elu), stream)
+            Cin, Cout, T, dy, dx, wi, p.SB, p.TH, p.py, p.px, p.BM, p.BN,
+            p.BK, p.stages, p.CL, int(p.x16), int(p.w16), p.threads, p.smem,
+            int(elu), stream)
     _build.check("conv2d_taps", rc)
     COUNTS["launches"] += 1
     return out

@@ -82,10 +82,12 @@ def conv_oracle(x_sbc: torch.Tensor, w: torch.Tensor,
     return y.permute(1, 2, 0, 3).reshape(S, B, -1)
 
 
-def device_ms(fn, device: torch.device, reps: int, warmup: int = 2) -> float:
+def device_ms(fn, device: torch.device, reps: int, warmup: int = 2,
+              spin: int = SPIN_CYCLES) -> float:
     """Median time of fn() in ms: on the card, CUDA events around each call
-    while a spin kernel holds the device, so the calls run back to back and
-    the events time the device; on the CPU, the host's clock."""
+    while a spin kernel of `spin` cycles holds the device (long enough for
+    the host to queue every call), so the calls run back to back and the
+    events time the device; on the CPU, the host's clock."""
     for _ in range(warmup):
         fn()
     if device.type != "cuda":
@@ -96,7 +98,7 @@ def device_ms(fn, device: torch.device, reps: int, warmup: int = 2) -> float:
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
     torch.cuda.synchronize()
-    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda._sleep(spin)
     events = []
     for _ in range(reps):
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))

@@ -71,6 +71,103 @@ def test_conv_kernel_matches_plain(card, H, W, Cin, Cout, k, d, bias, elu, B,
     assert err <= tol
 
 
+# -- the f32 route's plans --------------------------------------------------
+
+
+def _f32_forced(B, H, W, Cin, Cout, k, d, forced):
+    """The shape's f32 plan with `forced` fields replaced (BM through
+    conv.f32_config, which derives the threads and the tile) and the
+    derived chunk count, tiles and shared bytes made to match."""
+    taps = conv.live_taps(k, d, H, W)
+    dy, dx = [t[2] for t in taps], [t[3] for t in taps]
+    p = conv.plan(B, H, W, Cin, Cout, dy, dx)
+    if "BM" in forced:
+        p = conv.f32_config(B, H, W, Cin, Cout, dy, dx, p.BN, forced["BM"],
+                            p.BK)
+    p = dataclasses.replace(p, **{k: v for k, v in forced.items()
+                                  if k != "BM"})
+    return dataclasses.replace(
+        p, nchunks=-(-Cin // p.BK),
+        tiles=(-(-H // p.TH), -(-B // p.SB), -(-Cout // p.BN)),
+        smem=conv.f32_smem(p.SB, p.TH + 2 * p.py, W + 2 * p.px, len(taps),
+                           p.BM, p.BN, p.BK, p.stages))
+
+
+def _f32_case(card, B, H, W, Cin, Cout, k, bias, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, Cin, H, W, generator=g).to(card).contiguous(
+        memory_format=torch.channels_last)
+    w = conv.kernel_layout((torch.randn(Cout, Cin, k, k, generator=g)
+                            / (k * k * Cin) ** 0.5).to(card))
+    b = torch.randn(Cout, generator=g).to(card) if bias else None
+    return x, w, b
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout,k,d,bias,elu,forced", [
+    # each cluster size at the training batch's 8x2 c128 layer
+    (32, 8, 2, 128, 128, 3, 1, True, True, dict(CL=1)),
+    (32, 8, 2, 128, 128, 3, 1, True, False, dict(CL=2)),
+    (32, 8, 2, 128, 128, 3, 1, False, True, dict(CL=4)),
+    (32, 8, 2, 128, 128, 3, 1, True, False, dict(CL=8)),
+    (256, 8, 2, 128, 128, 3, 4, True, False, dict(CL=2)),
+    (32, 64, 16, 32, 2, 3, 1, True, False, dict(CL=2)),  # end conv, BN 4
+    # 4-byte copies: Cin 2 (the begin conv), even and odd counts
+    (5, 64, 16, 2, 32, 3, 1, True, True, dict(stages=2)),
+    (5, 64, 16, 2, 32, 3, 1, True, True, dict(BM=64, stages=4)),
+    (3, 16, 4, 3, 5, 3, 1, True, True, dict(stages=4)),
+    (4, 8, 2, 6, 12, 3, 1, False, True, {}),
+    (3, 12, 5, 24, 40, 3, 1, True, True, dict(CL=2)),  # a partial tile
+    # ragged last tiles: rows, a sample group, a tile larger than its pixels
+    (5, 16, 4, 16, 32, 3, 1, True, False, dict(BM=32, TH=6)),
+    (5, 8, 2, 16, 32, 3, 2, True, True, dict(BM=64, SB=3)),
+    (2, 8, 2, 16, 8, 3, 1, False, False, dict(BM=128)),
+    # every chunk size, and a ring of four
+    (32, 32, 8, 16, 16, 3, 1, True, False, dict(BK=4, CL=4)),
+    (32, 16, 4, 64, 64, 1, 1, True, False, dict(BK=16, CL=4, stages=4)),
+])
+def test_f32_conv_takes_every_forced_plan(card, B, H, W, Cin, Cout, k, d, bias,
+                                          elu, forced):
+    """f32 plans the main path does not take, through _launch with a
+    replaced plan, within 1e-5 of max|plain|."""
+    p = _f32_forced(B, H, W, Cin, Cout, k, d, forced)
+    x, w, b = _f32_case(card, B, H, W, Cin, Cout, k, bias)
+    got = conv._launch(x, w, b, d, elu, p)
+    want = conv.conv2d_plain(x, w, b, d, elu)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max() / want.abs().max()
+    assert err <= 1e-5, (float(err), p)
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout,k,d,forced", [
+    (32, 8, 2, 128, 128, 3, 1, {}), (32, 8, 2, 128, 128, 3, 1, dict(CL=2)),
+    (256, 8, 2, 64, 64, 3, 2, dict(CL=4)), (32, 64, 16, 32, 32, 3, 1, {}),
+    (256, 64, 16, 32, 64, 3, 1, dict(CL=1))])
+def test_f32_conv_launches_give_equal_bits(card, B, H, W, Cin, Cout, k, d,
+                                           forced):
+    """No atomics: two launches of a plan, split over a cluster or not,
+    give the same bits (the distributed phase compares runs bit for bit)."""
+    x, w, b = _f32_case(card, B, H, W, Cin, Cout, k, True, seed=4)
+    p = _f32_forced(B, H, W, Cin, Cout, k, d, forced)
+    first = conv._launch(x, w, b, d, True, p)
+    assert torch.equal(first, conv._launch(x, w, b, d, True, p))
+
+
+def test_f32_conv_refuses_a_plan_it_cannot_take(card):
+    """A cluster size, a chunk split or a 16-byte copy that the kernel or
+    the pointers cannot take raises; nothing falls back."""
+    x, w, b = _f32_case(card, 32, 8, 2, 128, 128, 3, True)
+    p = conv._launch_args(32, 8, 2, 128, 128, 3, 1)[0]
+    for bad in (dict(CL=16), dict(CL=3), dict(threads=p.threads + 32),
+                dict(smem=p.smem - 16)):
+        with pytest.raises(RuntimeError, match="conv2d_taps"):
+            conv._launch(x, w, b, 1, False, dataclasses.replace(p, **bad))
+    xs = torch.randn(32 * 8 * 2 * 128 + 1, device=card)[1:].view(
+        32, 8, 2, 128).permute(0, 3, 1, 2)  # 4-byte aligned, not 16
+    assert xs.is_contiguous(memory_format=torch.channels_last)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        conv._launch(xs, w, b, 1, False, p)
+
+
 NORM_SHAPES = [(64, 16, 32), (32, 8, 64), (16, 4, 64), (8, 2, 64),
                (8, 2, 128)]  # the five of one NCSNv2-Deepest forward
 

@@ -8,6 +8,8 @@ The CUDA kernels themselves are held against these plain versions on the
 card by chip_smoke.py.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -184,6 +186,8 @@ def test_launch_args_are_made_once_per_shape(H, W, k, d, wi):
         assert list(dy) == [t[2] for t in taps]
         assert list(dx) == [t[3] for t in taps]
         assert p == plan(256, H, W, 64, 64, list(dy), list(dx))
+        if not bf16:  # 32 tiles of 8x2 at batch 256: split over clusters
+            assert p.CL > 1 or (H, W) != (8, 2)
 
 
 # the 19 conv shapes of one NCSNv2-Deepest forward (H, W, Cin, Cout, k, d)
@@ -202,14 +206,20 @@ MAIN_PATH_CONVS = [
 def test_conv_plan_fits_the_card(H, W, Cin, Cout, k, d, B):
     taps = conv.live_taps(k, d, H, W)
     dy, dx = [t[2] for t in taps], [t[3] for t in taps]
-    # float32: the FMA kernel's plan
+    # float32: the implicit-GEMM kernel's plan
     p = conv.plan(B, H, W, Cin, Cout, dy, dx)
-    assert p.threads % 32 == 0 and 32 <= p.threads <= conv.MAX_THREADS
-    assert p.smem <= conv.MAX_SMEM
-    assert 1 <= p.TH <= H and 1 <= p.SB <= B
+    assert p.BN in conv.F32_BN and p.BN >= min(Cout, 32)
+    assert p.BM % conv.f32_warp_pixels(p.BN) == 0
+    assert p.threads == p.BM * p.BN // 32
+    assert p.threads % 32 == 0 and 32 <= p.threads <= conv.F32_MAX_THREADS
+    assert p.smem <= conv.MAX_SMEM_OPTIN and p.smem == conv.f32_smem(
+        p.SB, p.TH + 2 * p.py, W + 2 * p.px, len(taps), p.BM, p.BN, p.BK,
+        p.stages)
+    assert 1 <= p.TH <= H and 1 <= p.SB <= B and p.SB * p.TH * W <= p.BM
     assert p.SB == 1 or p.TH == H
-    ncg = -(-Cout // conv.RC)
-    assert ncg * -(-(p.SB * p.TH * W) // conv.RP) <= p.threads
+    assert p.CL in conv.F32_CLUSTERS and p.CL <= p.nchunks
+    assert 2 <= p.stages <= 3 and p.BK in conv.F32_BK
+    assert p.blocks >= conv.SMS or p.why
     # bf16: conv2d_taps's wgmma plan
     q = conv.wgmma_plan(B, H, W, Cin, Cout, dy, dx)
     assert q.smem <= 232_448 and q.smem == conv.wgmma_smem(
@@ -244,6 +254,191 @@ def test_wgmma_plans_take_every_channel_count(Cin, Cout):
         assert r.BN in conv.WGMMA_N and r.route == conv_im2col.WGMMA
     with pytest.raises(ValueError, match="channels"):
         conv.wgmma_plan(4, 8, 2, 129, 8, [0], [0])
+
+
+# the conv shapes of NCSNv2Deeper and NCSNv2 that NCSNv2-Deepest lacks, and
+# of one LDAMP denoiser (tests/test_torch_cuda.py OTHER_ARCH_CONVS,
+# UNET_CONVS), as (H, W, Cin, Cout, k, d)
+OTHER_ARCH_CONVS = [
+    (16, 4, 64, 64, 3, 2), (16, 4, 64, 128, 3, 2), (16, 4, 128, 64, 3, 1),
+    (16, 4, 128, 128, 3, 1), (16, 4, 128, 128, 3, 2), (16, 4, 128, 128, 3, 4),
+    (32, 8, 64, 64, 3, 2), (32, 8, 64, 64, 3, 4)]
+UNET_CONVS = [
+    (64, 16, 2, 16, 3, 1), (64, 16, 16, 16, 3, 1), (32, 8, 16, 32, 3, 1),
+    (32, 8, 32, 32, 3, 1), (16, 4, 32, 64, 3, 1), (16, 4, 64, 64, 3, 1),
+    (8, 2, 64, 128, 3, 1), (8, 2, 128, 128, 3, 1), (16, 4, 128, 64, 3, 1),
+    (32, 8, 64, 32, 3, 1), (64, 16, 32, 16, 3, 1), (64, 16, 16, 2, 1, 1)]
+
+
+def _f32_plan(B, H, W, Cin, Cout, k, d):
+    taps = conv.live_taps(k, d, H, W)
+    return conv.plan(B, H, W, Cin, Cout, [t[2] for t in taps],
+                     [t[3] for t in taps]), taps
+
+
+def _f32_block(p, H, B, Cout, blk):
+    """(rank, b0, h0, n0) of block blk, as csrc conv2d_taps_f32_kernel
+    numbers them: rank blk % CL of tile blk // CL, the channel tile
+    fastest, then the row tile, then the sample group."""
+    tile, ntn, nrt = blk // p.CL, -(-Cout // p.BN), -(-H // p.TH)
+    mt = tile // ntn
+    return blk % p.CL, (mt // nrt) * p.SB, (mt % nrt) * p.TH, \
+        (tile % ntn) * p.BN
+
+
+def _f32_chunks(p, rank):
+    """The chunks of the K loop that block `rank` of a cluster takes."""
+    return range(rank * p.nchunks // p.CL, (rank + 1) * p.nchunks // p.CL)
+
+
+def _f32_threads(p):
+    """[(pixels, channels)] of each thread of a block: the csrc kernel's
+    lane layout (WN = BN / 4 lanes along the channels, 4 each; the other
+    32 / WN along the pixels, 8 each, 32 / WN apart)."""
+    WN = p.BN // 4
+    WM = 32 // WN
+    out = []
+    for tid in range(p.threads):
+        warp, lane = divmod(tid, 32)
+        nb, qb = 4 * (lane % WN), warp * 8 * WM + lane // WN
+        out.append(([qb + WM * m for m in range(8)],
+                    [nb + j for j in range(4)]))
+    return out
+
+
+@pytest.mark.parametrize("B", [1, 3, 32, 256, 384])
+@pytest.mark.parametrize("H,W,Cin,Cout,k,d", MAIN_PATH_CONVS
+                         + OTHER_ARCH_CONVS + UNET_CONVS)
+def test_f32_plan_covers_every_output_and_chunk_once(H, W, Cin, Cout, k, d,
+                                                     B):
+    """Every f32 launch of the score models and LDAMP's U-Net: the block
+    fits the card, its grid is whole clusters, its tiles cover every
+    (pixel, output channel) once, its threads every entry of a tile once,
+    the ranks of a cluster every (tap, chunk) once; at the training batch
+    the grid fills the card's SMs, or the plan says why it cannot."""
+    p, taps = _f32_plan(B, H, W, Cin, Cout, k, d)
+    assert p.smem <= conv.MAX_SMEM_OPTIN == 232_448
+    assert p.threads <= conv.F32_MAX_THREADS and p.threads % 32 == 0
+    assert p.BM <= conv.F32_MAX_BM and p.SB * p.TH * W <= p.BM
+    assert p.blocks % p.CL == 0 and p.CL in conv.F32_CLUSTERS
+    cover = np.zeros((B, H, Cout), np.int32)  # each pixel of a row alike
+    for blk in range(0, p.blocks, p.CL):
+        _, b0, h0, n0 = _f32_block(p, H, B, Cout, blk)
+        cover[b0:b0 + p.SB, h0:h0 + p.TH, n0:n0 + p.BN] += 1
+    assert (cover == 1).all()
+    entries = np.zeros((p.BM, p.BN), np.int32)
+    for pixels, channels in _f32_threads(p):
+        entries[np.ix_(pixels, channels)] += 1
+    assert (entries == 1).all()
+    work = sorted((t, c) for r in range(p.CL) for c in _f32_chunks(p, r)
+                  for t in range(len(taps)))
+    assert work == [(t, c) for t in range(len(taps))
+                    for c in range(p.nchunks)]
+    assert all(len(_f32_chunks(p, r)) >= 1 for r in range(p.CL))
+    assert p.BK * p.nchunks >= Cin > p.BK * (p.nchunks - 1)
+    if B == 32:
+        assert p.blocks >= conv.SMS or p.why, p
+
+
+def _f32_kernel_in_numpy(x, weight, bias, d, elu, p):
+    """csrc conv2d_taps_f32_kernel's arithmetic in float64, block by block
+    as plan `p` launches it: the halo tile staged from the channels-last
+    memory through the block's source-offset table (zero outside the
+    image and past Cin), every live tap's weight rows read in place from
+    the kernel_layout memory (zero past Cin and Cout), each thread's 8 x TN
+    entries of the partial tile, the cluster's partial tiles summed in rank
+    order, + bias, ELU, stored to the pixels that lie in the tensor."""
+    B, Cin, H, W = x.shape
+    Cout, k = weight.shape[0], weight.shape[-1]
+    taps = conv.live_taps(k, d, H, W)
+    T = len(taps)
+    xm = x.permute(0, 2, 3, 1).reshape(-1).numpy()
+    wm = weight.permute(2, 3, 1, 0).reshape(-1).numpy()
+    TR, TW = p.TH + 2 * p.py, W + 2 * p.px
+    HP, P = p.SB * TR * TW, p.SB * p.TH * W
+    threads = _f32_threads(p)
+    out = np.full(B * H * W * Cout, np.nan)
+    for blk0 in range(0, p.blocks, p.CL):
+        parts = []
+        for blk in range(blk0, blk0 + p.CL):
+            rank, b0, h0, n0 = _f32_block(p, H, B, Cout, blk)
+            hp = np.arange(HP)
+            sb, r, c = hp // (TR * TW), hp % (TR * TW) // TW, hp % TW
+            b, h, wc = b0 + sb, h0 - p.py + r, c - p.px
+            ok = (b < B) & (h >= 0) & (h < H) & (wc >= 0) & (wc < W)
+            gofs = np.where(ok, ((b * H + h) * W + wc) * Cin, -1)
+            q = np.minimum(np.arange(p.BM), P - 1)
+            sq, rq = q // (p.TH * W), q % (p.TH * W)
+            hoff = (sq * TR + rq // W + p.py) * TW + rq % W + p.px
+            acc = np.zeros((p.BM, p.BN))
+            for ch in _f32_chunks(p, rank):
+                c0 = ch * p.BK
+                cc = c0 + np.arange(p.BK)
+                halo = np.zeros((HP, p.BK))
+                src = gofs[:, None] + cc[None, :]
+                live = (gofs[:, None] >= 0) & (cc[None, :] < Cin)
+                halo[live] = xm[src[live]]
+                n = n0 + np.arange(p.BN)
+                for t, (iy, ix, ty, tx) in enumerate(taps):
+                    ws = np.zeros((p.BK, p.BN))
+                    row = (iy * k + ix) * Cin + cc
+                    wl = (cc[:, None] < Cin) & (n[None, :] < Cout)
+                    ws[wl] = wm[(row[:, None] * Cout + n[None, :])[wl]]
+                    acc += halo[hoff + ty * TW + tx] @ ws
+            part = np.full((p.BM, p.BN), np.nan)
+            for pixels, channels in threads:
+                part[np.ix_(pixels, channels)] = acc[np.ix_(pixels,
+                                                            channels)]
+            parts.append(part)
+        tile = 0.0
+        for part in parts:  # rank order
+            tile = tile + part
+        if bias is not None:
+            tile = tile + np.pad(bias.numpy(), (0, p.BN))[n0:n0 + p.BN]
+        if elu:
+            tile = np.where(tile > 0, tile, np.expm1(tile))
+        for q in range(P):
+            b = b0 + q // (p.TH * W)
+            h = h0 + q % (p.TH * W) // W
+            if b < B and h < H:
+                o = ((b * H + h) * W + q % W) * Cout
+                nn = min(p.BN, Cout - n0)
+                out[o + n0:o + n0 + nn] = tile[q, :nn]
+    return torch.from_numpy(out.reshape(B, H, W, Cout)).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout,k,d,bias,elu,forced", [
+    (3, 8, 2, 24, 20, 3, 1, True, True, {}),          # 2 channel tiles
+    (3, 8, 2, 24, 20, 3, 1, True, False, dict(CL=2)),  # ragged K split
+    (2, 8, 2, 32, 16, 3, 4, False, False, dict(CL=4)),  # 3 live taps
+    (5, 16, 4, 2, 8, 3, 1, True, True, {}),           # Cin 2: 4-byte copies
+    (3, 12, 5, 5, 3, 3, 2, True, False, {}),          # odd counts, ragged
+    (2, 6, 4, 8, 6, 1, 1, True, False, dict(BK=4, CL=2)),  # k = 1
+    (4, 8, 2, 16, 32, 3, 2, False, True,
+     dict(SB=3, BM=64, threads=64)),                  # a ragged sample group
+    (2, 16, 4, 8, 8, 3, 1, True, True, dict(TH=6)),   # ragged row tiles
+])
+def test_f32_plan_walked_in_numpy_reproduces_pruned_conv(B, H, W, Cin, Cout,
+                                                         k, d, bias, elu,
+                                                         forced):
+    """The plan's tiles, halos, thread tiles and K splits, walked in numpy
+    (float64) as the kernel walks them, give `pruned_conv`: wrong offsets
+    show here before the card runs the kernel."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(B, Cin, H, W, generator=g, dtype=torch.float64)
+    w = conv.kernel_layout(torch.randn(Cout, Cin, k, k, generator=g,
+                                       dtype=torch.float64))
+    b = torch.randn(Cout, generator=g, dtype=torch.float64) if bias else None
+    p, _ = _f32_plan(B, H, W, Cin, Cout, k, d)
+    if forced:
+        p = dataclasses.replace(p, **forced)
+        p = dataclasses.replace(p, nchunks=-(-Cin // p.BK), tiles=(
+            -(-H // p.TH), -(-B // p.SB), p.tiles[2]))
+        assert p.CL <= p.nchunks and p.SB * p.TH * W <= p.BM
+    got = _f32_kernel_in_numpy(x, w, b, d, elu, p)
+    want = conv.pruned_conv(x, w, b, d, elu)
+    assert not torch.isnan(got).any()
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
 
 
 # the five norm shapes of one NCSNv2-Deepest forward (H, W, C)

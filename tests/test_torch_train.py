@@ -271,7 +271,8 @@ def test_every_training_conv_and_its_dgrad_has_an_f32_plan(B):
     for H, W, Cin, Cout, k, d in shapes:
         for ci, co in ((Cin, Cout), (Cout, Cin)):
             p = conv._launch_args(B, H, W, ci, co, k, d, False)[0]
-            assert p.smem <= conv.MAX_SMEM and p.threads <= conv.MAX_THREADS
+            assert p.smem <= conv.MAX_SMEM_OPTIN
+            assert p.threads <= conv.F32_MAX_THREADS
 
 
 def test_transposed_weight_is_the_flipped_swap_in_kernel_layout():
