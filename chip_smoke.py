@@ -24,7 +24,16 @@ Phases (any failure propagates and the exit code is non-zero):
      with the launch counts of that run, saving its channel estimates;
      the `link` command on that file; the bench.py workload (batch 256, 38
      pilots, 10 dB, alpha 3e-11, beta 0.01, bf16 network, f32 state) on a
-     truncated schedule, timed in BENCH_RUNS runs, with a profiler window;
+     truncated schedule, timed in BENCH_RUNS runs; every path that samples
+     the posterior (here and in phases 7-9 and 15) runs through the
+     posterior runner, one level captured in a CUDA graph and replayed,
+     and the counts of launches and forwards come from the runner
+     (`graph_forwards`: one eager level and one capture a call);
+     the graph phase (`graph_phase`): the bench workload through the
+     graph against the plain loop (equal bits), in turns (plain, graph,
+     graph, plain), the host's time per run with the card held, the
+     card's ms per forward under the graph, the device busy share of a
+     2-level profiler window each way, capture seconds and pool MB;
   5. link path: `run_link_simulation` at the reference's full width (256
      packets, Nr 16, Nt 64, 4 QPSK streams, exact-ML LLRs, 25 BP
      iterations, 9 SNRs, ideal and estimated CSI at -10 dB NMSE) with its
@@ -55,7 +64,8 @@ Phases (any failure propagates and the exit code is non-zero):
      checkpoint (full width, every 100th level of the schedule),
      `run_hparam_search` (2x2 grid x 3 SNRs x 32 channels) and
      `run_mmse_estimation` (init ls, coef_cap auto, 16 samples x 2 SNRs x 8
-     channels) with their launch counts, each again on a slice of chains
+     channels) with their launch counts, each in turns through the plain
+     loop and the graph (NMSE within 1e-5), each again on a slice of chains
      at beta 0 on the card and the CPU (NMSE within rtol 1e-3), the
      tuner's slim table driving `run_estimation`, and `lmmse --cov
      analytic`;
@@ -1239,6 +1249,74 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def counting(score_fn, calls):
+    """score_fn that adds one to calls[0] at each Python call."""
+    def fn(x, s):
+        calls[0] += 1
+        return score_fn(x, s)
+    return fn
+
+
+def graph_forwards(calls, runs, steps=3):
+    """The forwards the posterior runner ran since sampling.reset_stats(),
+    held to its graph: `runs` runners (one a `langevin_chunked` call), each
+    one eager level and one capture (so 2 x steps Python calls of the
+    score function in all, `calls`), every other level a replay."""
+    from score_based_channels_torch.diffusion import sampling
+
+    st = sampling.STATS
+    assert st["captures"] == runs, st
+    assert st["replays"] == st["levels"] - runs, st
+    assert st["forwards"] == steps * st["levels"], st
+    assert calls == 2 * steps * runs, (calls, st)
+    return st["forwards"]
+
+
+@contextlib.contextmanager
+def plain_sampler():
+    """`langevin_chunked` with the plain loop in place of its runner: the
+    yardstick of the graph, run in turns with it."""
+    from score_based_channels_torch.diffusion.sampling import (
+        PosteriorRunner, annealed_langevin_posterior_c2_plain,
+    )
+    from score_based_channels_torch.eval import estimate
+
+    class PlainLoop(PosteriorRunner):
+        def run(self, A, Y, noise_power, x_init, alpha_step=3e-11,
+                beta_noise=0.01, **kw):
+            return annealed_langevin_posterior_c2_plain(
+                self.score_fn, A, Y, self.sigmas, noise_power, x_init,
+                self.generator, alpha_step=alpha_step, beta_noise=beta_noise,
+                steps_each=self.steps_each, noise_rows=self.noise_rows, **kw)
+
+    saved = estimate.PosteriorRunner
+    estimate.PosteriorRunner = PlainLoop
+    try:
+        yield
+    finally:
+        estimate.PosteriorRunner = saved
+
+
+def in_turns(plain, graph, what, rate=None):
+    """plain, graph, graph, plain, the card synchronised around each run:
+    ({"plain": [s, s], "graph": [s, s]}, the first result of each way).
+    rate(seconds) -> full-schedule est/s, printed beside the seconds."""
+    secs = {"plain": [], "graph": []}
+    first = {}
+    order = ("plain", "graph", "graph", "plain")
+    for way in order:
+        out, sec = timed(plain if way == "plain" else graph)
+        secs[way].append(sec)
+        first.setdefault(way, out)
+    seq = [secs["plain"][0], *secs["graph"], secs["plain"][1]]
+    line = ", ".join(f"{v:.4f}" for v in seq) + " s"
+    if rate is not None:
+        line += "; full-schedule est/s " + ", ".join(
+            f"{rate(v):.4f}" for v in seq)
+    print(f"#   {what} in turns (plain, graph, graph, plain): {line}")
+    return secs, first
+
+
 def eval_phase(ck_path, card):
     """Phase 8: the paper's comparison side at full width. ls, lasso and
     amp at their defaults on the card, held per SNR against the CPU on the
@@ -1259,6 +1337,7 @@ def eval_phase(ck_path, card):
     from score_based_channels_torch.baselines.ls import run_ls_baseline
     from score_based_channels_torch.baselines.mmse import run_mmse_estimation
     from score_based_channels_torch.config import default_score_config
+    from score_based_channels_torch.diffusion import sampling
     from score_based_channels_torch.eval.estimate import (
         load_score_fn, run_estimation,
     )
@@ -1267,18 +1346,37 @@ def eval_phase(ck_path, card):
     out = {}
     cfg = default_score_config("CDL-C")
 
-    def counted(score_fn, nfe):
-        def fn(x, s):
-            nfe[0] += 1
-            return score_fn(x, s)
-        return fn
-
     def launches_per_forward(nfe):
         n = kernels.counts()
         assert n["conv2d_taps"] == {"launches": 113 * nfe, "plain": 0}, n
         assert n["instance_norm_plus"] == {"launches": 25 * nfe,
                                            "plain": 0}, n
         return n
+
+    def graph_vs_plain(what, run, values, got, n_chains):
+        """run() in turns through the plain loop and the graph; values() of
+        `got` (the counted graph run) and of the turns' first graph run
+        against the first plain run's: equal bits, or within 1e-5 of
+        max|plain|. Capture seconds and pool MB of the counted run."""
+        graph = dict(sampling.STATS)
+
+        def plain():
+            with plain_sampler():
+                return run()
+
+        secs, first = in_turns(
+            plain, run, f"eval {what}, plain loop and graph",
+            rate=lambda v: n_chains / v * EVAL_LEVELS / 2311)
+        ref = values(first["plain"])
+        same = [np.array_equal(values(r), ref) for r in (got, first["graph"])]
+        diff = float(np.abs(values(got) - ref).max() / np.abs(ref).max())
+        print(f"#   eval {what}: graph vs plain loop NMSE bit-equal {same} "
+              f"(counted and next graph run), max rel diff {diff:.2e} (tol "
+              f"1e-5); capture {graph['capture_seconds']:.3f} s, graph "
+              f"pool {graph['pool_bytes'] / 2**20:.1f} MB")
+        assert diff <= 1e-5, (what, diff)
+        return dict(turns=secs, graph=graph, plain_equal=same,
+                    plain_max_rel_diff=diff)
 
     def amp_best(r, c):
         """AMPResults.best_db over channels c, as a power ratio."""
@@ -1346,15 +1444,23 @@ def eval_phase(ck_path, card):
         return want, dict(rel=rel, seconds=sec, seconds_cpu=sec_cpu)
     n_chains = (len(TUNE_ALPHAS) * len(TUNE_BETAS) * len(TUNE_SNRS)
                 * TUNE_CHANNELS)
-    nfe = [0]
+    calls = [0]
+
+    def tune(score_fn):
+        return run_hparam_search(
+            score_fn, config, snr_range=TUNE_SNRS,
+            alpha_step_range=TUNE_ALPHAS, beta_noise_range=TUNE_BETAS,
+            num_channels=TUNE_CHANNELS, chunk_size=TUNE_CHUNK, device="cuda")
+
     kernels.reset_counts()
-    tune_res, sec = timed(lambda: run_hparam_search(
-        counted(score32, nfe), config, snr_range=TUNE_SNRS,
-        alpha_step_range=TUNE_ALPHAS, beta_noise_range=TUNE_BETAS,
-        num_channels=TUNE_CHANNELS, chunk_size=TUNE_CHUNK, device="cuda"))
-    n = launches_per_forward(nfe[0])
-    assert nfe[0] == -(-n_chains // TUNE_CHUNK) * EVAL_LEVELS * 3, nfe
+    sampling.reset_stats()
+    tune_res, sec = timed(lambda: tune(counting(score32, calls)))
+    nfe = graph_forwards(calls[0], runs=1)
+    n = launches_per_forward(nfe)
+    assert nfe == -(-n_chains // TUNE_CHUNK) * EVAL_LEVELS * 3, nfe
     assert np.isfinite(tune_res.nmse_log).all()
+    vs_plain = graph_vs_plain("tune", lambda: tune(score32),
+                              lambda r: r.nmse_log, tune_res, n_chains)
     best_db = 10 * np.log10(tune_res.best_nmse.min(axis=(0, 1)))
     avg = tune_res.avg_nmse  # the selection is the argmin of the log
     for s in range(len(TUNE_SNRS)):
@@ -1367,15 +1473,16 @@ def eval_phase(ck_path, card):
     print(f"# eval tune ({len(TUNE_ALPHAS)}x{len(TUNE_BETAS)} grid x "
           f"{len(TUNE_SNRS)} SNRs x {TUNE_CHANNELS} channels = {n_chains} "
           f"chains in chunks of {TUNE_CHUNK}, f32 network, {cut}): "
-          f"{sec:.2f} s, {nfe[0]} forwards, {rate:.1f} est/s on the "
+          f"{sec:.2f} s, {nfe} forwards, {rate:.1f} est/s on the "
           f"cut schedule ({rate * EVAL_LEVELS / 2311:.4f} full-schedule); "
           f"best NMSE dB per SNR {rounded(best_db)}; selection "
           f"alpha {tune_res.best_alpha_snr.tolist()} beta "
           f"{tune_res.best_beta_snr.tolist()} step "
           f"{tune_res.best_step_snr.tolist()}; blind "
           f"{tune_res.blind_selection()}; launches {n}")
-    out["tune"] = dict(seconds=sec, forwards=nfe[0], est_per_s=rate,
+    out["tune"] = dict(seconds=sec, forwards=nfe, est_per_s=rate,
                        est_per_s_full=rate * EVAL_LEVELS / 2311,
+                       **vs_plain,
                        best_nmse_db=rounded(best_db, 6),
                        best_alpha=tune_res.best_alpha_snr.tolist(),
                        best_beta=tune_res.best_beta_snr.tolist(),
@@ -1399,14 +1506,15 @@ def eval_phase(ck_path, card):
         with np.load(slim) as h:
             table = {k: h[k] for k in h.files}
     _, score16 = load_score_fn(ck_path, "cuda", dtype=torch.bfloat16)
-    nfe = [0]
+    calls = [0]
     kernels.reset_counts()
+    sampling.reset_stats()
     est, sec = timed(lambda: run_estimation(
-        counted(score16, nfe), config, snr_range=table["snr_range"],
+        counting(score16, calls), config, snr_range=table["snr_range"],
         num_channels=TUNE_CHANNELS, alpha_step=table["best_alpha_snr"],
         beta_noise=table["best_beta_snr"], stop_steps=table["best_step_snr"],
         init="noise", chunk_size=TUNE_CHUNK, device="cuda"))
-    n = launches_per_forward(nfe[0])
+    n = launches_per_forward(graph_forwards(calls[0], runs=1))
     known = [float(10 * np.log10(est.avg_nmse[0, 0, s, int(st)]))
              for s, st in enumerate(table["best_step_snr"])]
     assert np.isfinite(est.nmse_log).all()
@@ -1420,15 +1528,24 @@ def eval_phase(ck_path, card):
     rows = [int(np.flatnonzero(TUNE_SNRS == s)[0]) for s in MMSE_SNRS]
     stop = table["best_step_snr"][rows]
     n_chains = MMSE_AVG * len(MMSE_SNRS) * MMSE_CHANNELS
-    nfe = [0]
+
+    def mmse_run(score_fn):
+        return run_mmse_estimation(
+            score_fn, config, snr_range=MMSE_SNRS,
+            num_channels=MMSE_CHANNELS, mmse_avg=MMSE_AVG, init="ls",
+            stop_step=stop, coef_cap="auto", chunk_size=n_chains,
+            device="cuda")
+
+    calls = [0]
     kernels.reset_counts()
-    mmse, sec = timed(lambda: run_mmse_estimation(
-        counted(score32, nfe), config, snr_range=MMSE_SNRS,
-        num_channels=MMSE_CHANNELS, mmse_avg=MMSE_AVG, init="ls",
-        stop_step=stop, coef_cap="auto", chunk_size=n_chains,
-        device="cuda"))
-    n = launches_per_forward(nfe[0])
-    assert nfe[0] == EVAL_LEVELS * 3, nfe  # one chunk
+    sampling.reset_stats()
+    mmse, sec = timed(lambda: mmse_run(counting(score32, calls)))
+    nfe = graph_forwards(calls[0], runs=1)
+    n = launches_per_forward(nfe)
+    assert nfe == EVAL_LEVELS * 3, nfe  # one chunk
+    vs_plain = graph_vs_plain(
+        "mmse", lambda: mmse_run(score32),
+        lambda r: np.stack([r.nmse_single, r.nmse_mean_est]), mmse, n_chains)
     mean_db, single_db = (10 * np.log10(v.mean(-1)) for v in
                           (mmse.nmse_mean_est, mmse.nmse_single))
     assert np.isfinite(mmse.nmse_mean_est).all()
@@ -1445,6 +1562,7 @@ def eval_phase(ck_path, card):
           f"launches {n}")
     out["mmse"] = dict(seconds=sec, est_per_s=rate,
                        est_per_s_full=rate * EVAL_LEVELS / 2311,
+                       **vs_plain,
                        mean_db=rounded(mean_db, 6),
                        single_db=rounded(single_db, 6))
     _, out["mmse_ref"] = card_vs_cpu(
@@ -1498,6 +1616,7 @@ def archs_phase(deepest_convs, deepest_norms, g):
     from score_based_channels_torch.config import (
         ModelConfig, TrainingConfig, default_score_config,
     )
+    from score_based_channels_torch.diffusion import sampling
     from score_based_channels_torch.eval.estimate import (
         load_score_fn, run_estimation,
     )
@@ -1569,32 +1688,30 @@ def archs_phase(deepest_convs, deepest_norms, g):
         train_counts = n
         config, score_fn = load_score_fn(ck, "cuda", torch.bfloat16)
         assert config.model.arch == arch
-        nfe = [0]
-
-        def counted(xx, s):
-            nfe[0] += 1
-            return score_fn(xx, s)
-
+        calls = [0]
         kernels.reset_counts()
+        sampling.reset_stats()
         t0 = time.perf_counter()
-        res = run_estimation(counted, config, snr_range=np.array([0., 20.]),
-                             num_channels=32, level_stride=ARCH_EST_STRIDE,
-                             init="noise", chunk_size=64, device="cuda")
+        res = run_estimation(counting(score_fn, calls), config,
+                             snr_range=np.array([0., 20.]), num_channels=32,
+                             level_stride=ARCH_EST_STRIDE, init="noise",
+                             chunk_size=64, device="cuda")
         torch.cuda.synchronize()
         est_s = time.perf_counter() - t0
         n = kernels.counts()
+        nfe = graph_forwards(calls[0], runs=1)
     print(f"# estimate from the {arch} checkpoint (level_stride "
-          f"{ARCH_EST_STRIDE}, 32 CDL-C channels, bf16): {nfe[0]} forwards "
+          f"{ARCH_EST_STRIDE}, 32 CDL-C channels, bf16): {nfe} forwards "
           f"in {est_s:.2f} s; best NMSE dB "
           f"{np.round(res.best_nmse_db().ravel(), 2).tolist()}; launches {n}")
     assert np.isfinite(res.nmse_log).all()
-    assert n["conv2d_taps"] == {"launches": n_conv * nfe[0], "plain": 0}, n
-    assert n["instance_norm_plus"] == {"launches": n_norm * nfe[0],
+    assert n["conv2d_taps"] == {"launches": n_conv * nfe, "plain": 0}, n
+    assert n["instance_norm_plus"] == {"launches": n_norm * nfe,
                                        "plain": 0}, n
     out["train"] = dict(arch=arch, steps=steps, seconds=train_s,
                         counts=train_counts, grad_counts=ng,
                         train_loss=logs["train_loss"].tolist())
-    out["estimate"] = dict(forwards=nfe[0], seconds=est_s, counts=n,
+    out["estimate"] = dict(forwards=nfe, seconds=est_s, counts=n,
                            best_nmse_db=res.best_nmse_db().ravel().tolist())
     return out
 
@@ -2168,6 +2285,7 @@ def distributed_phase():
 
     from score_based_channels_torch import kernels
     from score_based_channels_torch.config import ModelConfig
+    from score_based_channels_torch.diffusion import sampling
     from score_based_channels_torch.diffusion.sigmas import (
         sigmas_from_config, subsample_schedule,
     )
@@ -2193,12 +2311,14 @@ def distributed_phase():
             assert backend == "nccl" and dist.get_backend() == "nccl"
             try:
                 kernels.reset_counts()
+                sampling.reset_stats()
                 t0 = time.perf_counter()
                 dp = run_smoke(ckpt_path=os.path.join(tmp, "dp.npz"), **kw)
                 torch.cuda.synchronize()
                 dp_s = time.perf_counter() - t0
                 launches = kernels.counts()
                 grads = kernels.grad_counts()
+                sweep = dict(sampling.STATS)
             finally:
                 dist.destroy_process_group()
             t0 = time.perf_counter()
@@ -2208,6 +2328,10 @@ def distributed_phase():
         assert launches[k]["launches"] > 0 and launches[k]["plain"] == 0, \
             launches
     assert grads["conv2d_taps"]["dgrad"] > 0, grads
+    # the sweep chunk: one capture, level 0 eager, the others replayed
+    assert sweep["captures"] == 1, sweep
+    assert sweep["levels"] == sig.shape[0], sweep
+    assert sweep["replays"] == sig.shape[0] - 1, sweep
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(dp["losses"],
                                                       one["losses"]))
     par_err = max(float(np.linalg.norm(a - b) / np.linalg.norm(b))
@@ -2221,13 +2345,14 @@ def distributed_phase():
           f"{one_s:.2f} s); losses {np.round(dp['losses'], 3).tolist()}, "
           f"NMSE {dp['nmse_db']:.2f} dB; vs no group: loss {loss_err:.1e}, "
           f"params {par_err:.1e}, trace {trace_err:.1e} (tol {DIST_TOL:g}); "
-          f"launches {launches}", flush=True)
+          f"launches {launches}; sweep through the graph: {sweep}",
+          flush=True)
     assert np.isfinite(dp["trace"]).all()
     assert max(loss_err, par_err, trace_err) <= DIST_TOL
     return dict(seconds=dp_s, seconds_no_group=one_s, losses=dp["losses"],
                 nmse_db=dp["nmse_db"], loss_err=loss_err, param_err=par_err,
                 trace_err=trace_err, levels=int(sig.shape[0]),
-                launches=launches, grad_counts=grads)
+                launches=launches, grad_counts=grads, sweep=sweep)
 
 
 def trace_phase(model):
@@ -2280,6 +2405,150 @@ def trace_phase(model):
                 by_category=summary["by_category"], launches=launches)
 
 
+GRAPH_HOLD_MS = 2000.0  # the spin that holds the card while the host runs
+
+
+def graph_phase(score, A, Y, X, x0, noise_power, sigmas, card):
+    """The graph phase (in phase 4): the bench workload (batch 256, 38
+    pilots, 10 dB, bf16 network, f32 state) on `sigmas`, through the
+    posterior runner's graph and through the plain loop. The first graph
+    run (eager level 0, the capture, the replays) against the plain loop:
+    equal bits, or within 1e-5 of max|plain|; then in turns (plain, graph,
+    graph, plain) each way's seconds and full-schedule est/s, the runner
+    capturing once and replaying every level of each later run; the
+    host's time per level with the card held by a spin kernel (as
+    kernels.launch_cost holds it), in turns: a graph run of every level, a
+    plain run of one level; the card's ms per level and per forward with
+    graph runs back to back (CUDA events); the device busy share of a
+    profiler window of 2 levels, each way; the capture's seconds and the
+    graph pool's MB."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from score_based_channels_torch.diffusion import sampling
+    from score_based_channels_torch.diffusion.sampling import (
+        PosteriorRunner, annealed_langevin_posterior_c2_plain,
+    )
+    from score_based_channels_torch.kernels.launch_cost import spin_cycles
+
+    levels = sigmas.shape[0]
+    # sigma and the scalars (0-d: the floats' arithmetic) on the card: a
+    # run then copies nothing from the host, which would wait for the
+    # stream, and so for the spin of the held-card measurement
+    sigmas = sigmas.cuda()
+    noise_power, alpha, beta = (torch.tensor(v, device="cuda") for v in
+                                (noise_power, 3e-11, 0.01))
+    kw = dict(alpha_step=alpha, beta_noise=beta, oracle=X)
+
+    def rate(sec):
+        return BATCH / sec * levels / 2311.0
+
+    def plain(sig=sigmas):
+        return annealed_langevin_posterior_c2_plain(
+            score, A, Y, sig, noise_power, x0,
+            torch.Generator(device="cuda").manual_seed(2), steps_each=3, **kw)
+
+    def graph_runner(sig=sigmas):
+        runner = PosteriorRunner(score, sig, torch.Generator(device="cuda"),
+                                 steps_each=3)
+
+        def run():
+            runner.generator.manual_seed(2)
+            return runner.run(A, Y, noise_power, x0, **kw)
+        return runner, run
+
+    sampling.reset_stats()
+    runner, graph = graph_runner()
+    (xg, tg), first_s = timed(graph)  # eager level 0, capture, replays
+    xg, tg = xg.clone(), tg.clone()
+    stats = dict(sampling.STATS)
+    (xp, tp), _ = timed(plain)
+    same = bool(torch.equal(xg, xp) and torch.equal(tg, tp))
+    err = max(max_rel(xg, xp), max_rel(tg, tp))
+    rec = runner.recorded
+    print(f"# graph phase, bench workload ({BATCH} x {levels} levels, bf16 "
+          f"network): first graph run {first_s:.3f} s (capture "
+          f"{stats['capture_seconds']:.3f} s, graph pool "
+          f"{stats['pool_bytes'] / 2**20:.1f} MB, {rec['conv2d_taps']} conv "
+          f"+ {rec['instance_norm_plus']} norm launches a replay); x_final "
+          f"and trace bit-equal to the plain loop: {same} (max rel diff "
+          f"{err:.2e}, tol 1e-5) on {card}", flush=True)
+    assert err <= 1e-5, err
+    secs, _ = in_turns(plain, graph, "bench workload, plain loop and graph",
+                       rate=rate)
+    rerun_same = bool(torch.equal(runner.x, xg)
+                      and torch.equal(runner.trace, tg))
+    print(f"#   a run that replays every level gives the first run's bits: "
+          f"{rerun_same}")
+    assert rerun_same
+
+    # the host's time per run with the card held: the graph's run of every
+    # level; the plain loop's of one level (~1,100 launches: behind a spin,
+    # more than the launch queue holds would block the host on the queue)
+    cycles = spin_cycles(GRAPH_HOLD_MS)
+    runs = {"plain": (lambda: plain(sigmas[:1]), 1), "graph": (graph, levels)}
+    host, held = {"plain": [], "graph": []}, {"plain": [], "graph": []}
+    for way in ("plain", "graph", "graph", "plain"):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        runs[way][0]()
+        host[way].append(time.perf_counter() - t0)
+        held[way].append(not torch.cuda.current_stream().query())
+        torch.cuda.synchronize()
+    assert all(held["graph"]), held
+    us_level = {k: [v * 1e6 / runs[k][1] for v in vs]
+                for k, vs in host.items()}
+    print(f"#   host time per level, card held ({GRAPH_HOLD_MS:.0f} ms spin; "
+          f"held {held}): plain loop, a run of 1 level "
+          f"{[round(v, 1) for v in us_level['plain']]} us; graph, a run of "
+          f"{levels} levels {[round(v, 5) for v in host['graph']]} s, "
+          f"{[round(v, 1) for v in us_level['graph']]} us a level")
+
+    # the card's time with graph runs back to back
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reps = 3
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph()
+    end.record()
+    torch.cuda.synchronize()
+    card_ms_level = start.elapsed_time(end) / (reps * levels)
+    print(f"#   card time under the graph, {reps} runs back to back: "
+          f"{card_ms_level:.4f} ms per level, {card_ms_level / 3:.4f} ms per "
+          f"forward (the level's sampler ops included)")
+
+    # profiler windows of 2 levels: the graph replays both
+    _, graph2 = graph_runner(sigmas[:2])
+    graph2()
+    windows = {}
+    for way, fn in (("plain", lambda: plain(sigmas[:2])), ("graph", graph2)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name = device_ms_by_name(prof)
+        busy = sum(by_name.values())
+        windows[way] = dict(wall_ms=wall_ms, busy_ms=busy, by_name=by_name)
+        print(f"#   profile, 2 levels (6 forwards), {way}: wall "
+              f"{wall_ms:.1f} ms, device busy {busy:.1f} ms "
+              f"({100 * busy / wall_ms:.1f}%)" if busy else
+              f"#   profile, 2 levels, {way}: no device time reported "
+              f"(not measured)")
+    return dict(levels=levels, first_run_seconds=first_s, stats=stats,
+                bit_equal=same, max_rel_diff=err, rerun_bit_equal=rerun_same,
+                seconds=secs,
+                est_per_s={k: [rate(v) for v in vs] for k, vs in secs.items()},
+                host_seconds_held=host, host_us_per_level_held=us_level,
+                held=held, card_ms_per_level=card_ms_level,
+                card_ms_per_forward=card_ms_level / 3,
+                recorded=runner.recorded, windows=windows)
+
+
 def per_forward(rows, dtype):
     """Sum over one bf16 (or f32) forward's calls of each timing."""
     sel = [r for r in rows if r["dtype"] == dtype]
@@ -2314,6 +2583,7 @@ def main():
     from score_based_channels_torch.diffusion.sampling import (
         annealed_langevin_posterior_c2,
     )
+    from score_based_channels_torch.diffusion import sampling
     from score_based_channels_torch.diffusion.sigmas import get_sigmas
     from score_based_channels_torch.comms.link import main as link_main
     from score_based_channels_torch.eval.estimate import (
@@ -2371,11 +2641,7 @@ def main():
     assert got16.dtype == torch.float32 and torch.isfinite(got16).all()
 
     score_bf16 = score_fn_from_params(model, torch.bfloat16)
-    nfe = [0]
-
-    def counted_score(xx, s):
-        nfe[0] += 1
-        return score_bf16(xx, s)
+    calls = [0]
 
     with tempfile.TemporaryDirectory() as tmp:
         rng = np.random.default_rng(0)
@@ -2384,15 +2650,18 @@ def main():
         cfg = Config(data=DataConfig(source="file", data_dir=tmp))
         stride = 64
         kernels.reset_counts()
+        sampling.reset_stats()
         t0 = time.perf_counter()
         chan = os.path.join(tmp, "channels.npz")
-        res = run_estimation(counted_score, cfg, snr_range=np.array([0., 20.]),
+        res = run_estimation(counting(score_bf16, calls), cfg,
+                             snr_range=np.array([0., 20.]),
                              num_channels=32, level_stride=stride, init="auto",
                              sigma_start=0.05, chunk_size=64, device="cuda",
                              save_channels_to=chan)
         torch.cuda.synchronize()
         est_s = time.perf_counter() - t0
         launches = kernels.counts()
+        nfe = graph_forwards(calls[0], runs=1)
         # the `link` command on the saved estimates, on the card by default
         link_out = os.path.join(tmp, "link.npz")
         link_main(["--channels", chan, "--output", link_out])
@@ -2401,15 +2670,15 @@ def main():
             assert np.isfinite(f["ber_est"]).all()
             assert np.isfinite(f["ber_ideal"]).all()
     n_levels = len(get_sigmas(39.15, cfg.model.sigma_end, 2311)[::stride]) + 1
-    print(f"# run_estimation: {res.nmse_log.shape} trace, {nfe[0]} forwards "
+    print(f"# run_estimation: {res.nmse_log.shape} trace, {nfe} forwards "
           f"at batch 64 in {est_s:.1f} s; best NMSE dB "
           f"{np.round(res.best_nmse_db().ravel(), 2).tolist()}; launches "
           f"{launches}")
     assert res.nmse_log.shape == (1, 1, 2, n_levels * 3, 32)
     assert np.isfinite(res.nmse_log).all()
-    assert nfe[0] == n_levels * 3
-    assert launches["conv2d_taps"] == {"launches": 113 * nfe[0], "plain": 0}
-    assert launches["instance_norm_plus"] == {"launches": 25 * nfe[0],
+    assert nfe == n_levels * 3
+    assert launches["conv2d_taps"] == {"launches": 113 * nfe, "plain": 0}
+    assert launches["instance_norm_plus"] == {"launches": 25 * nfe,
                                               "plain": 0}
 
     # bench.py workload on a truncated schedule
@@ -2423,30 +2692,38 @@ def main():
     Y = physics.measure_c2(gb, A.cpu(), X.cpu(), noise_power).cuda()
     x0 = cplx.randn(gb, (BATCH, 64, 16)).cuda()
 
-    def bench(sig_sched):
+    def bench(sig_sched, score=score_bf16):
         return annealed_langevin_posterior_c2(
-            score_bf16, A, Y, sig_sched, noise_power, x0,
+            score, A, Y, sig_sched, noise_power, x0,
             generator=torch.Generator(device="cuda").manual_seed(2),
             alpha_step=3e-11, beta_noise=0.01, steps_each=3, oracle=X)
 
     bench(sigmas[:2])  # warm-up
     bench_runs = []  # the host-bound est/s varies between runs: several
-    for _ in range(BENCH_RUNS):
+    for _ in range(BENCH_RUNS):  # each call captures its own graph
         torch.cuda.synchronize()
         kernels.reset_counts()
+        sampling.reset_stats()
+        calls = [0]
         t0 = time.perf_counter()
-        _, trace = bench(sigmas)
+        _, trace = bench(sigmas, counting(score_bf16, calls))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         bench_counts = kernels.counts()
-        assert torch.isfinite(trace).all()
-        assert bench_counts["conv2d_taps"] == {"launches": 113 * levels * 3,
+        fw = graph_forwards(calls[0], runs=1)
+        assert fw == levels * 3 and torch.isfinite(trace).all()
+        assert bench_counts["conv2d_taps"] == {"launches": 113 * fw,
                                                "plain": 0}, bench_counts
+        assert bench_counts["instance_norm_plus"] == {"launches": 25 * fw,
+                                                      "plain": 0}
         bench_runs.append(dict(seconds=dt,
                                est_per_s=BATCH / dt * levels / 2311.0,
-                               ms_per_forward=dt * 1e3 / (levels * 3)))
+                               ms_per_forward=dt * 1e3 / (levels * 3),
+                               capture_seconds=sampling.STATS[
+                                   "capture_seconds"]))
         print(f"# bench workload: {dt:.3f} s for {BATCH} estimates x "
-              f"{levels} levels ({BATCH * levels * 3 / dt:.0f} NFE/s, "
+              f"{levels} levels, capture included "
+              f"({BATCH * levels * 3 / dt:.0f} NFE/s, "
               f"{bench_runs[-1]['ms_per_forward']:.3f} ms per forward, "
               f"{bench_runs[-1]['est_per_s']:.4f} full-schedule est/s) on "
               f"{card}")
@@ -2454,20 +2731,11 @@ def main():
     print(f"# bench median of {BENCH_RUNS} runs: {est_per_s:.4f} full-schedule "
           f"est/s")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        bench(sigmas[:2])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = device_ms_by_name(prof)
-    busy = sum(by_name.values())
+    graph = graph_phase(score_bf16, A, Y, X, x0, noise_power, sigmas, card)
+    win = graph["windows"]["graph"]
+    by_name, busy, wall_ms = win["by_name"], win["busy_ms"], win["wall_ms"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"# profile, 2 levels (6 forwards) at batch 256: wall {wall_ms:.1f} "
-          f"ms, device busy {busy:.1f} ms "
-          f"({100 * busy / wall_ms:.1f}%)" if busy else
-          "# profile: no device time reported (not measured)")
+    print("# profile under the graph, top kernels of the 2-level window:")
     for name, ms in top:
         print(f"#   {ms:9.3f} ms  {name[:90]}")
     # each kernel's device time inside the path, per forward (6 in the window)
@@ -2567,9 +2835,9 @@ def main():
         conv_probe=probe,
         forward_rel_err_f32=fwd_err32,
         forward_rel_err_bf16=fwd_err16, estimation_seconds=est_s,
-        estimation_forwards=nfe[0], estimation_best_nmse_db=
+        estimation_forwards=nfe, estimation_best_nmse_db=
         res.best_nmse_db().ravel().tolist(), bench_runs=bench_runs,
-        bench_levels=levels, bench_est_per_s_full=est_per_s,
+        bench_levels=levels, bench_est_per_s_full=est_per_s, graph=graph,
         profile_wall_ms=wall_ms, profile_busy_ms=busy, profile_top=top,
         profile_ms_per_forward=path_ms, train=train, eval=evals,
         **later,

@@ -10,25 +10,264 @@ and inner step:
   x <- x + alpha_i*s(x, sigma_i) - c_i * A^H(A x - y) + sqrt(2 alpha_i beta) z,
   c_i = alpha_i / (noise/2 + sigma_i^2)  (optionally capped)
 
-The JAX package's `lax.scan` over levels is a Python loop here with no
-host synchronisation inside it: sigma and every per-sample value stay
-tensors on the state's device, and the per-step NMSE trace is written into
-a device tensor that the caller copies to the host once.
+The JAX package runs the posterior schedule as one `lax.scan`, compiled
+once per call (sampling.py:159-167). Here `PosteriorRunner` runs it as one
+function of one level on static buffers: every value that depends on the
+level comes from device tensors (a level counter that the level advances
+itself, sigma by index_select, the start gate, the capture latch, the
+trace rows), so the same work serves every level. On the CPU the level
+runs L times. On the card it is captured once in a CUDA graph and
+replayed for every level, so the host no longer launches the ~1,000
+kernels of a level one by one: a Python loop over levels with no host
+synchronisation (`annealed_langevin_posterior_c2_plain`, the plain
+version) still left the host setting the pace, at 5.3-10 ms of host time
+against ~4.3 ms of card time per bf16 forward at batch 256.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from .. import cplx
+from .. import cplx, kernels
+
+# Counts of the posterior runner since `reset_stats`: forwards and levels
+# run on the device (eager or replayed), graph captures and replays,
+# seconds spent capturing and the largest graph memory pool (bytes the
+# capture reserved for one level's intermediates).
+STATS = dict(forwards=0, levels=0, captures=0, replays=0,
+             capture_seconds=0.0, pool_bytes=0)
+
+
+def reset_stats() -> None:
+    """Set the runner's counts in STATS to 0."""
+    for k in STATS:
+        STATS[k] = type(STATS[k])(0)
 
 
 def _per_sample(v, like: torch.Tensor) -> torch.Tensor:
     """Scalar or (B,) value -> f32 tensor broadcastable against (B, M, N)."""
     v = torch.as_tensor(v, dtype=torch.float32, device=like.device)
     return v if v.dim() == 0 else v.reshape(v.shape + (1, 1))
+
+
+def _check_generator(generator: Optional[torch.Generator],
+                     dev: torch.device) -> None:
+    if generator is None or generator.device.type != dev.type:
+        raise ValueError("pass a torch.Generator on the state's device, or "
+                         "noise_fn")
+
+
+class PosteriorRunner:
+    """The c2 posterior schedule as one level step on static buffers.
+
+    `run` copies its inputs into the runner's buffers, resets the level
+    counter and runs the L levels of `sigmas`:
+    - on the CPU (or any device but CUDA), by calling the level L times;
+    - on the card, at its first run, level 0 eagerly on a side stream (so
+      the first launch of every conv and norm shape of the level, with
+      its build, `cudaFuncSetAttribute` and occupancy query, happens
+      outside a capture), then one level captured in a
+      `torch.cuda.CUDAGraph`, replayed for levels 1..L-1; every later run
+      replays it for all L levels.
+    Nothing inside the level makes a tensor from host data, reads a
+    Python int of the level or synchronises with the host, so the replays
+    give the bits of the eager level. A capture that fails raises:
+    nothing falls back to the eager loop.
+
+    The generator draws the Langevin noise on the state's device; on the
+    card it is registered with the graph, so each replay draws on from
+    where the last one stopped, as the plain loop does. Re-seeding it
+    between runs (`langevin_chunked` does, per chunk) starts the next
+    run's draws from that seed. The capture reads the score network's
+    parameters in place: a network whose parameters are copied into
+    keeps its graph; one whose parameter tensors are replaced needs a new
+    runner. Each `annealed_langevin_posterior_c2` and `langevin_chunked`
+    call builds its own runner, so it captures anew.
+
+    Every run takes the same inputs (shapes and which options are given)
+    as the first. `run` returns the runner's own buffers (the final or
+    captured iterate, the trace): the next run overwrites them.
+
+    Launch counts: the capture records the kernel launches of a level
+    (the wrappers count them as they are recorded); the runner takes them
+    back, since a capture launches nothing, and adds them once per
+    replay (`recorded`), so `kernels.counts()` holds what ran on the
+    card. STATS counts the forwards and levels run.
+    """
+
+    def __init__(self, score_fn: Callable[[torch.Tensor, torch.Tensor],
+                                          torch.Tensor],
+                 sigmas: torch.Tensor, generator: torch.Generator,
+                 steps_each: int = 3,
+                 noise_rows: Optional[Tuple[int, torch.Tensor]] = None):
+        self.score_fn = score_fn
+        self.sigmas = sigmas
+        self.generator = generator
+        self.steps_each = steps_each
+        self.noise_rows = noise_rows
+        self.buf = None          # name -> static input buffer
+        self.graph = None
+        self.recorded = None     # kernel name -> launches a replay makes
+
+    @torch.no_grad()
+    def run(self, A: torch.Tensor, Y: torch.Tensor, noise_power,
+            x_init: torch.Tensor, alpha_step=3e-11, beta_noise=0.01,
+            oracle: Optional[torch.Tensor] = None,
+            capture_level: Optional[torch.Tensor] = None,
+            start_level: Optional[torch.Tensor] = None, coef_cap=None
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Run the schedule on these inputs (as in
+        `annealed_langevin_posterior_c2`) -> (x_final or the captured
+        iterate, trace or None), the runner's buffers."""
+        dev = x_init.device
+        _check_generator(self.generator, dev)
+        self._load(dev, A=A, Y=Y, noise_power=noise_power, x_init=x_init,
+                   alpha_step=alpha_step, beta_noise=beta_noise,
+                   oracle=oracle, capture_level=capture_level,
+                   start_level=start_level, coef_cap=coef_cap)
+        L = self.sigmas.shape[0]
+        if dev.type != "cuda":
+            for _ in range(L):
+                self._level()
+                self._ran()
+        else:
+            done = 0
+            if self.graph is None:
+                self._warm_up()
+                self._ran()
+                done = 1
+                if L > 1:
+                    self._capture()
+            for _ in range(done, L):
+                self.graph.replay()
+                kernels.add_launches(self.recorded)
+                self._ran(replay=True)
+        out = self.x_cap if self.x_cap is not None else self.x
+        return out, self.trace
+
+    def _ran(self, replay: bool = False) -> None:
+        STATS["levels"] += 1
+        STATS["forwards"] += self.steps_each
+        STATS["replays"] += replay
+
+    def _load(self, dev: torch.device, **given) -> None:
+        """Copy the inputs into the static buffers (made at the first run,
+        with the strides of the first inputs) and reset the state."""
+        A = given["A"].to(dev)
+        x0 = given["x_init"].to(dev, torch.float32)
+        t = dict(A=A, Ah=cplx.conj_transpose(A), Y=given["Y"].to(dev), x0=x0,
+                 noise_power=_per_sample(given["noise_power"], x0),
+                 alpha=_per_sample(given["alpha_step"], x0),
+                 beta=_per_sample(given["beta_noise"], x0))
+        if given["coef_cap"] is not None:
+            t["cap"] = _per_sample(given["coef_cap"], x0)
+        for k in ("start_level", "capture_level"):
+            if given[k] is not None:
+                t[k] = torch.as_tensor(given[k], device=dev)
+        if given["oracle"] is not None:
+            t["oracle"] = given["oracle"].to(dev)
+            t["energy"] = cplx.sum_abs2(t["oracle"], dim=(-1, -2))
+        if self.buf is None:
+            self.sigmas = self.sigmas.to(dev, torch.float32)
+            self.sigma_end = self.sigmas[-1]
+            if self.noise_rows is not None:
+                self.noise_rows = (self.noise_rows[0],
+                                   self.noise_rows[1].to(dev))
+            self.buf = {k: torch.empty_like(v) for k, v in t.items()}
+            self.x = torch.empty_like(x0)
+            self.x_cap = (torch.empty_like(x0) if "capture_level" in t
+                          else None)
+            self.trace = (torch.empty((self.sigmas.shape[0]
+                                       * self.steps_each, x0.shape[0]),
+                                      dtype=torch.float32, device=dev)
+                          if "oracle" in t else None)
+            self.lvl = torch.zeros((), dtype=torch.int64, device=dev)
+        elif set(t) != set(self.buf):
+            raise ValueError("a runner's runs take the same inputs: got "
+                             f"{sorted(t)}, first {sorted(self.buf)}")
+        for k, v in t.items():
+            self.buf[k].copy_(v)
+        self.x.copy_(x0)
+        if self.x_cap is not None:
+            self.x_cap.copy_(x0)
+        self.lvl.zero_()
+
+    def _draw(self, x: torch.Tensor) -> torch.Tensor:
+        if self.noise_rows is None:
+            return cplx.randn(self.generator, x.shape[:-1])
+        n, keep = self.noise_rows
+        return cplx.randn(self.generator, (n,) + tuple(x.shape[1:-1])
+                          ).index_select(0, keep)
+
+    def _level(self) -> None:
+        """One level on the buffers: steps_each forwards and updates, the
+        trace rows lvl * steps_each + step, the capture latch, lvl += 1."""
+        b, lvl, S = self.buf, self.lvl, self.steps_each
+        sigma = self.sigmas.index_select(0, lvl.view(1)).view(())
+        alpha = b["alpha"] * (sigma / self.sigma_end) ** 2
+        if "start_level" in b:
+            alpha = alpha * _per_sample((b["start_level"] <= lvl).float(),
+                                        self.x)
+        coef = alpha / (b["noise_power"] / 2.0 + sigma ** 2)
+        if "cap" in b:
+            coef = torch.minimum(coef, b["cap"])
+        noise_scale = torch.sqrt(2.0 * alpha * b["beta"])
+        x = self.x
+        for step in range(S):
+            score = self.score_fn(x, sigma)
+            meas_grad = cplx.matmul(b["Ah"], cplx.matmul(b["A"], x) - b["Y"])
+            z = self._draw(x)
+            x = (x + cplx.scale(score, alpha) - cplx.scale(meas_grad, coef)
+                 + cplx.scale(z, noise_scale))
+            if self.trace is not None:
+                err = cplx.sum_abs2(x - b["oracle"], dim=(-1, -2))
+                self.trace.index_copy_(0, (lvl * S + step).view(1),
+                                       (err / b["energy"]).unsqueeze(0))
+        if self.x_cap is not None:
+            latch = (b["capture_level"] == lvl).reshape(-1, 1, 1, 1)
+            self.x_cap.copy_(torch.where(latch, x, self.x_cap))
+        self.x.copy_(x)
+        lvl.add_(1)
+
+    def _warm_up(self) -> None:
+        """Level 0 eagerly, on a side stream."""
+        main = torch.cuda.current_stream(self.x.device)
+        side = torch.cuda.Stream(self.x.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._level()
+        main.wait_stream(side)
+
+    def _capture(self) -> None:
+        """Capture one level in a CUDA graph (its own stream and memory
+        pool), the generator registered with it and left where it was."""
+        dev = self.x.device
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        rng = self.generator.get_state()
+        before = kernels.counts()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        # thread_local: another thread's CUDA calls (NCCL's watchdog under
+        # torch.distributed) may not invalidate the capture
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev),
+                              capture_error_mode="thread_local"):
+            self._level()
+        STATS["capture_seconds"] += time.perf_counter() - t0
+        after = kernels.counts()
+        self.recorded = {k: after[k]["launches"] - before[k]["launches"]
+                         for k in after}
+        kernels.add_launches(self.recorded, -1)  # recorded, none launched
+        STATS["captures"] += 1
+        STATS["pool_bytes"] = max(STATS["pool_bytes"],
+                                  torch.cuda.memory_reserved(dev) - reserved)
+        self.generator.set_state(rng)
+        self.graph = graph
 
 
 @torch.no_grad()
@@ -66,18 +305,59 @@ def annealed_langevin_posterior_c2(
         returned iterate is taken. start_level: (B,) int, first active
         level per sample (before it the sample holds its init).
       noise_fn: optional (level, step) -> z (B, Nt, Nr, 2) in place of the
-        generator's draws (lets a test inject another sampler's draws).
+        generator's draws (lets a test inject another sampler's draws);
+        with it the plain loop runs (`annealed_langevin_posterior_c2_plain`),
+        since a draw made in Python cannot be replayed by a graph.
       noise_rows: (n, keep): each step draws z for n rows and keeps rows
         `keep` (a data-parallel rank's rows of its chunk), so a row's
         noise does not depend on how the chunk is split.
 
+    Without noise_fn the schedule runs in a `PosteriorRunner` (on the
+    card, one captured level replayed L times).
+
     Returns (x_final or the captured iterate, nmse trace or None).
     """
+    if noise_fn is not None:
+        return annealed_langevin_posterior_c2_plain(
+            score_fn, A, Y, sigmas, noise_power, x_init, generator,
+            alpha_step=alpha_step, beta_noise=beta_noise,
+            steps_each=steps_each, oracle=oracle,
+            capture_level=capture_level, coef_cap=coef_cap,
+            start_level=start_level, noise_fn=noise_fn,
+            noise_rows=noise_rows)
+    runner = PosteriorRunner(score_fn, sigmas, generator,
+                             steps_each=steps_each, noise_rows=noise_rows)
+    return runner.run(A, Y, noise_power, x_init, alpha_step, beta_noise,
+                      oracle=oracle, capture_level=capture_level,
+                      start_level=start_level, coef_cap=coef_cap)
+
+
+@torch.no_grad()
+def annealed_langevin_posterior_c2_plain(
+    score_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    A: torch.Tensor,
+    Y: torch.Tensor,
+    sigmas: torch.Tensor,
+    noise_power,
+    x_init: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    alpha_step=3e-11,
+    beta_noise=0.01,
+    steps_each: int = 3,
+    oracle: Optional[torch.Tensor] = None,
+    capture_level: Optional[torch.Tensor] = None,
+    coef_cap=None,
+    start_level: Optional[torch.Tensor] = None,
+    noise_fn: Optional[Callable[[int, int], torch.Tensor]] = None,
+    noise_rows: Optional[Tuple[int, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The plain version of `annealed_langevin_posterior_c2`, with the same
+    arguments: a Python loop over levels and steps that indexes sigma and
+    the trace with Python ints. It runs for `noise_fn` callers; the tests
+    and chip_smoke.py hold the runner against it."""
     dev = x_init.device
-    if noise_fn is None and (generator is None
-                             or generator.device.type != dev.type):
-        raise ValueError("pass a torch.Generator on the state's device, or "
-                         "noise_fn")
+    if noise_fn is None:
+        _check_generator(generator, dev)
     A, Y = A.to(dev), Y.to(dev)
     sigmas = sigmas.to(dev, torch.float32)
     sigma_end = sigmas[-1]
@@ -163,9 +443,7 @@ def _drawer(generator: Optional[torch.Generator], noise_fn, dev):
     standard normal draws of the given shapes from `generator`."""
     if noise_fn is not None:
         return lambda lvl, step, shapes: noise_fn(lvl, step)
-    if generator is None or generator.device.type != dev.type:
-        raise ValueError("pass a torch.Generator on the state's device, or "
-                         "noise_fn")
+    _check_generator(generator, dev)
     return lambda lvl, step, shapes: tuple(
         torch.randn(s, generator=generator, device=dev) for s in shapes)
 

@@ -27,7 +27,7 @@ from .. import cplx, physics
 from .._device import resolve_device
 from ..config import Config
 from ..data.dataset import ChannelDataset
-from ..diffusion.sampling import annealed_langevin_posterior_c2
+from ..diffusion.sampling import PosteriorRunner
 from ..diffusion.sigmas import sigmas_from_config, subsample_schedule
 from ..parallel.mesh import pad_to_multiple
 
@@ -113,6 +113,14 @@ def langevin_chunked(
     estimates are all-gathered back into row order, on every rank. Each
     rank draws the whole chunk's Langevin noise and keeps its rows, so at
     a given chunk_size a row's trace does not depend on the world size.
+
+    One `PosteriorRunner` serves every chunk of the call, as one compiled
+    executable serves every chunk in the JAX package: on the card its
+    level is captured once, at the first chunk, and replayed for every
+    level of every chunk. Before each chunk the chunk's inputs are copied
+    into its buffers and its one generator is re-seeded, so each chunk
+    draws what a generator of its own would. A later call captures anew
+    (after training has changed the network, say).
     """
     dev = resolve_device(device)
     B = x2_init.shape[0]
@@ -128,6 +136,15 @@ def langevin_chunked(
     start_level = (per(start_level, torch.int64)
                    if start_level is not None else None)
     coef_cap = per(coef_cap) if coef_cap is not None else None
+
+    noise_rows = None
+    if mesh is not None:  # this rank's rows of each chunk
+        world = mesh.world_size
+        rows = mesh.rows(-(-chunk // world) * world)
+        noise_rows = (chunk, torch.arange(rows.start, rows.stop,
+                                          device=dev).clamp_max(chunk - 1))
+    runner = PosteriorRunner(score_fn, sigmas, torch.Generator(device=dev),
+                             steps_each=steps_each, noise_rows=noise_rows)
 
     t0 = time.time()
     finals, traces = [], []
@@ -146,28 +163,22 @@ def langevin_chunked(
                  coef_cap[sl] if coef_cap is not None else None]
         parts = [None if p is None else pad_to_multiple(p, chunk)[0]
                  for p in parts]
-        noise_rows = None
-        if mesh is not None:  # this rank's rows of the chunk
-            world = mesh.world_size
-            rows = mesh.rows(-(-chunk // world) * world)
+        if mesh is not None:
             parts = [None if p is None else
                      pad_to_multiple(p, world)[0][rows] for p in parts]
-            noise_rows = (chunk, torch.arange(rows.start, rows.stop,
-                                              device=dev).clamp_max(chunk - 1))
         a, y, npow, x0, al, be, orc, cap, slv, ccap = (
             None if p is None else p.to(dev) for p in parts)
-        xf2, trace = annealed_langevin_posterior_c2(
-            score_fn, a, y, sigmas, npow, x0,
-            generator=_generator(seed, start, device=dev),
-            alpha_step=al, beta_noise=be, steps_each=steps_each, oracle=orc,
-            capture_level=cap, start_level=slv, coef_cap=ccap,
-            noise_rows=noise_rows)
+        runner.generator.manual_seed(derive_seed(seed, start))
+        xf2, trace = runner.run(
+            a, y, npow, x0, al, be, oracle=orc, capture_level=cap,
+            start_level=slv, coef_cap=ccap)
         if mesh is not None:
             xf2 = mesh.gather(xf2)
             trace = None if trace is None else mesh.gather(trace, dim=1)
         finals.append(cplx.to_complex(xf2)[:n_valid])
         if trace is not None:
-            traces.append(trace.cpu().numpy()[:, :n_valid])
+            # a copy: on the CPU .cpu() is the runner's buffer itself
+            traces.append(trace.cpu().numpy()[:, :n_valid].copy())
     x_final = np.concatenate(finals, axis=0)
     nmse_log = np.concatenate(traces, axis=1) if traces else None
     return x_final, nmse_log

@@ -21,6 +21,16 @@ def counts() -> dict:
     return {name: dict(mod.COUNTS) for name, mod in KERNEL_MODULES.items()}
 
 
+def add_launches(launches: dict, times: int = 1) -> None:
+    """Add times x launches[name] to each kernel's launch count. A CUDA
+    graph's replay runs the launches that its capture recorded without
+    the wrappers, so its runner counts them here, once a replay (times
+    -1 takes back what the wrappers counted while the capture recorded:
+    a capture launches nothing)."""
+    for name, n in launches.items():
+        KERNEL_MODULES[name].COUNTS["launches"] += times * n
+
+
 def grad_counts() -> dict:
     """{"conv2d_taps": {"functions", "dgrad"}, "instance_norm_plus":
     {"functions", "backward"}} since the last reset: autograd Functions

@@ -15,13 +15,18 @@ import torch
 
 import numpy as np
 
+from score_based_channels_torch import cplx, physics
 from score_based_channels_torch.comms.ldpc import make_wifi_ldpc, minsum_decode
 from score_based_channels_torch.config import ModelConfig
+from score_based_channels_torch.diffusion import sampling
 from score_based_channels_torch.diffusion.sampling import (
-    annealed_langevin_posterior_c2,
+    PosteriorRunner, annealed_langevin_posterior_c2,
+    annealed_langevin_posterior_c2_plain,
 )
 from score_based_channels_torch.diffusion.sigmas import get_sigmas
-from score_based_channels_torch.eval.estimate import score_fn_from_params
+from score_based_channels_torch.eval.estimate import (
+    derive_seed, langevin_chunked, score_fn_from_params,
+)
 from score_based_channels_torch.kernels import (
     conv, conv_chain, conv_im2col, counts, grad_counts, instance_norm,
     ldpc_minsum, reset_counts,
@@ -874,7 +879,9 @@ def test_em_bg_amp_on_the_card_matches_the_cpu(card):
 
 def test_hparam_search_on_the_card_runs_the_kernels(card):
     """The tuner on a tiny network: every forward launches 113 convs and
-    25 norms, no plain call, and the selection is the argmin of its log."""
+    25 norms, no plain call, and the selection is the argmin of its log.
+    The forwards are the posterior runner's: its graph runs the score
+    function in Python only for the eager level 0 and the capture."""
     from score_based_channels_torch.config import Config, DataConfig
     from score_based_channels_torch.eval.tune import run_hparam_search
 
@@ -882,21 +889,24 @@ def test_hparam_search_on_the_card_runs_the_kernels(card):
                  data=DataConfig(num_channels=8))
     model = make_score_model(cfg.model, device=card,
                              generator=torch.Generator().manual_seed(2))
-    nfe = [0]
+    calls = [0]
     score = score_fn_from_params(model)
 
     def counted(x, s):
-        nfe[0] += 1
+        calls[0] += 1
         return score(x, s)
 
     reset_counts()
+    sampling.reset_stats()
     res = run_hparam_search(counted, cfg, snr_range=np.array([0.0, 20.0]),
                             alpha_step_range=(1e-5, 1e-4),
                             beta_noise_range=(0.01, 0.001), num_channels=3,
                             chunk_size=16, device=card)
-    assert nfe[0] == 2 * 4 * 3  # two chunks (24 rows), 4 levels x 3 steps
-    assert counts()["conv2d_taps"] == {"launches": 113 * nfe[0], "plain": 0}
-    assert counts()["instance_norm_plus"] == {"launches": 25 * nfe[0],
+    nfe = sampling.STATS["forwards"]
+    assert nfe == 2 * 4 * 3  # two chunks (24 rows), 4 levels x 3 steps
+    assert calls[0] == 2 * 3  # level 0 and the capture; the rest replayed
+    assert counts()["conv2d_taps"] == {"launches": 113 * nfe, "plain": 0}
+    assert counts()["instance_norm_plus"] == {"launches": 25 * nfe,
                                               "plain": 0}
     assert np.isfinite(res.nmse_log).all()
     s = int(np.argmin(res.avg_nmse.reshape(-1, 2, 12)[:, 1].min(-1)))
@@ -1081,3 +1091,131 @@ def test_nccl_world_size_one_dsm_step_equals_no_group(card, tmp_path):
     assert np.isfinite(dp["trace"]).all()
     assert np.abs(dp["trace"] - one["trace"]).max() <= \
         1e-6 * np.abs(one["trace"]).max()
+
+
+# -- the posterior runner: one captured level, replayed ------------------------
+
+
+def _posterior_case(card, dtype, B=8, levels=5):
+    """A small network (ngf 8) in `dtype` and B rows of the bench's inputs
+    (38 pilots, 10 dB) on the card."""
+    g = torch.Generator().manual_seed(4)
+    mcfg = ModelConfig(ngf=8)
+    model = make_score_model(mcfg, device=card, generator=g)
+    A = cplx.conj_transpose(cplx.qpsk_pilots(g, B, 64, 38))
+    X = cplx.randn(g, (B, 64, 16))
+    npow = float(physics.snr_to_noise_power(10.0, 64))
+    Y = physics.measure_c2(g, A, X, npow)
+    x0 = cplx.randn(g, (B, 64, 16))
+    sig = get_sigmas(mcfg.sigma_begin, mcfg.sigma_end, levels)
+    return (score_fn_from_params(model, dtype), A.to(card), Y.to(card),
+            X.to(card), x0.to(card), npow, sig)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_graph_equals_plain_loop_bitwise_over_two_chunks(card, dtype):
+    """langevin_chunked (one capture, replayed for every level of both
+    chunks) against the plain loop run chunk by chunk, at beta 0.01: the
+    same bits, and launches of 113 convs and 25 norms a forward."""
+    B, chunk, levels, steps, seed = 8, 4, 5, 2, 3
+    score, A, Y, X, x0, npow, sig = _posterior_case(card, dtype, B, levels)
+    cap = torch.arange(B) % levels
+    reset_counts()
+    sampling.reset_stats()
+    xg, tg = langevin_chunked(score, A, Y, sig, npow, x0, seed, 3e-11, 0.01,
+                              steps_each=steps, oracle2=X, chunk_size=chunk,
+                              capture_level=cap, device=card)
+    n, st = counts(), dict(sampling.STATS)
+    assert st["forwards"] == steps * levels * (B // chunk)
+    assert (st["captures"], st["replays"]) == (1, levels * 2 - 1)
+    assert n["conv2d_taps"] == {"launches": 113 * st["forwards"], "plain": 0}
+    assert n["instance_norm_plus"] == {"launches": 25 * st["forwards"],
+                                       "plain": 0}
+    xs, ts = [], []
+    for start in range(0, B, chunk):
+        rows = slice(start, start + chunk)
+        xf, tr = annealed_langevin_posterior_c2_plain(
+            score, A[rows], Y[rows], sig, npow, x0[rows],
+            torch.Generator(device=card).manual_seed(derive_seed(seed,
+                                                                 start)),
+            alpha_step=3e-11, beta_noise=0.01, steps_each=steps,
+            oracle=X[rows], capture_level=cap[rows].to(card))
+        xs.append(cplx.to_complex(xf))
+        ts.append(tr.cpu().numpy())
+    np.testing.assert_array_equal(xg, np.concatenate(xs))
+    np.testing.assert_array_equal(tg, np.concatenate(ts, axis=1))
+
+
+def test_graph_replays_draw_new_noise(card):
+    """With a zero score, zero operator and unit noise scale, every row
+    keeps draw row 0 and latches after level 0, 1, 2: the differences are
+    the draws of the eager level 0 and of replays 1 and 2. A second run,
+    re-seeded, replays all three levels and gives the same bits."""
+    n = 3
+    runner = PosteriorRunner(
+        lambda x, s: torch.zeros_like(x), torch.ones(3),
+        torch.Generator(device=card).manual_seed(1), steps_each=1,
+        noise_rows=(4, torch.zeros(n, dtype=torch.int64, device=card)))
+    args = (torch.zeros(n, 38, 64, 2, device=card),
+            torch.zeros(n, 38, 16, 2, device=card), 1.0,
+            torch.zeros(n, 64, 16, 2, device=card))
+    kw = dict(alpha_step=0.5, beta_noise=1.0,
+              capture_level=torch.arange(n, device=card))
+    x, _ = runner.run(*args, **kw)
+    x = x.clone()
+    z = [x[0], x[1] - x[0], x[2] - x[1]]
+    for zi in z:
+        assert 0.6 < float(zi.std()) < 0.8  # unit complex power: 0.707
+    assert float((z[1] - z[2]).abs().max()) > 0.5
+    assert float((z[0] - z[1]).abs().max()) > 0.5
+    runner.generator.manual_seed(1)
+    again, _ = runner.run(*args, **kw)
+    assert torch.equal(again, x)
+
+
+def test_graph_launch_counts_are_captured_times_replays(card):
+    levels, steps = 4, 2
+    score, A, Y, X, x0, npow, sig = _posterior_case(card, torch.bfloat16,
+                                                    levels=levels)
+    runner = PosteriorRunner(score, sig,
+                             torch.Generator(device=card).manual_seed(0),
+                             steps_each=steps)
+    reset_counts()
+    sampling.reset_stats()
+    runner.run(A, Y, npow, x0, oracle=X)
+    rec = runner.recorded
+    assert rec["conv2d_taps"] == 113 * steps
+    assert rec["instance_norm_plus"] == 25 * steps
+    assert sampling.STATS["replays"] == levels - 1
+    for k in ("conv2d_taps", "instance_norm_plus"):  # eager level 0 + replays
+        assert counts()[k]["launches"] == rec[k] * levels
+    runner.run(A, Y, npow, x0, oracle=X)  # every level replayed
+    assert sampling.STATS["replays"] == 2 * levels - 1
+    assert sampling.STATS["captures"] == 1
+    for k in ("conv2d_taps", "instance_norm_plus"):
+        assert counts()[k]["launches"] == rec[k] * 2 * levels
+        assert counts()[k]["plain"] == 0
+    assert sampling.STATS["pool_bytes"] > 0
+
+
+def test_capture_with_a_host_sync_raises(card):
+    """A score function that reads a value on the host (.item()) runs in
+    the eager level 0 but cannot be captured: the run raises, and nothing
+    falls back to the eager loop. The card stays usable."""
+    def syncing(x, s):
+        return x * (float(s.item()) * 0.0)
+
+    runner = PosteriorRunner(syncing, torch.ones(3),
+                             torch.Generator(device=card).manual_seed(0),
+                             steps_each=1)
+    args = (torch.zeros(2, 38, 64, 2, device=card),
+            torch.zeros(2, 38, 16, 2, device=card), 1.0,
+            torch.ones(2, 64, 16, 2, device=card))
+    with pytest.raises(RuntimeError):
+        runner.run(*args)
+    assert runner.graph is None
+    ok, _ = PosteriorRunner(lambda x, s: torch.zeros_like(x), torch.ones(3),
+                            torch.Generator(device=card).manual_seed(0),
+                            steps_each=1).run(*args, beta_noise=0.0)
+    assert torch.isfinite(ok).all()
+
