@@ -56,7 +56,14 @@ Phases (any failure propagates and the exit code is non-zero):
      gradient), each launched twice for equal bits and timed beside its
      plain version, cuDNN's and its bound; the saved checkpoint read back and
      run through `run_estimation`; ms per step (forward, backward,
-     optimizer+EMA), steps/s and a profiler window;
+     optimizer+EMA), steps/s and a profiler window; `train` runs
+     through the training runner (step 0 eager, one step captured in a
+     CUDA graph, replayed for the others), and the train graph phase
+     (`train_graph_phase`) holds it bit for bit against the eager loop
+     under deterministic algorithms (12 steps across chunk and epoch
+     boundaries), prints their largest difference without, times both
+     in turns, the host's time a replay with the card held, a 3-step
+     profiler window each way, the capture's seconds and pool MB;
   8. the comparison side: `run_ls_baseline`, `run_lasso_baseline` and
      `run_amp_baseline` at their defaults on the card, held per SNR point
      against the CPU on the same draws (0.01, 0.05 and 0.1 dB; lasso and
@@ -95,7 +102,9 @@ Phases (any failure propagates and the exit code is non-zero):
  15. distributed: parallel/mp_smoke.run_smoke on NCCL at world size 1 (2
      data-parallel DSM steps at batch 32 in f32, the checkpoint round trip,
      a sweep chunk on every 100th level from the restored EMA) against the
-     same run with no process group, to 1e-6;
+     same run with no process group, to 1e-6; `ScoreTrainer.train` on
+     the group through the captured step (the all-reduce in the graph),
+     bit for bit the run with no group;
  16. trace: 2 bench forwards under torch.profiler, the exported chrome
      trace read by utils/trace_analysis.summarize and held against the
      profiler's own device total (1%), its top 5 lines;
@@ -1035,6 +1044,7 @@ def train_phase(convs, norms, card, g, ck_path):
         jax_params_to_state_dict, make_score_model,
     )
     from score_based_channels_torch.train import ScoreTrainer
+    from score_based_channels_torch.train import score as train_score
     from score_based_channels_torch.utils.checkpoint import load_checkpoint
 
     cfg = default_score_config("CDL-C")
@@ -1044,19 +1054,24 @@ def train_phase(convs, norms, card, g, ck_path):
     trainer = ScoreTrainer(cfg, device="cuda")
     n_fwd, n_norm = sum(convs.values()), sum(norms.values())
     kernels.reset_counts()
+    train_score.reset_stats()
     t0 = time.perf_counter()
     state, logs = trainer.train(checkpoint_path=ck_path,
                                 log_fn=lambda s: print("# " + s))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     n, ng = kernels.counts(), kernels.grad_counts()
+    run_stats = dict(train_score.STATS)
     steps = state.step
     n_val = len(logs["val_loss"])
     print(f"# train-score CDL-C, ngf 32, batch {TRAIN_BATCH}, f32: "
           f"{steps} steps + {n_val} validations in {train_s:.2f} s "
           f"(data generation and set-up included); launches {n}; "
-          f"gradient work {ng}")
+          f"gradient work {ng}; the runner {run_stats}")
     assert steps == TRAIN_EPOCHS * (200 // TRAIN_BATCH), steps
+    # step 0 eager, one capture, every later step a replay
+    assert (run_stats["steps"], run_stats["captures"],
+            run_stats["replays"]) == (steps, 1, steps - 1), run_stats
     assert np.isfinite(logs["train_loss"]).all(), logs["train_loss"]
     assert np.isfinite(logs["val_loss"]).all(), logs["val_loss"]
     assert any((p - e).abs().max().item() > 0 for p, e in zip(
@@ -1204,7 +1219,9 @@ def train_phase(convs, norms, card, g, ck_path):
           "# train profile: no device time reported (not measured)")
     for name, ms in top:
         print(f"#   {ms / 3:9.3f} ms a step  {name[:90]}")
+    graph = train_graph_phase(trainer, card)
     return dict(steps=steps, seconds=train_s, counts=n, grad_counts=ng,
+                runner=run_stats, graph=graph,
                 train_loss=logs["train_loss"].tolist(),
                 val_loss=logs["val_loss"].tolist(), grad_check_worst=worst,
                 grad_check_loss_rel=loss_rel, trained_grad=trained,
@@ -1214,6 +1231,202 @@ def train_phase(convs, norms, card, g, ck_path):
                 steps_per_s=steps_per_s, split_ms=split,
                 profile_wall_ms=wall_ms, profile_busy_ms=busy,
                 profile_top=top)
+
+
+TRAIN_GRAPH_CHANNELS = 64  # 2 steps an epoch at batch 32 ...
+TRAIN_GRAPH_EPOCHS = 6     # ... 12 steps in chunks of 5, 5 and 2
+TRAIN_GRAPH_LOG_EVERY = 5
+TRAIN_TURN_STEPS = 20      # steps a timed run, each way
+EAGER_RUN_SPREAD = 1.1e-5  # two eager runs, norm-wise (ROADMAP §3)
+QUEUE_WAIT_S = 5e-3        # a run longer than this waited for the card
+
+
+def train_graph_config(data_parallel=True):
+    """CDL-C at full width in f32, batch 32, 64 realizations: 12 steps over
+    chunks of 5, 5 and 2 that cross five epoch boundaries."""
+    from score_based_channels_torch.config import (
+        TrainingConfig, default_score_config,
+    )
+
+    cfg = default_score_config("CDL-C")
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, num_channels=TRAIN_GRAPH_CHANNELS),
+        training=TrainingConfig(batch_size=TRAIN_BATCH,
+                                n_epochs=TRAIN_GRAPH_EPOCHS,
+                                log_every_steps=TRAIN_GRAPH_LOG_EVERY,
+                                data_parallel=data_parallel))
+
+
+def train_run(cfg, capture=True):
+    """(state, logs) of ScoreTrainer.train on cfg, through the captured
+    step or (capture False) the same steps run eagerly."""
+    from score_based_channels_torch.train import ScoreTrainer
+
+    trainer = ScoreTrainer(cfg, device="cuda")
+    trainer._capture = capture
+    return trainer.train(log_fn=lambda s: None)
+
+
+def train_runs_differ(a, b):
+    """(equal bit for bit, the largest norm-wise relative difference over
+    the parameter, EMA and moment tensors, the largest relative difference
+    over the train and validation losses) of two train_run results."""
+    (sa, la), (sb, lb) = a, b
+    pairs = [(p, q) for m, n in ((sa.model, sb.model), (sa.ema, sb.ema))
+             for p, q in zip(m.parameters(), n.parameters())]
+    pairs += [(p, q) for k in sa.opt.moments
+              for p, q in zip(sa.opt.moments[k], sb.opt.moments[k])]
+    same = (all(torch.equal(p, q) for p, q in pairs)
+            and sa.opt.count == sb.opt.count and sa.step == sb.step
+            and all(np.array_equal(la[k], lb[k])
+                    for k in ("train_loss", "val_loss")))
+    norm = max(float(torch.linalg.norm(p - q) / torch.linalg.norm(q))
+               for p, q in pairs if torch.linalg.norm(q) > 0)
+    loss = max(float(np.max(np.abs(la[k] - lb[k]) / np.abs(lb[k])))
+               for k in ("train_loss", "val_loss"))
+    return same, norm, loss
+
+
+def train_graph_phase(trainer, card):
+    """The training graph (in phase 7), full width, f32, batch 32: two
+    `ScoreTrainer.train` runs from one seed, through the captured step and
+    through the eager loop, equal bit for bit under deterministic
+    algorithms (12 steps over chunks of 5, 5 and 2 and five epoch
+    boundaries), and their largest difference without; then on one state,
+    runs of TRAIN_TURN_STEPS steps in turns (eager, graph, graph, eager),
+    synchronised, after the capture; the host's time a replay with the card
+    held by a spin kernel (a graph run of every step; an eager run of one
+    step beside it); the device busy share of a 3-step profiler window each
+    way and the top device ops a step under the graph; the capture's
+    seconds and the graph pool's MB."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from score_based_channels_torch.data import ChannelDataset
+    from score_based_channels_torch.kernels.launch_cost import spin_cycles
+    from score_based_channels_torch.train import TrainChunkRunner
+    from score_based_channels_torch.train import score as train_score
+    from score_based_channels_torch.train.score import matmul_precision
+
+    cfg = train_graph_config()
+    with deterministic_algorithms():
+        det = train_runs_differ(train_run(cfg), train_run(cfg, False))
+    eager_run = train_run(cfg, False)
+    free = train_runs_differ(train_run(cfg), eager_run)
+    spread = train_runs_differ(train_run(cfg, False), eager_run)
+    print(f"# train graph vs eager loop, full width f32, {TRAIN_GRAPH_EPOCHS}"
+          f" epochs of {TRAIN_GRAPH_CHANNELS // TRAIN_BATCH} steps in chunks "
+          f"of {TRAIN_GRAPH_LOG_EVERY}: under deterministic algorithms "
+          f"bit-equal {det[0]} (parameters, EMA, moments, count, losses; "
+          f"largest norm-wise {det[1]:.2e}); without, largest norm-wise "
+          f"difference {free[1]:.2e}, losses {free[2]:.2e}; two eager runs "
+          f"of the same 12 steps {spread[1]:.2e}, losses {spread[2]:.2e} "
+          f"(after 2 steps: up to {EAGER_RUN_SPREAD:g})", flush=True)
+    assert det[0], det
+
+    # in turns on one state: the runners share its optimizer table
+    state = trainer.init_state(0)
+    x_all = ChannelDataset(1234, trainer.config,
+                           norm=trainer.config.data.norm_channels
+                           ).network_input().cuda()
+    n = TRAIN_TURN_STEPS
+    gi = torch.Generator().manual_seed(3)
+    idx = torch.stack([torch.randperm(x_all.shape[0], generator=gi)
+                       [:TRAIN_BATCH] for _ in range(n)]).cuda()
+    seeds = list(range(n))
+    gen = torch.Generator(device="cuda")
+    with matmul_precision("highest"):
+        train_score.reset_stats()
+        graph = TrainChunkRunner(trainer.update, state, x_all, TRAIN_BATCH,
+                                 n, gen, 20 * n)
+        eager = TrainChunkRunner(trainer.update, state, x_all, TRAIN_BATCH,
+                                 n, gen, 20 * n, capture=False)
+        _, first_s = timed(lambda: graph.run(idx, seeds))
+        stats = dict(train_score.STATS)
+        rec, rec_grad = graph.recorded, graph.recorded_grad
+        print(f"#   first graph run of {n} steps {first_s:.3f} s (step 0 "
+              f"eager, capture {stats['capture_seconds']:.3f} s, graph pool "
+              f"{stats['pool_bytes'] / 2**20:.1f} MB); a replay records "
+              f"{rec['conv2d_taps']} conv + {rec['instance_norm_plus']} norm "
+              f"launches, gradient work {rec_grad}", flush=True)
+        assert rec["conv2d_taps"] == 225 and rec["instance_norm_plus"] == 25
+        assert rec_grad == {"conv2d_taps": {"functions": 113, "dgrad": 112},
+                            "instance_norm_plus": {"functions": 25,
+                                                   "backward": 25}}, rec_grad
+        runs = {"eager": lambda: eager.run(idx, seeds),
+                "graph": lambda: graph.run(idx, seeds)}
+        secs = {"eager": [], "graph": []}
+        for way in ("eager", "graph", "graph", "eager"):
+            secs[way].append(timed(runs[way])[1])
+        sps = {k: [n / v for v in vs] for k, vs in secs.items()}
+        print(f"#   steps/s in turns (eager, graph, graph, eager), {n} steps "
+              f"a run, synchronised: eager {[round(v, 3) for v in sps['eager']]}"
+              f", graph {[round(v, 3) for v in sps['graph']]} on {card}")
+
+        # the host's time with the card held by a spin: n graph runs of
+        # one step, each timed on its own. A replay of the step's ~1,700
+        # launches takes many entries of the launch queue (some ten
+        # replays fill it on an H100): once the replays queued behind
+        # the spin fill it, each run waits for a replay to finish (a
+        # step's card time). So the host's own time a replay is the median
+        # of the runs before the first that waits, and the count of those
+        # is how many replays the queue holds. Then one eager step, whose
+        # ~1,700 launches fill the queue too.
+        cycles = spin_cycles(GRAPH_HOLD_MS)
+        host, held = {"eager": [], "graph": []}, {"eager": [], "graph": []}
+        for way in ("graph", "eager", "graph"):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cycles)
+            times = []
+            for i in range(n if way == "graph" else 1):
+                t0 = time.perf_counter()
+                (graph if way == "graph" else eager).run(idx[i:i + 1],
+                                                         seeds[i:i + 1])
+                times.append(time.perf_counter() - t0)
+            held[way].append(not torch.cuda.current_stream().query())
+            host[way].append(times)
+            torch.cuda.synchronize()
+        queued = [next((i for i, t in enumerate(ts) if t > QUEUE_WAIT_S),
+                       len(ts)) for ts in host["graph"]]
+        us_step = {"graph": [float(np.median(ts[:q])) * 1e6 for ts, q in
+                             zip(host["graph"], queued)],
+                   "eager": [ts[0] * 1e6 for ts in host["eager"]]}
+        print(f"#   host time a step, card held ({GRAPH_HOLD_MS:.0f} ms spin; "
+              f"held after the runs {held}): graph, one-step runs, median "
+              f"{[round(v, 1) for v in us_step['graph']]} us a replay over "
+              f"the {queued} runs before the first that waited for the "
+              f"launch queue (of {n}; the others: the card's step time); "
+              f"eager, a run of 1 step "
+              f"{[round(v, 1) for v in us_step['eager']]} us")
+        assert all(held["graph"]) and min(queued) > 0, (held, queued)
+
+        windows = {}
+        for way, runner in (("eager", eager), ("graph", graph)):
+            runner.run(idx[:3], seeds[:3])
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                runner.run(idx[:3], seeds[:3])
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            by_name = device_ms_by_name(prof)
+            busy = sum(by_name.values())
+            windows[way] = dict(wall_ms=wall_ms, busy_ms=busy,
+                                top=sorted(by_name.items(),
+                                           key=lambda kv: -kv[1])[:12])
+            print(f"#   profile, 3 steps, {way}: wall {wall_ms:.1f} ms, "
+                  f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%)"
+                  if busy else f"#   profile, 3 steps, {way}: no device "
+                  f"time reported (not measured)")
+        for name, ms in windows["graph"]["top"]:
+            print(f"#     {ms / 3:9.3f} ms a step  {name[:90]}")
+    return dict(bit_equal_deterministic=det[0], det_norm=det[1],
+                free_norm=free[1], free_loss=free[2], eager_spread_norm=
+                spread[1], eager_spread_loss=spread[2], first_run_seconds=
+                first_s, stats=stats, recorded=rec, recorded_grad=rec_grad,
+                seconds=secs, steps_per_s=sps, host_seconds_held=host,
+                host_us_per_step_held=us_step, held=held,
+                replays_queued=queued, windows=windows)
 
 
 EVAL_LEVELS = 24       # levels of the tuner's and MMSE's schedule ...
@@ -2293,8 +2506,11 @@ def distributed_phase():
     from score_based_channels_torch.parallel import multihost
     from score_based_channels_torch.parallel.mp_smoke import run_smoke
 
+    from score_based_channels_torch.train import score as train_score
+
     mcfg = ModelConfig()
     sig, scale = subsample_schedule(sigmas_from_config(mcfg), DIST_STRIDE)
+    train_cfg = train_graph_config(data_parallel=True)
     # the WGAN phase's inversion leaves ~76 GiB in the caching allocator;
     # NCCL allocates its buffers outside it, and fails on a full card
     torch.cuda.empty_cache()
@@ -2319,11 +2535,19 @@ def distributed_phase():
                 launches = kernels.counts()
                 grads = kernels.grad_counts()
                 sweep = dict(sampling.STATS)
+                # ScoreTrainer.train on the group: the gradients' all-reduce
+                # inside the captured step
+                train_score.reset_stats()
+                t0 = time.perf_counter()
+                train_dp = train_run(train_cfg)
+                train_dp_s = time.perf_counter() - t0
+                train_stats = dict(train_score.STATS)
             finally:
                 dist.destroy_process_group()
             t0 = time.perf_counter()
             one = run_smoke(ckpt_path=os.path.join(tmp, "one.npz"), **kw)
             one_s = time.perf_counter() - t0
+            train_same = train_runs_differ(train_dp, train_run(train_cfg))
     for k in ("conv2d_taps", "instance_norm_plus"):
         assert launches[k]["launches"] > 0 and launches[k]["plain"] == 0, \
             launches
@@ -2349,7 +2573,16 @@ def distributed_phase():
           flush=True)
     assert np.isfinite(dp["trace"]).all()
     assert max(loss_err, par_err, trace_err) <= DIST_TOL
-    return dict(seconds=dp_s, seconds_no_group=one_s, losses=dp["losses"],
+    print(f"# distributed ScoreTrainer.train (NCCL, world 1, the all-reduce "
+          f"in the captured step): {train_dp[0].step} steps in "
+          f"{train_dp_s:.2f} s, the runner {train_stats}; bit-equal to no "
+          f"group: {train_same[0]} (largest norm-wise {train_same[1]:.2e})",
+          flush=True)
+    assert train_stats["captures"] == 1, train_stats
+    assert train_same[0], train_same
+    return dict(train_seconds=train_dp_s, train_runner=train_stats,
+                train_bit_equal=train_same[0],
+                seconds=dp_s, seconds_no_group=one_s, losses=dp["losses"],
                 nmse_db=dp["nmse_db"], loss_err=loss_err, param_err=par_err,
                 trace_err=trace_err, levels=int(sig.shape[0]),
                 launches=launches, grad_counts=grads, sweep=sweep)

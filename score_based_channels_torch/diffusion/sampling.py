@@ -26,12 +26,11 @@ against ~4.3 ms of card time per bf16 forward at batch 256.
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from .. import cplx, kernels
+from .. import _graph, cplx, kernels
 
 # Counts of the posterior runner since `reset_stats`: forwards and levels
 # run on the device (eager or replayed), graph captures and replays,
@@ -234,40 +233,15 @@ class PosteriorRunner:
 
     def _warm_up(self) -> None:
         """Level 0 eagerly, on a side stream."""
-        main = torch.cuda.current_stream(self.x.device)
-        side = torch.cuda.Stream(self.x.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            self._level()
-        main.wait_stream(side)
+        _graph.on_side_stream(self._level, self.x.device)
 
     def _capture(self) -> None:
-        """Capture one level in a CUDA graph (its own stream and memory
-        pool), the generator registered with it and left where it was."""
-        dev = self.x.device
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
-        rng = self.generator.get_state()
-        before = kernels.counts()
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        # thread_local: another thread's CUDA calls (NCCL's watchdog under
-        # torch.distributed) may not invalidate the capture
-        with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev),
-                              capture_error_mode="thread_local"):
-            self._level()
-        STATS["capture_seconds"] += time.perf_counter() - t0
-        after = kernels.counts()
-        self.recorded = {k: after[k]["launches"] - before[k]["launches"]
-                         for k in after}
-        kernels.add_launches(self.recorded, -1)  # recorded, none launched
+        """Capture one level (`_graph.capture`)."""
+        cap = _graph.capture(self._level, self.generator, self.x.device)
+        self.graph, self.recorded = cap.graph, cap.launches
         STATS["captures"] += 1
-        STATS["pool_bytes"] = max(STATS["pool_bytes"],
-                                  torch.cuda.memory_reserved(dev) - reserved)
-        self.generator.set_state(rng)
-        self.graph = graph
+        STATS["capture_seconds"] += cap.seconds
+        STATS["pool_bytes"] = max(STATS["pool_bytes"], cap.pool_bytes)
 
 
 @torch.no_grad()

@@ -8,8 +8,13 @@ On the card every training step's forward runs the port's `conv2d_taps`
 and `instance_norm_plus` kernels, and the convs' input gradients run
 `conv2d_taps` too (kernels/conv.py, kernels/instance_norm.py). The whole
 training tensor is staged on the device once; each step gathers its batch
-there. Losses stay on the device and come to the host once a
-`log_every_steps` chunk, as the JAX package's scanned chunk returns them.
+there. The JAX package runs a `log_every_steps` chunk as one `lax.scan`
+of its jitted step (train_chunk:107); here `TrainChunkRunner` runs the
+chunk on static buffers, and on the card one step (forward, backward,
+optimizer, EMA) is captured once a `train` call in a CUDA graph and
+replayed for every later step, so the host no longer issues the step's
+~1,700 launches one by one. Losses stay on the device and come to the
+host once a chunk, as the scanned chunk returns them.
 
 Random streams: the JAX package splits one key; here each stream is a
 `torch.Generator` seeded from (seed, purpose, index) with numpy's
@@ -43,6 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import _graph, kernels
 from .._device import resolve_device
 from ..config import Config
 from ..data.dataset import ChannelDataset
@@ -63,6 +69,7 @@ from ..utils.metrics import MetricsLogger
 # state starts with its step count
 _MOMENTS = {"adam": ("mu", "nu"), "amsgrad": ("mu", "nu", "nu_max"),
             "rmsprop": ("nu",), "sgd": ("trace",)}
+_ADAM = ("adam", "amsgrad")  # the rules with a count and bias corrections
 
 
 class Optimizer:
@@ -82,6 +89,15 @@ class Optimizer:
     `schedule`, when given, maps the update's 0-based index to its
     learning rate in place of `optim_cfg.lr` (optax's
     `scale_by_schedule`, e.g. `staircase_decay`).
+
+    The Adam family's bias corrections depend on the count. They come
+    from `table`, a float32 device tensor with one row (1 - b1^c,
+    1 - b2^c) per count c = 1, 2, ..., made on the host with optax's
+    float32 arithmetic, at the row of `count_t`, a 0-d int64 device
+    counter that each update advances: an update then takes no host value
+    that changes from step to step, so a CUDA graph of it (the training
+    runner's) serves every step. `count` stays the host's int and the
+    checkpoint's.
     """
 
     def __init__(self, named_params, optim_cfg,
@@ -101,15 +117,42 @@ class Optimizer:
         self.moments: Dict[str, List[torch.Tensor]] = {
             m: [torch.zeros_like(p) for p in self.params]
             for m in _MOMENTS[self.rule]}
+        self.table: Optional[torch.Tensor] = None
+        self.count_t = torch.zeros((), dtype=torch.int64,
+                                   device=self.params[0].device)
+
+    def reserve(self, n: int) -> None:
+        """Make `table` hold the rows of the next n updates (a new tensor
+        when it grows: a CUDA graph that read the old one no longer
+        serves)."""
+        rows = 0 if self.table is None else self.table.shape[0]
+        if self.rule not in _ADAM or self.count + n <= rows:
+            return
+        b = (np.float32(self.cfg.beta1), np.float32(self.cfg.beta2))
+        # optax's bias corrections: 1 - decay**count in float32
+        tab = np.asarray([[1 - d ** np.float32(c) for d in b] for c in
+                          range(1, max(self.count + n, 2 * rows) + 1)],
+                         np.float32)
+        self.table = torch.from_numpy(tab).to(self.count_t.device)
 
     @torch.no_grad()
     def step(self) -> None:
         """One update from each parameter's .grad."""
+        self.update()
+        self.count += 1
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """The update's device work alone (what `step` and a captured
+        training step run): `count` is the caller's to advance. The table
+        grows here only when it lacks the row of `count` + 1, which a
+        runner reserves before its capture. With a schedule the learning
+        rate is the host's value at `count`."""
+        self.reserve(1)
         c, p = self.cfg, self.params
         g = [q.grad for q in p]
         lr = c.lr if self.schedule is None else self.schedule(self.count)
-        self.count += 1
-        if self.rule in ("adam", "amsgrad"):
+        if self.rule in _ADAM:
             if c.weight_decay:
                 g = torch._foreach_add(g, torch._foreach_mul(p, c.weight_decay))
             mu, nu = self.moments["mu"], self.moments["nu"]
@@ -118,9 +161,8 @@ class Optimizer:
             torch._foreach_mul_(nu, c.beta2)
             torch._foreach_add_(nu, torch._foreach_mul(g, g),
                                 alpha=1.0 - c.beta2)
-            # optax's bias corrections: 1 - decay**count in float32
-            bc1 = float(1 - np.float32(c.beta1) ** np.float32(self.count))
-            bc2 = float(1 - np.float32(c.beta2) ** np.float32(self.count))
+            bc1, bc2 = self.table.index_select(0, self.count_t.view(1))[0]
+            self.count_t.add_(1)
             m_hat = torch._foreach_div(mu, bc1)
             v_hat = torch._foreach_div(nu, bc2)
             if self.rule == "amsgrad":
@@ -153,7 +195,7 @@ class Optimizer:
         then each moment's leaves in the JAX package's parameter order and
         layout."""
         leaves = ([np.asarray(self.count, np.int32)]
-                  if self.rule in ("adam", "amsgrad") else [])
+                  if self.rule in _ADAM else [])
         for m in _MOMENTS[self.rule]:
             leaves += tree_leaves(state_dict_to_jax_params(
                 dict(zip(self.names, self.moments[m]))))
@@ -167,8 +209,9 @@ class Optimizer:
         leaves = list(leaves)
         if self.schedule is not None:
             leaves.pop()
-        if self.rule in ("adam", "amsgrad"):
+        if self.rule in _ADAM:
             self.count = int(leaves.pop(0))
+            self.count_t.fill_(self.count)
         paths = tree_paths(state_dict_to_jax_params(dict(zip(self.names,
                                                              self.params))))
         if len(leaves) != len(paths) * len(_MOMENTS[self.rule]):
@@ -205,21 +248,24 @@ class ScoreTrainState:
     step: int
 
 
-def make_score_train_step(sigmas: torch.Tensor, ema_rate: float,
-                          anneal_power: float,
-                          mesh: Optional[Mesh] = None) -> Callable:
-    """-> step(state, x, generator, labels=None, noise=None): the DSM loss
-    at the current parameters, backward, the optimizer step, the EMA
-    update; returns the loss as a 0-dim device tensor (no host sync).
+def make_score_update(sigmas: torch.Tensor, ema_rate: float,
+                      anneal_power: float,
+                      mesh: Optional[Mesh] = None) -> Callable:
+    """-> update(state, x, generator, labels=None, noise=None): the DSM loss
+    at the current parameters, backward, the optimizer's `update`, the EMA
+    update; returns the loss as a 0-dim device tensor. It reads no host
+    value that changes between steps and leaves the host's counts
+    (`state.step`, `state.opt.count`) to its caller, so one capture of it
+    serves every step (`TrainChunkRunner`).
 
     With a mesh, x, labels and noise are the whole batch; this rank's
     loss is the mean over its rows (`mesh.rows`), and the gradients and
     the returned loss are all-reduced to their mean over the ranks."""
 
-    def step(state: ScoreTrainState, x: torch.Tensor,
-             generator: Optional[torch.Generator] = None,
-             labels: Optional[torch.Tensor] = None,
-             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def update(state: ScoreTrainState, x: torch.Tensor,
+               generator: Optional[torch.Generator] = None,
+               labels: Optional[torch.Tensor] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         rows = mesh.rows(x.shape[0]) if mesh is not None else None
         loss = anneal_dsm_loss(state.model, x, sigmas, generator, labels,
                                noise, anneal_power, rows=rows)
@@ -228,12 +274,207 @@ def make_score_train_step(sigmas: torch.Tensor, ema_rate: float,
         loss = loss.detach()
         if mesh is not None:
             mesh.mean([p.grad for p in state.opt.params] + [loss])
-        state.opt.step()
+        state.opt.update()
         ema_update(state.ema, state.model, ema_rate)
+        return loss
+
+    return update
+
+
+def make_score_train_step(sigmas: torch.Tensor, ema_rate: float,
+                          anneal_power: float,
+                          mesh: Optional[Mesh] = None) -> Callable:
+    """-> step(state, x, generator, labels=None, noise=None): one eager
+    training step (the JAX package's `train_step`), `make_score_update`'s
+    work and the host's counts; returns the loss as a 0-dim device tensor
+    (no host sync)."""
+    update = make_score_update(sigmas, ema_rate, anneal_power, mesh)
+
+    def step(state: ScoreTrainState, x: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             labels: Optional[torch.Tensor] = None,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        loss = update(state, x, generator, labels, noise)
+        state.opt.count += 1
         state.step += 1
         return loss
 
     return step
+
+
+# Counts of the training runner since `reset_stats`: steps run on the
+# device (eager or replayed), graph captures and replays, seconds spent
+# capturing and the largest graph memory pool (bytes the capture reserved
+# for one step's activations, gradients and temporaries).
+STATS = dict(steps=0, captures=0, replays=0, capture_seconds=0.0,
+             pool_bytes=0)
+
+
+def reset_stats() -> None:
+    """Set the runner's counts in STATS to 0."""
+    for k in STATS:
+        STATS[k] = type(STATS[k])(0)
+
+
+class TrainChunkRunner:
+    """The JAX package's `train_chunk` (train/score.py:107): chunks of DSM
+    training steps on static buffers, one `update` (`make_score_update`)
+    a step.
+
+    `run(idx, seeds)` copies the chunk's batch indices into the runner's
+    (chunk_len, batch) buffer, resets the step-in-chunk counter and runs
+    one step per row: the batch gathered from the staged `x_all` at the
+    counter's row, the generator seeded from that step's seed first (the
+    labels and noise of the step), the loss written into its row of the
+    loss buffer, the counter advanced. It returns the loss buffer's first
+    n rows (the next run overwrites them) and advances the host's counts
+    (`state.step`, `state.opt.count`) once a step.
+    - On the CPU, and on the card when `capture` is False (the eager loop
+      the graph is held against), it calls the step once a step.
+    - On the card, at the first run, step 0 runs eagerly on a side stream
+      (so the first launch of every conv, dgrad and norm shape and of
+      every cuDNN weight gradient, with its build, `cudaFuncSetAttribute`,
+      occupancy query and algorithm choice, happens outside a capture);
+      then one step is captured in a `torch.cuda.CUDAGraph`, with the
+      generator registered, and replayed for every later step of every
+      run. Re-seeding the generator before a replay starts that replay's
+      draws from the seed, as the eager step's.
+    Nothing inside the step makes a tensor from host data, reads a Python
+    value that changes between steps or synchronises with the host: the
+    optimizer's bias corrections come from its device table at its device
+    counter (`Optimizer.update`), which the runner sets from the count
+    when it is built. A capture that fails raises; nothing falls back to
+    the eager loop. The graph reads the parameters, EMA, moments, x_all
+    and the optimizer's table in place: a state whose tensors are
+    replaced, or an optimizer whose table grew, needs a new runner (a run
+    checks the table). With a learning-rate schedule the rate would be
+    frozen at the capture's, so a runner refuses one.
+
+    Every run takes the same inputs as the first: with or without
+    `labels` and `noise` (the (n, batch) labels and (n, *x.shape[1:])
+    unit noise to use in place of the generator's draws), at most
+    chunk_len steps of `batch` rows.
+
+    Counts: the capture records one step's kernel launches and gradient
+    work (the wrappers count them as they are recorded); the runner takes
+    them back, since a capture launches nothing, and adds them once a
+    replay (`recorded`), so `kernels.counts()` and `kernels.grad_counts()`
+    hold what ran on the card. STATS counts the steps run.
+    """
+
+    def __init__(self, update: Callable, state: ScoreTrainState,
+                 x_all: torch.Tensor, batch: int, chunk_len: int,
+                 generator: torch.Generator, updates: int,
+                 capture: bool = True):
+        if state.opt.schedule is not None:
+            raise ValueError("a captured step would keep the first step's "
+                             "learning rate: the runner takes no schedule")
+        dev = x_all.device
+        if generator.device.type != dev.type:
+            raise ValueError("the generator lies on another device than "
+                             "x_all")
+        self.update, self.state, self.x_all = update, state, x_all
+        self.generator = generator
+        self.capture = capture and dev.type == "cuda"
+        self.idx = torch.zeros((chunk_len, batch), dtype=torch.int64,
+                               device=dev)
+        self.losses = torch.zeros(chunk_len, dtype=torch.float32, device=dev)
+        self.k = torch.zeros((), dtype=torch.int64, device=dev)
+        self.draws = None        # (labels, noise) buffers, when given
+        self.runs = 0
+        self.warmed = False
+        self.graph = None
+        self.recorded = None     # kernel name -> launches a replay makes
+        self.recorded_grad = None  # kernel name -> gradient work a replay
+        state.opt.reserve(updates)
+        state.opt.count_t.fill_(state.opt.count)
+        self.table = state.opt.table
+
+    def run(self, idx: torch.Tensor, seeds,
+            labels: Optional[torch.Tensor] = None,
+            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Run len(seeds) steps on the batches idx (n, batch) -> the (n,)
+        losses, the runner's buffer."""
+        n = len(seeds)
+        if tuple(idx.shape) != (n, self.idx.shape[1]) or n > len(self.idx):
+            raise ValueError(f"a run takes at most {len(self.idx)} steps of "
+                             f"{self.idx.shape[1]} rows: got idx "
+                             f"{tuple(idx.shape)} for {n} seeds")
+        opt = self.state.opt
+        opt.reserve(n)
+        if opt.table is not self.table:
+            raise RuntimeError("the optimizer's table grew past the updates "
+                               "this runner was built for")
+        self.idx[:n].copy_(idx)
+        self._load_draws(labels, noise, n)
+        self.k.zero_()
+        for seed in seeds:
+            self.generator.manual_seed(seed)
+            if not self.capture:
+                self._step()
+            elif not self.warmed:
+                self._warm_up()
+            else:
+                if self.graph is None:
+                    self._capture()
+                self.graph.replay()
+                kernels.add_launches(self.recorded)
+                kernels.add_grad_counts(self.recorded_grad)
+                STATS["replays"] += 1
+            STATS["steps"] += 1
+            opt.count += 1
+            self.state.step += 1
+        self.runs += 1
+        return self.losses[:n]
+
+    def _load_draws(self, labels, noise, n) -> None:
+        given = labels is not None, noise is not None
+        if given[0] != given[1]:
+            raise ValueError("pass labels and noise together")
+        if self.runs == 0 and given[0]:
+            L, B = self.idx.shape
+            self.draws = (
+                torch.zeros((L, B), dtype=torch.int64, device=self.k.device),
+                torch.zeros((L, B) + tuple(self.x_all.shape[1:]),
+                            dtype=self.x_all.dtype, device=self.k.device))
+        if given[0] != (self.draws is not None):
+            raise ValueError("a runner's runs take the same inputs: labels "
+                             "and noise in every run or in none")
+        if self.draws is not None:
+            for buf, v in zip(self.draws, (labels, noise)):
+                if tuple(v.shape) != (n,) + tuple(buf.shape[1:]):
+                    raise ValueError(f"draws of shape {tuple(v.shape)} for "
+                                     f"{n} steps of {tuple(buf.shape[1:])}")
+                buf[:n].copy_(v)
+
+    def _step(self) -> None:
+        """One step on the buffers: the batch and draws at row k, the
+        update, the loss into row k, k += 1."""
+        row = self.k.view(1)
+        x = self.x_all.index_select(0, self.idx.index_select(0, row).view(-1))
+        labels = noise = None
+        if self.draws is not None:
+            labels, noise = (d.index_select(0, row).squeeze(0)
+                             for d in self.draws)
+        loss = self.update(self.state, x, self.generator, labels, noise)
+        self.losses.index_copy_(0, row, loss.view(1))
+        self.k.add_(1)
+
+    def _warm_up(self) -> None:
+        """Step 0 eagerly on a side stream, then the gradients dropped, so
+        that the captured backward makes its own in the graph's pool."""
+        _graph.on_side_stream(self._step, self.k.device)
+        self.state.opt.zero_grad()
+        self.warmed = True
+
+    def _capture(self) -> None:
+        """Capture one step (`_graph.capture`)."""
+        cap = _graph.capture(self._step, self.generator, self.k.device)
+        self.graph = cap.graph
+        self.recorded, self.recorded_grad = cap.launches, cap.grad
+        STATS["captures"] += 1
+        STATS["capture_seconds"] += cap.seconds
+        STATS["pool_bytes"] = max(STATS["pool_bytes"], cap.pool_bytes)
 
 
 def make_eval_loss(sigmas: torch.Tensor, anneal_power: float,
@@ -290,9 +531,15 @@ class ScoreTrainer:
                    and torch.distributed.is_initialized())
         self.mesh = (make_mesh() if grouped and config.training.data_parallel
                      else None)
+        self.update = make_score_update(
+            self.sigmas, config.model.ema_rate, config.training.anneal_power,
+            self.mesh)
         self.train_step = make_score_train_step(
             self.sigmas, config.model.ema_rate, config.training.anneal_power,
             self.mesh)
+        # `train` captures its step on the card; False runs the same steps
+        # eagerly, the loop the graph is held against (tests, chip_smoke)
+        self._capture = True
         self.eval_loss = make_eval_loss(self.sigmas,
                                         config.training.anneal_power,
                                         self.mesh)
@@ -371,20 +618,26 @@ class ScoreTrainer:
         t0 = time.time()
         done = start_step
         with matmul_precision(cfg.training.matmul_precision):
+            runner = TrainChunkRunner(self.update, state, x_all, batch,
+                                      chunk_len, gen,
+                                      max(0, total_steps - done),
+                                      capture=self._capture)
             while done < total_steps:
-                losses = []
-                for s in range(done, min(done + chunk_len, total_steps)):
+                steps = range(done, min(done + chunk_len, total_steps))
+                idx = []
+                for s in steps:
                     epoch, i = divmod(s, steps_per_epoch)
                     if epoch != perm_epoch:
                         perm = torch.randperm(n, generator=torch.Generator()
                                               .manual_seed(derive_seed(
-                                                  rng_seed, 1, epoch))).to(dev)
+                                                  rng_seed, 1, epoch)))
                         perm_epoch = epoch
-                    x = x_all[perm[i * batch:(i + 1) * batch]]
-                    gen.manual_seed(derive_seed(rng_seed, 2, s))
-                    losses.append(self.train_step(state, x, gen))
+                    idx.append(perm[i * batch:(i + 1) * batch])
+                losses = runner.run(torch.stack(idx),
+                                    [derive_seed(rng_seed, 2, s)
+                                     for s in steps])
                 done += len(losses)
-                chunk = torch.stack(losses).cpu().tolist()  # one sync a chunk
+                chunk = losses.cpu().tolist()  # one sync a chunk
                 for loss_f in chunk:
                     running = (loss_f if running is None
                                else 0.99 * running + 0.01 * loss_f)

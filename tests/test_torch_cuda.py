@@ -1219,3 +1219,128 @@ def test_capture_with_a_host_sync_raises(card):
                             steps_each=1).run(*args, beta_noise=0.0)
     assert torch.isfinite(ok).all()
 
+
+
+# -- the training runner: one DSM step captured, replayed for every step -----
+
+def _train_graph_config(**training):
+    """ngf 8, 12 classes, 32 realizations at batch 8 (4 steps an epoch), 3
+    epochs in chunks of 5: 12 steps over chunks 5, 5, 2 that cross the
+    epoch boundaries."""
+    from score_based_channels_torch.config import (
+        Config, DataConfig, TrainingConfig,
+    )
+
+    return Config(model=ModelConfig(ngf=8, num_classes=12),
+                  training=TrainingConfig(batch_size=8, n_epochs=3,
+                                          log_every_steps=5, **training),
+                  data=DataConfig(num_channels=32))
+
+
+@pytest.fixture
+def deterministic():
+    """torch.use_deterministic_algorithms(True) for the test: two eager
+    training runs on the card differ otherwise (ROADMAP §3)."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+
+
+def test_train_graph_equals_the_eager_loop_bitwise(card, deterministic):
+    """ScoreTrainer.train through the captured step against the same
+    steps run eagerly: parameters, EMA, moments, count and every train
+    and validation loss, bit for bit."""
+    from score_based_channels_torch.train import ScoreTrainer
+
+    runs = []
+    for capture in (True, False):
+        trainer = ScoreTrainer(_train_graph_config(), device=card)
+        trainer._capture = capture
+        runs.append(trainer.train(log_fn=lambda s: None))
+    (a, la), (b, lb) = runs
+    assert a.step == b.step == 12 and a.opt.count == b.opt.count == 12
+    for m, n in ((a.model, b.model), (a.ema, b.ema)):
+        for p, q in zip(m.parameters(), n.parameters()):
+            assert torch.equal(p, q)
+    for key in a.opt.moments:
+        for p, q in zip(a.opt.moments[key], b.opt.moments[key]):
+            assert torch.equal(p, q)
+    assert int(a.opt.count_t) == 12
+    np.testing.assert_array_equal(la["train_loss"], lb["train_loss"])
+    np.testing.assert_array_equal(la["val_loss"], lb["val_loss"])
+
+
+def test_train_graph_counts_its_launches_and_gradient_work(card):
+    """One capture, step 0 eager, 11 replays: the launch and gradient
+    counts are those of 12 eager steps (113 conv forwards, 112 dgrads and
+    25 norms a step) and 3 validations, with no plain call."""
+    from score_based_channels_torch.train import ScoreTrainer
+    from score_based_channels_torch.train import score as train_score
+
+    reset_counts()
+    train_score.reset_stats()
+    state, logs = ScoreTrainer(_train_graph_config(), device=card).train(
+        log_fn=lambda s: None)
+    st = dict(train_score.STATS)
+    assert (st["steps"], st["captures"], st["replays"]) == (12, 1, 11)
+    assert st["pool_bytes"] > 0 and st["capture_seconds"] > 0
+    steps, n_val = state.step, len(logs["val_loss"])
+    assert (steps, n_val) == (12, 3)
+    assert grad_counts() == {
+        "conv2d_taps": {"functions": 113 * steps, "dgrad": 112 * steps},
+        "instance_norm_plus": {"functions": 25 * steps,
+                               "backward": 25 * steps}}
+    assert counts()["conv2d_taps"] == {
+        "launches": 225 * steps + 113 * n_val, "plain": 0}
+    assert counts()["instance_norm_plus"] == {
+        "launches": 25 * (steps + n_val), "plain": 0}
+    assert np.isfinite(logs["train_loss"]).all()
+
+
+def test_train_runner_refuses_inputs_that_change_between_runs(card):
+    """A runner's graph serves one shape of inputs: a run with other
+    shapes, or with draws where the first run had none, raises; the
+    captured runner then still runs its own shape."""
+    from score_based_channels_torch.train import ScoreTrainer, TrainChunkRunner
+
+    trainer = ScoreTrainer(_train_graph_config(), device=card)
+    state = trainer.init_state(0)
+    x_all = torch.randn(16, 64, 16, 2, device=card)
+    runner = TrainChunkRunner(trainer.update, state, x_all, 8, 3,
+                              torch.Generator(device=card), 20)
+    idx = torch.arange(16).view(2, 8)
+    runner.run(idx, [1, 2])  # step 0 eager, the capture, step 1 replayed
+    assert runner.graph is not None
+    with pytest.raises(ValueError):
+        runner.run(torch.zeros(2, 4, dtype=torch.int64), [1, 2])
+    with pytest.raises(ValueError):
+        runner.run(idx, [1, 2], labels=torch.zeros(2, 8, dtype=torch.int64),
+                   noise=torch.zeros(2, 8, 64, 16, 2))
+    losses = runner.run(idx, [1, 2])
+    assert torch.isfinite(losses).all() and state.step == 4
+
+
+def test_train_capture_with_a_host_sync_raises(card):
+    """An update that reads a value on the host (.item()) runs eagerly
+    at step 0 but cannot be captured: the run raises, nothing falls back
+    to the eager loop, and the card stays usable."""
+    from score_based_channels_torch.train import ScoreTrainer, TrainChunkRunner
+
+    trainer = ScoreTrainer(_train_graph_config(), device=card)
+
+    def syncing(state, x, generator=None, labels=None, noise=None):
+        loss = trainer.update(state, x, generator, labels, noise)
+        return loss * float(loss.item() > -1)
+
+    state = trainer.init_state(0)
+    x_all = torch.randn(16, 64, 16, 2, device=card)
+    runner = TrainChunkRunner(syncing, state, x_all, 8, 3,
+                              torch.Generator(device=card), 20)
+    with pytest.raises(RuntimeError):
+        runner.run(torch.arange(16).view(2, 8), [1, 2])
+    assert runner.graph is None
+    ok = TrainChunkRunner(trainer.update, trainer.init_state(1), x_all, 8, 3,
+                          torch.Generator(device=card), 20)
+    assert torch.isfinite(ok.run(torch.arange(16).view(2, 8), [1, 2])).all()
