@@ -75,7 +75,10 @@ Phases (any failure propagates and the exit code is non-zero):
      loop and the graph (NMSE within 1e-5), each again on a slice of chains
      at beta 0 on the card and the CPU (NMSE within rtol 1e-3), the
      tuner's slim table driving `run_estimation`, and `lmmse --cov
-     analytic`;
+     analytic`; lasso and amp run one captured iteration, replayed, and
+     `baseline_graph_phase` holds each against its plain loop bit for bit
+     at the commands' batch of 450 rows (estimate and trace), times both
+     in turns and profiles each way (busy share, largest kernels);
   9. the other score models: NCSNv2 and NCSNv2Deeper at ngf 32, every conv
      and norm shape that NCSNv2-Deepest lacks held against its plain
      version at batch 256 in f32 and bf16 (timed beside cuDNN), the kernel
@@ -88,7 +91,15 @@ Phases (any failure propagates and the exit code is non-zero):
  11. LDAMP: `train_ldamp_snr` at the JAX package's defaults (10 unrolls,
      chans 16, batch 128) for 4 steps with its launch counts (conv2d_taps
      forward and dgrad), the card's gradient against the CPU's at batch 4,
-     ms per step, `run_ldamp_eval` from the checkpoint;
+     ms per step, `run_ldamp_eval` from the checkpoint; training runs
+     through the LDAMP runner (step 0 eager, one step captured in a CUDA
+     graph, replayed for the others), and `ldamp_graph_phase` holds it
+     bit for bit against the eager loop under deterministic algorithms
+     across the learning rate's staircase, prints their largest
+     difference without, times both in turns, the host's time a replay
+     with the card held, a 3-step profiler window each way, the capture's
+     seconds and pool MB, and `train_ldamp_snr` at the recipe (24 epochs)
+     each way;
  12. WGAN: `train_wgan` at the defaults (2 generator iterations of 100
      critic steps), ms per D and G step, `run_wgan_eval` on a reduced grid
      held against the CPU and float64 on 2 channels (the whole run on the
@@ -444,6 +455,31 @@ def device_ms_by_name(prof):
         if t:
             by_name[e.key] = by_name.get(e.key, 0.0) + t / 1e3
     return by_name
+
+
+def same_bits(a, b):
+    """a and b (float32) hold the same bits, NaNs included."""
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32),
+                                                   b.view(torch.int32)))
+
+
+def busy_window(fn, top=12):
+    """fn() once to warm, then once inside a profiler window, the card
+    synchronised: (wall ms, device busy ms, the `top` largest kernels as
+    (name, device ms))."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_ms_by_name(prof)
+    return (wall_ms, sum(by_name.values()),
+            sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
 
 
 def link_phase():
@@ -1299,8 +1335,6 @@ def train_graph_phase(trainer, card):
     step beside it); the device busy share of a 3-step profiler window each
     way and the top device ops a step under the graph; the capture's
     seconds and the graph pool's MB."""
-    from torch.profiler import ProfilerActivity, profile
-
     from score_based_channels_torch.data import ChannelDataset
     from score_based_channels_torch.kernels.launch_cost import spin_cycles
     from score_based_channels_torch.train import TrainChunkRunner
@@ -1401,19 +1435,9 @@ def train_graph_phase(trainer, card):
 
         windows = {}
         for way, runner in (("eager", eager), ("graph", graph)):
-            runner.run(idx[:3], seeds[:3])
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                runner.run(idx[:3], seeds[:3])
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            by_name = device_ms_by_name(prof)
-            busy = sum(by_name.values())
-            windows[way] = dict(wall_ms=wall_ms, busy_ms=busy,
-                                top=sorted(by_name.items(),
-                                           key=lambda kv: -kv[1])[:12])
+            wall_ms, busy, top = busy_window(
+                lambda: runner.run(idx[:3], seeds[:3]))
+            windows[way] = dict(wall_ms=wall_ms, busy_ms=busy, top=top)
             print(f"#   profile, 3 steps, {way}: wall {wall_ms:.1f} ms, "
                   f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%)"
                   if busy else f"#   profile, 3 steps, {way}: no device "
@@ -1530,6 +1554,89 @@ def in_turns(plain, graph, what, rate=None):
     return secs, first
 
 
+BASELINE_SNRS = np.arange(-10, 35, 5)  # the commands' grid: 9 SNRs ...
+BASELINE_CHANNELS = 50                  # ... x 50 channels = 450 rows
+
+
+def baseline_graph_phase(card):
+    """The baselines' graphs (in phase 8): FISTA (`fista_l1_lifted`, 1,000
+    iterations, lambda 0.3, lr 3e-3) and EM-GM-AMP (`em_gm_amp`, 50
+    iterations, K = 3) on the `lasso` and `amp` commands' batch (CDL-C
+    test channels made as their runners make them, 9 SNRs x 50 channels,
+    64x16, 38 pilots, lift 4), each through its captured iteration and its
+    plain loop (`*_plain`): the estimate and the trace equal bit for bit;
+    whole runs in turns (plain, graph, graph, plain) as iterations/s; a
+    run of 2 iterations through the graph (the eager first one, the
+    capture, one replay); the busy share and largest kernels of a whole
+    run each way in a profiler window."""
+    from score_based_channels_torch import _graph, cplx, physics
+    from score_based_channels_torch.baselines import amp, lasso
+    from score_based_channels_torch.config import default_score_config
+    from score_based_channels_torch.data import ChannelDataset
+
+    data = default_score_config("CDL-C").data
+    train = ChannelDataset(1234, data, norm="global")
+    S, C = len(BASELINE_SNRS), BASELINE_CHANNELS
+    X = ChannelDataset(4321, dataclasses.replace(
+        data, spacing_list=(0.5,), num_channels=max(C, data.num_channels)),
+        norm=list(train.norm_stats), num_pilots=38).hermitian_c2()[:C]
+    g = torch.Generator().manual_seed(11)
+    A = cplx.conj_transpose(cplx.qpsk_pilots(g, C, 64, 38)).repeat(S, 1, 1, 1)
+    X = X.repeat(S, 1, 1, 1)
+    npow = torch.from_numpy(np.repeat(10.0 ** (-BASELINE_SNRS / 10.0) * 64,
+                                      C).astype(np.float32))
+    A, X, Y = (t.cuda() for t in (A, X, physics.measure_c2(g, A, X, npow)))
+    L2, R2 = (cplx.from_complex(d).cuda()
+              for d in lasso.lifted_fourier_dicts(64, 16, 4))
+    ways = {
+        "lasso": (1000, lambda f, n: f(A, Y, L2, R2, 0.3, 3e-3, num_iters=n,
+                                       oracle2=X),
+                  lasso.fista_l1_lifted, lasso.fista_l1_lifted_plain),
+        "amp": (50, lambda f, n: f(A, Y, L2, R2, num_iters=n, oracle2=X),
+                amp.em_gm_amp, amp.em_gm_amp_plain)}
+    out = {}
+    for name, (iters, call, graph_fn, plain_fn) in ways.items():
+        graph = lambda n=iters: call(graph_fn, n)
+        plain = lambda n=iters: call(plain_fn, n)
+        caps, capture = [], _graph.capture
+        _graph.capture = lambda *a: caps.append(capture(*a)) or caps[-1]
+        try:
+            got = graph()
+        finally:
+            _graph.capture = capture
+        want = plain()
+        same = [same_bits(a, b) for a, b in zip(got, want)]
+        print(f"# eval {name} graph, {S * C} rows x {iters} iterations: "
+              f"estimate and trace bit-equal to the plain loop {same}; "
+              f"final NMSE {10 * np.log10(float(got[1][-1].nanmean())):.3f} "
+              f"dB; {len(caps)} captures of "
+              f"{rounded([c.seconds for c in caps], 4)} s, graph pools "
+              f"{rounded([c.pool_bytes / 2**20 for c in caps], 1)} MB on "
+              f"{card}", flush=True)
+        assert all(same), (name, same)
+        secs, _ = in_turns(plain, graph, f"eval {name}, plain loop and graph")
+        rate = {k: [iters / v for v in vs] for k, vs in secs.items()}
+        _, two_s = timed(lambda: graph(2))
+        print(f"#   iterations/s: plain {rounded(rate['plain'])}, graph "
+              f"{rounded(rate['graph'])}; a graph run of 2 iterations "
+              f"(eager, capture, one replay) {two_s:.4f} s")
+        windows = {}
+        for way, fn in (("plain", plain), ("graph", graph)):
+            wall, busy, top = busy_window(fn)
+            windows[way] = dict(wall_ms=wall, busy_ms=busy, top=top)
+            print(f"#   profile, one run of {iters} iterations, {way}: wall "
+                  f"{wall:.1f} ms ({wall / iters:.4f} a iteration), device "
+                  f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%)")
+            for k, ms in top[:10]:
+                print(f"#     {ms / iters:9.4f} ms a iteration  {k[:80]}")
+        out[name] = dict(rows=S * C, iterations=iters, bit_equal=same,
+                         capture_seconds=[c.seconds for c in caps],
+                         pool_bytes=[c.pool_bytes for c in caps],
+                         seconds=secs, iterations_per_s=rate,
+                         two_iteration_seconds=two_s, windows=windows)
+    return out
+
+
 def eval_phase(ck_path, card):
     """Phase 8: the paper's comparison side at full width. ls, lasso and
     amp at their defaults on the card, held per SNR against the CPU on the
@@ -1630,6 +1737,8 @@ def eval_phase(ck_path, card):
                          nmse_db_ref_card=rounded(10 * np.log10(got), 6),
                          nmse_db_ref_cpu=rounded(10 * np.log10(want), 6),
                          gap_db=gap, launches=n)
+
+    out["graph"] = baseline_graph_phase(card)
 
     # -- tune from the trained checkpoint ------------------------------------
     config, score32 = load_score_fn(ck_path, "cuda")
@@ -2147,13 +2256,223 @@ def ldamp_phase(card):
     assert np.isfinite(res.nmse).all()
     assert n["conv2d_taps"] == {"launches": 2 * tc.max_unrolls * unet_convs,
                                 "plain": 0}, n
+    graph = ldamp_graph_phase(card)
     return dict(steps=LDAMP_STEPS, seconds=train_s, counts=train_counts,
-                grad_counts=train_grad_counts,
+                grad_counts=train_grad_counts, graph=graph,
                 loss_log=logs["loss_log"].tolist(), grad_check_worst=worst,
                 grad_check_loss_rel=loss_rel, grad_check_flips=flips,
                 grad_check_free_worst=free_worst, phase_ms=med,
                 steps_per_s=steps_per_s, eval_nmse_db=res.avg_db().tolist(),
                 eval_counts=n)
+
+
+LDAMP_DECAY_EPOCHS = 2   # the bit-for-bit runs: the rate drops after step 2
+LDAMP_TURN_STEPS = 8     # steps a timed run, each way
+
+
+def ldamp_graph_phase(card):
+    """The LDAMP graph (in phase 11), at the JAX package's defaults (10
+    unrolls, chans 16, 3 pools, batch 128, f32): LDAMP_STEPS steps through
+    the runner's captured step and through its eager loop from one seed,
+    one run an epoch as `train_ldamp_snr` runs them, the rate x0.1 after
+    LDAMP_DECAY_EPOCHS: equal bit for bit under deterministic algorithms
+    in parameters, Adam moments, count and every (mse, nmse) row, and
+    their largest difference without. Then on one model, runs of
+    LDAMP_TURN_STEPS steps in turns (eager, graph, graph, eager) with the
+    batches made on the host each step, as `train_ldamp_snr` makes them,
+    and two graph runs with the batches already on the card; runs in
+    turns with the host batches staged (the runner's pinned buffers and
+    copies that do not wait) or copied by blocking copies; the host's
+    time a replay with the card held by a spin kernel; the device busy
+    share of a 3-step profiler window each way and the top device ops a
+    step under the graph; the capture's seconds and the graph pool's MB;
+    and `train_ldamp_snr` at the recipe (24 epochs of one step) through
+    the graph and the eager loop: wall seconds and the logs' largest
+    difference."""
+    from score_based_channels_torch.config import default_score_config
+    from score_based_channels_torch.data import ChannelDataset
+    from score_based_channels_torch.eval.estimate import derive_seed
+    from score_based_channels_torch.kernels.launch_cost import spin_cycles
+    from score_based_channels_torch.train.ldamp import (
+        LDAMPStepRunner, LDAMPTrainConfig, ldamp_batch, make_ldamp_model,
+        make_ldamp_optimizer, train_ldamp_snr,
+    )
+
+    cfg = default_score_config("CDL-C")
+    tc = LDAMPTrainConfig(decay_epochs=LDAMP_DECAY_EPOCHS)
+    ds = ChannelDataset(1234, dataclasses.replace(
+        cfg.data, noise_std=float(10 ** (-LDAMP_SNR / 20) * 8),
+        num_pilots=int(64 * tc.alpha)), norm="global")
+
+    def host_batch(s):
+        return ldamp_batch(ds, torch.Generator().manual_seed(
+            derive_seed(tc.seed, 1, s)), tc.batch_size, "cpu")
+
+    def steps_run(runner, steps, batch=host_batch):
+        return runner.run((batch(s) for s in steps),
+                          [derive_seed(tc.seed, 2, s) for s in steps])
+
+    def runner_for(model, opt, capture, rows, updates):
+        return LDAMPStepRunner(model, opt, torch.Generator(device="cuda"),
+                               rows, updates, capture=capture)
+
+    def seeded_run(capture):
+        model = make_ldamp_model(tc, "cuda")
+        opt = make_ldamp_optimizer(model, tc, 1)
+        runner = runner_for(model, opt, capture, 1, LDAMP_STEPS)
+        rows = torch.cat([steps_run(runner, [s]).clone()
+                          for s in range(LDAMP_STEPS)])
+        return model, opt, rows
+
+    @torch.no_grad()
+    def differ(a, b):
+        pairs = list(zip(a[0].parameters(), b[0].parameters())) + [
+            (p, q) for k in ("mu", "nu")
+            for p, q in zip(a[1].moments[k], b[1].moments[k])]
+        same = (all(torch.equal(p, q) for p, q in pairs)
+                and a[1].count == b[1].count and torch.equal(a[2], b[2]))
+        norm = max(float(torch.linalg.norm(p - q) / torch.linalg.norm(q))
+                   for p, q in pairs if torch.linalg.norm(q) > 0)
+        return same, norm, max_rel(a[2], b[2])
+
+    with deterministic_algorithms():
+        det = differ(seeded_run(True), seeded_run(False))
+    eager_run = seeded_run(False)
+    free = differ(seeded_run(True), eager_run)
+    spread = differ(seeded_run(False), eager_run)
+    print(f"# LDAMP graph vs eager loop, {LDAMP_STEPS} steps of batch "
+          f"{tc.batch_size}, rate x{tc.decay_gamma} after step "
+          f"{LDAMP_DECAY_EPOCHS}: under deterministic algorithms bit-equal "
+          f"{det[0]} (parameters, moments, count, losses; largest norm-wise "
+          f"{det[1]:.2e}); without, largest norm-wise difference "
+          f"{free[1]:.2e}, losses {free[2]:.2e}; two eager runs "
+          f"{spread[1]:.2e}, losses {spread[2]:.2e}", flush=True)
+    assert det[0], det
+
+    # in turns on one model: the runners share its optimizer table
+    model = make_ldamp_model(tc, "cuda")
+    opt = make_ldamp_optimizer(model, tc, 1)
+    n = LDAMP_TURN_STEPS
+
+    # the staging's yardstick: host batches by blocking copies, which wait
+    # for the previous replay before the host launches the next
+    class Blocking(LDAMPStepRunner):
+        def _stage(self, batch):
+            for k, v in batch.items():
+                self.buf[k].copy_(v)
+
+    graph = runner_for(model, opt, True, n, 40 * n)
+    eager = runner_for(model, opt, False, n, 40 * n)
+    blocking = Blocking(model, opt, torch.Generator(device="cuda"), n, 40 * n)
+    _, first_s = timed(lambda: steps_run(graph, range(n)))
+    stats, rec = dict(graph.stats), graph.recorded
+    print(f"#   first graph run of {n} steps {first_s:.3f} s (step 0 eager, "
+          f"capture {stats['capture_seconds']:.3f} s, graph pool "
+          f"{stats['pool_bytes'] / 2**20:.1f} MB); a replay records "
+          f"{rec['conv2d_taps']} conv launches, gradient work "
+          f"{graph.recorded_grad['conv2d_taps']}", flush=True)
+    assert rec["conv2d_taps"] == 449, rec
+    runs = {"eager": lambda: steps_run(eager, range(n)),
+            "graph": lambda: steps_run(graph, range(n))}
+    secs = {"eager": [], "graph": []}
+    for way in ("eager", "graph", "graph", "eager"):
+        secs[way].append(timed(runs[way])[1])
+    sps = {k: [n / v for v in vs] for k, vs in secs.items()}
+    on_card = {s: {k: v.cuda() for k, v in host_batch(s).items()}
+               for s in range(n)}
+    card_s = [timed(lambda: steps_run(graph, range(n), on_card.get))[1]
+              for _ in range(2)]
+    print(f"#   steps/s in turns (eager, graph, graph, eager), {n} steps a "
+          f"run, batches made on the host each step, synchronised: eager "
+          f"{rounded(sps['eager'], 3)}, graph {rounded(sps['graph'], 3)}; "
+          f"graph with the batches on the card "
+          f"{rounded([n / v for v in card_s], 3)} steps/s "
+          f"({rounded([v * 1e3 / n for v in card_s], 2)} ms a step) on "
+          f"{card}")
+
+    staged = {"blocking": blocking, "staged": graph}
+    steps_run(blocking, range(n))  # its step 0 and capture
+    stage_s, stage_win = {"staged": [], "blocking": []}, {}
+    for way in ("staged", "blocking", "blocking", "staged"):
+        stage_s[way].append(timed(lambda: steps_run(staged[way],
+                                                    range(n)))[1])
+    for way, runner in staged.items():
+        wall, busy, _ = busy_window(lambda: steps_run(runner, range(n)))
+        stage_win[way] = dict(wall_ms=wall, busy_ms=busy)
+    print(f"#   host batches staged (pinned, non-blocking) or blocking, "
+          f"{n} steps a run in turns (staged, blocking, blocking, staged): "
+          f"steps/s staged {rounded([n / v for v in stage_s['staged']], 3)},"
+          f" blocking {rounded([n / v for v in stage_s['blocking']], 3)}; "
+          f"{n}-step windows busy staged {stage_win['staged']['busy_ms']:.1f}"
+          f" of {stage_win['staged']['wall_ms']:.1f} ms, blocking "
+          f"{stage_win['blocking']['busy_ms']:.1f} of "
+          f"{stage_win['blocking']['wall_ms']:.1f} ms")
+
+    # the host's time a one-step graph run with the card held by a spin
+    # (batches on the card: a copy from the host would wait for the spin)
+    cycles = spin_cycles(GRAPH_HOLD_MS)
+    host, held = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        times = []
+        for i in range(n):
+            t0 = time.perf_counter()
+            steps_run(graph, [i], on_card.get)
+            times.append(time.perf_counter() - t0)
+        held.append(not torch.cuda.current_stream().query())
+        host.append(times)
+        torch.cuda.synchronize()
+    queued = [next((i for i, t in enumerate(ts) if t > QUEUE_WAIT_S),
+                   len(ts)) for ts in host]
+    us_step = [float(np.median(ts[:q])) * 1e6 if q else None
+               for ts, q in zip(host, queued)]
+    print(f"#   host time a one-step graph run, card held "
+          f"({GRAPH_HOLD_MS:.0f} ms spin; held after the runs {held}): "
+          f"median {us_step} us over the {queued} runs before the first "
+          f"that waited for the launch queue (of {n}); each run in us "
+          f"{[[round(t * 1e6, 1) for t in ts] for ts in host]}")
+    assert all(held), held
+
+    windows = {}
+    for way, runner in (("eager", eager), ("graph", graph)):
+        wall, busy, top = busy_window(lambda: steps_run(runner, range(3)))
+        windows[way] = dict(wall_ms=wall, busy_ms=busy, top=top)
+        print(f"#   profile, 3 steps, {way} (batches made on the host): wall "
+              f"{wall:.1f} ms, device busy {busy:.1f} ms "
+              f"({100 * busy / wall:.1f}%)")
+    for name, ms in windows["graph"]["top"]:
+        print(f"#     {ms / 3:9.3f} ms a step  {name[:90]}")
+
+    # the recipe: 24 epochs of one step, each way
+    recipe = {}
+    for way, capture in (("graph", True), ("eager", False)):
+        lines = []
+        (model_r, logs), sec = timed(lambda: train_ldamp_snr(
+            cfg, LDAMP_SNR, device="cuda", log_fn=lines.append,
+            _capture=capture))
+        recipe[way] = dict(seconds=sec, last_log=lines[-1], logs=logs)
+        print(f"#   train_ldamp_snr at the recipe ({len(logs['loss_log'])} "
+              f"steps, data generation included), {way}: {sec:.2f} s; "
+              f"{lines[-1]}")
+    gap = max(float(np.max(np.abs(recipe["graph"]["logs"][k]
+                                  - recipe["eager"]["logs"][k])
+                           / np.abs(recipe["eager"]["logs"][k])))
+              for k in ("loss_log", "nmse_log"))
+    print(f"#   recipe logs, graph vs eager: largest relative difference "
+          f"{gap:.2e} (not under deterministic algorithms)")
+    for r in recipe.values():
+        r["logs"] = {k: v.tolist() for k, v in r["logs"].items()}
+    return dict(bit_equal_deterministic=det[0], det_norm=det[1],
+                free_norm=free[1], free_loss=free[2], eager_spread_norm=
+                spread[1], eager_spread_loss=spread[2], first_run_seconds=
+                first_s, stats=stats, recorded=rec,
+                recorded_grad=graph.recorded_grad, seconds=secs,
+                steps_per_s=sps, card_batch_seconds=card_s,
+                staging_seconds=stage_s, staging_windows=stage_win,
+                host_seconds_held=host, host_us_per_step_held=us_step,
+                held=held, replays_queued=queued, windows=windows,
+                recipe=recipe, recipe_log_gap=gap)
 
 
 WGAN_EPOCHS = 2          # generator steps, each after 100 boosted D steps

@@ -1,12 +1,14 @@
 """The two steps that the port's CUDA-graph runners share (the sampler's
-`PosteriorRunner`, the trainer's `TrainChunkRunner`): a warm-up run on a
-side stream, and the capture of one step with its kernel counts taken
-back (a capture records launches and runs none)."""
+`PosteriorRunner`, the trainers' `TrainChunkRunner` and
+`LDAMPStepRunner`, the baselines' iterations): a warm-up run on a side
+stream, and the capture of one step with its kernel counts taken back (a
+capture records launches and runs none). `run_steps` runs a loop whose
+steps need nothing from the host through both, then the replays."""
 
 from __future__ import annotations
 
 import time
-from typing import Callable, NamedTuple
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -34,17 +36,18 @@ def on_side_stream(fn: Callable[[], None], device: torch.device) -> None:
     main.wait_stream(side)
 
 
-def capture(fn: Callable[[], None], generator: torch.Generator,
+def capture(fn: Callable[[], None], generator: Optional[torch.Generator],
             device: torch.device) -> Capture:
     """Capture fn() in a CUDA graph (its own stream and memory pool), the
-    generator registered with it and left where it was. The kernel
-    launches and gradient work that the wrappers counted while the
+    generator (when fn draws) registered with it and left where it was.
+    The kernel launches and gradient work that the wrappers counted while the
     capture recorded are taken back from `kernels.counts()` and
     `kernels.grad_counts()` and returned, for the runner to add once a
     replay. A capture that fails raises."""
     graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(generator)
-    rng = generator.get_state()
+    if generator is not None:
+        graph.register_generator_state(generator)
+        rng = generator.get_state()
     before, before_grad = kernels.counts(), kernels.grad_counts()
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
@@ -65,5 +68,33 @@ def capture(fn: Callable[[], None], generator: torch.Generator,
     kernels.add_launches(launches, -1)  # recorded, none launched
     kernels.add_grad_counts(grad, -1)
     pool = torch.cuda.memory_reserved(device) - reserved
-    generator.set_state(rng)
+    if generator is not None:
+        generator.set_state(rng)
     return Capture(graph, launches, grad, seconds, pool)
+
+
+def run_steps(steps: Sequence[Callable[[], None]], n: int,
+              device: torch.device) -> List[Capture]:
+    """n iterations, iteration i calling steps[i % len(steps)] (steps that
+    take turns, say with the roles of two buffers swapped); each updates
+    its buffers in place and reads no host value that changes between
+    iterations. On the CPU n calls; on the card the first len(steps)
+    iterations on a side stream, then one capture (`capture`) of each
+    step, replayed in turn for the other iterations, its counts added
+    once a replay. Returns the captures (none when n <= len(steps))."""
+    k = len(steps)
+    if device.type != "cuda":
+        for i in range(n):
+            steps[i % k]()
+        return []
+    for i in range(min(n, k)):
+        on_side_stream(steps[i], device)
+    if n <= k:
+        return []
+    caps = [capture(step, None, device) for step in steps]
+    for i in range(k, n):
+        cap = caps[i % k]
+        cap.graph.replay()
+        kernels.add_launches(cap.launches)
+        kernels.add_grad_counts(cap.grad)
+    return caps

@@ -13,8 +13,8 @@ baselines/lasso.py), and the robust-GAMP step control of
 test_em_gm_amp.m:57: a candidate step that raises the measurement residual
 is rejected per sample and the damping halved.
 
-Everything is batched over samples; the iterations are a Python loop on
-the run's device. The products run as complex64 matmuls on complex views
+Everything is batched over samples, on the run's device; on the card one
+iteration is a CUDA graph, replayed for every iteration. The products run as complex64 matmuls on complex views
 of the c2 tensors, the rest in c2 in the JAX package's order of operations: the accept/reject
 decision compares two f32 sums, and a different rounding can flip it.
 """
@@ -27,38 +27,21 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import cplx, physics
+from .. import _graph, cplx, physics
 from .._device import resolve_device
 from ..config import Config
 from ..data.dataset import ChannelDataset
 from ..eval.estimate import _generator
-from .lasso import lifted_fourier_dicts
+from .lasso import _nmse_rows, lifted_fourier_dicts
 
 DAMP_MIN, DAMP_MAX, ACCEPT_TOL = 0.02, 0.95, 1.02
 
 
-def em_gm_amp(
-    A2: torch.Tensor,  # (B, Np, Nt, 2) measurement operator (pilots)
-    Y2: torch.Tensor,  # (B, Np, Nr, 2)
-    L2: torch.Tensor,  # (Nt, Zr, 2) left dictionary
-    R2: torch.Tensor,  # (Zc, Nr, 2) right dictionary
-    num_iters: int = 50,
-    num_components: int = 3,
-    damp: float = 0.7,
-    oracle2: Optional[torch.Tensor] = None,
-    init_sparsity: float = 0.05,
-    init_var_spread: float = 10.0,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Batched EM-GM-AMP on A2's device. Returns (H_hat (B,Nt,Nr,2),
-    nmse_trace (num_iters, B) or None).
-
-    Prior per coefficient: p(z) = (1-lambda) delta(z) + lambda sum_k
-    omega_k CN(z; 0, phi_k); lambda, omega, phi and psi are re-estimated by
-    EM each iteration. Component variances start geometrically spread
-    (factor init_var_spread) around the moment-matched BG estimate. The
-    operator's squared gain per coefficient is approximated by
-    ||A L||_F^2 ||R||_F^2 / (M N) (exact for row-orthogonal dictionaries).
-    """
+def _amp_problem(A2, Y2, L2, R2, num_components, init_sparsity,
+                 init_var_spread):
+    """(gamp_step, initial state, y_energy, synth) of EM-GM-AMP on A2's
+    device: gamp_step(state, damp_t) -> (candidate state, residual), the
+    state (Z, tau_x, s, lambda, omega, phi, psi) as new tensors."""
     dev = A2.device
     B, Np_, Nr = Y2.shape[0], Y2.shape[1], Y2.shape[2]
     Zr, Zc = L2.shape[-2], R2.shape[-3]
@@ -82,11 +65,6 @@ def em_gm_amp(
     gA_s = (cplx.sum_abs2(cplx.as_c2(AL), dim=(-1, -2))
             * cplx.sum_abs2(R2, dim=(-1, -2))) / (M * N)  # (B,)
     y_energy = cplx.sum_abs2(Y2, dim=(-1, -2)) / M  # (B,)
-
-    trace = None
-    if oracle2 is not None:
-        oracle_energy = cplx.sum_abs2(oracle2, dim=(-1, -2))
-        trace = torch.empty((num_iters, B), dtype=torch.float32, device=dev)
 
     # EM init: noise from an SNR0 = 20 dB guess, signal variance from the
     # measurement energy, component variances spread around it
@@ -164,24 +142,103 @@ def em_gm_amp(
         psi = torch.clamp(resid, min=1e-12)
         return (Z, tau_x, s, lam, omega, phi, psi), resid
 
-    damp_t = torch.full((B,), damp, dtype=torch.float32, device=dev)
-    resid_prev = y_energy
+    return gamp_step, state, y_energy, synth
+
+
+def _accept(state, cand, resid_cand, resid_prev, damp_t):
+    """The robust-GAMP step control (test_em_gm_amp.m:57) per sample:
+    accept an improving step, or any step once the damping has bottomed
+    out (else an identical candidate is rejected forever); raise the
+    damping factor after an accepted step, halve it after a rejected one.
+    -> (state, resid_prev, damp_t) of the next iteration."""
+    B = damp_t.shape[0]
+    accept = ((resid_cand <= resid_prev * ACCEPT_TOL)
+              | (damp_t <= DAMP_MIN))  # (B,)
+    state = tuple(
+        torch.where(accept.reshape((B,) + (1,) * (new.dim() - 1)), new, old)
+        for new, old in zip(cand, state))
+    return (state, torch.where(accept, resid_cand, resid_prev),
+            torch.where(accept, torch.clamp(damp_t * 1.1, max=DAMP_MAX),
+                        torch.clamp(damp_t * 0.5, min=DAMP_MIN)))
+
+
+def em_gm_amp(
+    A2: torch.Tensor,  # (B, Np, Nt, 2) measurement operator (pilots)
+    Y2: torch.Tensor,  # (B, Np, Nr, 2)
+    L2: torch.Tensor,  # (Nt, Zr, 2) left dictionary
+    R2: torch.Tensor,  # (Zc, Nr, 2) right dictionary
+    num_iters: int = 50,
+    num_components: int = 3,
+    damp: float = 0.7,
+    oracle2: Optional[torch.Tensor] = None,
+    init_sparsity: float = 0.05,
+    init_var_spread: float = 10.0,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Batched EM-GM-AMP on A2's device. Returns (H_hat (B,Nt,Nr,2),
+    nmse_trace (num_iters, B) or None).
+
+    Prior per coefficient: p(z) = (1-lambda) delta(z) + lambda sum_k
+    omega_k CN(z; 0, phi_k); lambda, omega, phi and psi are re-estimated by
+    EM each iteration. Component variances start geometrically spread
+    (factor init_var_spread) around the moment-matched BG estimate. The
+    operator's squared gain per coefficient is approximated by
+    ||A L||_F^2 ||R||_F^2 / (M N) (exact for row-orthogonal dictionaries).
+
+    The JAX package's scan (amp.py:213) as one iteration on static
+    buffers (the state, the damping, the last residual, the trace, an
+    iteration counter), run by `_graph.run_steps`: on the card iteration
+    0 runs eagerly, one iteration is captured in a CUDA graph and
+    replayed for the others. Bit for bit `em_gm_amp_plain`, the Python
+    loop it replaces.
+    """
+    gamp_step, state, y_energy, synth = _amp_problem(
+        A2, Y2, L2, R2, num_components, init_sparsity, init_var_spread)
+    dev = A2.device
+    damp_t = torch.full((A2.shape[0],), damp, dtype=torch.float32, device=dev)
+    resid_prev = y_energy.clone()
+    bufs = (*state, resid_prev, damp_t)
+    it = torch.zeros((), dtype=torch.int64, device=dev)
+    trace, energy = _nmse_rows(num_iters, oracle2)
+
+    def iteration():
+        new, resid, damp_new = _accept(state, *gamp_step(state, damp_t),
+                                       resid_prev, damp_t)
+        for buf, v in zip(bufs, (*new, resid, damp_new)):
+            buf.copy_(v)
+        if trace is not None:
+            err = cplx.sum_abs2(synth(state[0]) - oracle2, dim=(-1, -2))
+            trace.index_copy_(0, it.view(1), (err / energy).unsqueeze(0))
+        it.add_(1)
+
+    _graph.run_steps([iteration], num_iters, dev)
+    return synth(state[0]), trace
+
+
+def em_gm_amp_plain(
+    A2: torch.Tensor,
+    Y2: torch.Tensor,
+    L2: torch.Tensor,
+    R2: torch.Tensor,
+    num_iters: int = 50,
+    num_components: int = 3,
+    damp: float = 0.7,
+    oracle2: Optional[torch.Tensor] = None,
+    init_sparsity: float = 0.05,
+    init_var_spread: float = 10.0,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """`em_gm_amp` as a Python loop of eager iterations: the yardstick its
+    graph is held against."""
+    gamp_step, state, resid_prev, synth = _amp_problem(
+        A2, Y2, L2, R2, num_components, init_sparsity, init_var_spread)
+    damp_t = torch.full((A2.shape[0],), damp, dtype=torch.float32,
+                        device=A2.device)
+    trace, energy = _nmse_rows(num_iters, oracle2)
     for it in range(num_iters):
-        cand, resid_cand = gamp_step(state, damp_t)
-        # accept an improving step, or any step once the damping has
-        # bottomed out (else an identical candidate is rejected forever)
-        accept = ((resid_cand <= resid_prev * ACCEPT_TOL)
-                  | (damp_t <= DAMP_MIN))  # (B,)
-        state = tuple(
-            torch.where(accept.reshape((B,) + (1,) * (new.dim() - 1)),
-                        new, old) for new, old in zip(cand, state))
-        resid_prev = torch.where(accept, resid_cand, resid_prev)
-        damp_t = torch.where(accept,
-                             torch.clamp(damp_t * 1.1, max=DAMP_MAX),
-                             torch.clamp(damp_t * 0.5, min=DAMP_MIN))
+        state, resid_prev, damp_t = _accept(
+            state, *gamp_step(state, damp_t), resid_prev, damp_t)
         if trace is not None:
             trace[it] = cplx.sum_abs2(synth(state[0]) - oracle2,
-                                      dim=(-1, -2)) / oracle_energy
+                                      dim=(-1, -2)) / energy
     return synth(state[0]), trace
 
 

@@ -5,9 +5,10 @@ dictionary, the counterpart of the JAX package's baselines/lasso.py (the
 The dictionary synthesis H = L Z R is two small matmuls with host-built
 constants; the whole {(lambda, lr) grid x SNR x samples} batch runs FISTA
 (SigPy GradientMethod with the L1 prox, accelerate=True;
-test_l1Fourier_lifted.py:133,159-162) in one Python loop over iterations
-on the run's device, with per-sample lambda and lr and an optional
-per-iteration NMSE trace kept on the device.
+test_l1Fourier_lifted.py:133,159-162) on the run's device, with
+per-sample lambda and lr and an optional per-iteration NMSE trace kept on
+the device; on the card an iteration is a CUDA graph, replayed for every
+iteration.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import cplx, physics
+from .. import _graph, cplx, physics
 from .._device import resolve_device
 from ..config import Config
 from ..data.dataset import ChannelDataset
@@ -48,6 +49,65 @@ def _soft_threshold_c2(z: torch.Tensor, thresh: torch.Tensor) -> torch.Tensor:
     return z.mul_(scale[..., None])
 
 
+def fista_momentum(num_iters: int) -> np.ndarray:
+    """(num_iters,) float32: FISTA's extrapolation factor (t - 1) / t_new
+    of each iteration, t_new = (1 + sqrt(1 + 4 t^2)) / 2 from t = 1, in
+    float32 as the JAX package's scan carries t."""
+    out = np.empty(num_iters, np.float32)
+    t = np.float32(1.0)
+    for it in range(num_iters):
+        tnew = (np.float32(1.0) + np.sqrt(np.float32(1.0)
+                                          + np.float32(4.0) * t * t)
+                ) / np.float32(2.0)
+        out[it] = (t - np.float32(1.0)) / tnew
+        t = tnew
+    return out
+
+
+def _fista_problem(A2, Y2, L2, R2, lmbda, lr):
+    """(prox_grad, synth, Z shape) of the lifted Lasso on A2's device:
+    prox_grad(W2, out=None) the L1 prox of W - lr grad(W) (a new tensor,
+    or written into `out`), synth(Z2) = L Z R. The products run as complex64 matmuls on complex
+    views of the c2 tensors (one complex GEMM where c2 takes four real
+    ones and two adds), in the JAX package's order (A L Z) R; the
+    elementwise steps run on c2, in place where a tensor is not read
+    again (the same arithmetic, fewer large allocations)."""
+    dev = A2.device
+    B = A2.shape[0]
+    lmbda = torch.broadcast_to(
+        torch.as_tensor(lmbda, dtype=torch.float32, device=dev), (B,))
+    lr = torch.broadcast_to(
+        torch.as_tensor(lr, dtype=torch.float32, device=dev), (B,))
+    step = lr[:, None, None, None]
+    thresh = (lmbda * lr)[:, None, None]
+
+    L, R, Y = (cplx.as_complex(t) for t in (L2, R2, Y2))
+    AL = cplx.as_complex(A2) @ L  # the dictionaries broadcast over the batch
+    ALh, Rh = AL.mH, R.mH
+
+    def synth(Z2):
+        return cplx.as_c2((L @ torch.view_as_complex(Z2)) @ R)
+
+    def prox_grad(W2, out=None):
+        W = torch.view_as_complex(W2)
+        g = cplx.as_c2(torch.matmul(
+            ALh @ ((AL @ W) @ R - Y), Rh,
+            out=None if out is None else torch.view_as_complex(out)))
+        # W - lr grad(W), then the prox; in place on the fresh gradient
+        return _soft_threshold_c2(g.mul_(step).neg_().add_(W2), thresh)
+
+    return prox_grad, synth, (B, L2.shape[-2], R2.shape[-3], 2)
+
+
+def _nmse_rows(num_iters, oracle2):
+    """(trace (num_iters, B), oracle energy (B,)), or (None, None)."""
+    if oracle2 is None:
+        return None, None
+    return (torch.empty((num_iters, oracle2.shape[0]), dtype=torch.float32,
+                        device=oracle2.device),
+            cplx.sum_abs2(oracle2, dim=(-1, -2)))
+
+
 def fista_l1_lifted(
     A2: torch.Tensor,
     Y2: torch.Tensor,
@@ -64,55 +124,67 @@ def fista_l1_lifted(
     device; lambda, lr scalar or (B,). Returns (H_hat (B,Nt,Nr,2),
     nmse_trace (num_iters, B) or None), on that device.
 
-    The products run as complex64 matmuls on complex views of the c2
-    tensors (one complex GEMM where c2 takes four real ones and two adds),
-    in the JAX package's order (A L Z) R; the elementwise steps run on c2,
-    in place where a tensor is not read again (the same arithmetic, fewer
-    large allocations). The momentum scalar t is
-    carried in float32, as the JAX package's scan carries it.
+    The JAX package's scan (lasso.py:110) as iterations on static
+    buffers (two for Z, which take turns as the last and the new iterate,
+    so no iteration copies one into the other; the extrapolated W; the
+    trace; an iteration counter, at which the momentum factor is read
+    from the `fista_momentum` table), run by `_graph.run_steps`: on the
+    card iterations 0 and 1 run eagerly, each buffer order is captured
+    once in a CUDA graph, and the two graphs are replayed in turn for
+    the other iterations. Bit for bit `fista_l1_lifted_plain`, the Python
+    loop it replaces.
     """
+    prox_grad, synth, shape = _fista_problem(A2, Y2, L2, R2, lmbda, lr)
     dev = A2.device
-    B = A2.shape[0]
-    Zr, Zc = L2.shape[-2], R2.shape[-3]  # Z in C^{Nt*lift x Nr*lift}
-    lmbda = torch.broadcast_to(
-        torch.as_tensor(lmbda, dtype=torch.float32, device=dev), (B,))
-    lr = torch.broadcast_to(
-        torch.as_tensor(lr, dtype=torch.float32, device=dev), (B,))
-    step = lr[:, None, None, None]
-    thresh = (lmbda * lr)[:, None, None]
+    coef = torch.from_numpy(fista_momentum(num_iters)).to(dev)
+    Zs = [torch.zeros(shape, dtype=torch.float32, device=dev)
+          for _ in range(2)]
+    W = torch.zeros_like(Zs[0])  # the extrapolated point
+    it = torch.zeros((), dtype=torch.int64, device=dev)
+    trace, energy = _nmse_rows(num_iters, oracle2)
+    row = it.view(1)
 
-    L, R, Y = (cplx.as_complex(t) for t in (L2, R2, Y2))
-    AL = cplx.as_complex(A2) @ L  # the dictionaries broadcast over the batch
-    ALh, Rh = AL.mH, R.mH
+    def iteration(Z, Znew):
+        prox_grad(W, out=Znew)
+        # Znew + (t - 1)/tnew (Znew - Z); the factor, a device value,
+        # multiplies as the loop's host float does (a vectorised pass)
+        torch.sub(Znew, Z, out=W)
+        torch._foreach_mul_([W], coef.index_select(0, row).view(()))
+        W.add_(Znew)
+        if trace is not None:
+            err = cplx.sum_abs2(synth(Znew) - oracle2, dim=(-1, -2))
+            trace.index_copy_(0, row, (err / energy).unsqueeze(0))
+        it.add_(1)
 
-    def synth(Z2):
-        return cplx.as_c2((L @ torch.view_as_complex(Z2)) @ R)
+    _graph.run_steps([lambda: iteration(*Zs), lambda: iteration(*Zs[::-1])],
+                     num_iters, dev)
+    return synth(Zs[num_iters % 2]), trace
 
-    def grad(W2):
-        W = torch.view_as_complex(W2)
-        return cplx.as_c2((ALh @ ((AL @ W) @ R - Y)) @ Rh)
 
-    trace = None
-    if oracle2 is not None:
-        oracle_energy = cplx.sum_abs2(oracle2, dim=(-1, -2))
-        trace = torch.empty((num_iters, B), dtype=torch.float32, device=dev)
-
-    Z = torch.zeros((B, Zr, Zc, 2), dtype=torch.float32, device=dev)
+def fista_l1_lifted_plain(
+    A2: torch.Tensor,
+    Y2: torch.Tensor,
+    L2: torch.Tensor,
+    R2: torch.Tensor,
+    lmbda,
+    lr,
+    num_iters: int = 1000,
+    oracle2: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """`fista_l1_lifted` as a Python loop of eager iterations, the momentum
+    factor a host float: the yardstick its graph is held against."""
+    prox_grad, synth, shape = _fista_problem(A2, Y2, L2, R2, lmbda, lr)
+    coef = fista_momentum(num_iters)
+    trace, energy = _nmse_rows(num_iters, oracle2)
+    Z = torch.zeros(shape, dtype=torch.float32, device=A2.device)
     W = Z  # the extrapolated point
-    t = np.float32(1.0)
     for it in range(num_iters):
-        # W - lr grad(W), then the prox; in place on the fresh gradient
-        Znew = _soft_threshold_c2(grad(W).mul_(step).neg_().add_(W), thresh)
-        tnew = (np.float32(1.0) + np.sqrt(np.float32(1.0)
-                                          + np.float32(4.0) * t * t)
-                ) / np.float32(2.0)
-        # Znew + (t - 1)/tnew (Znew - Z)
-        W = torch.sub(Znew, Z).mul_(float((t - np.float32(1.0)) / tnew)
-                                    ).add_(Znew)
-        Z, t = Znew, tnew
+        Znew = prox_grad(W)
+        W = torch.sub(Znew, Z).mul_(float(coef[it])).add_(Znew)
+        Z = Znew
         if trace is not None:
             trace[it] = cplx.sum_abs2(synth(Z) - oracle2,
-                                      dim=(-1, -2)) / oracle_energy
+                                      dim=(-1, -2)) / energy
     return synth(Z), trace
 
 

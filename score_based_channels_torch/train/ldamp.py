@@ -8,9 +8,11 @@ MSE on the UNnormalised Hermitian channel (:117-120), training noise
 amplitude 10^(-SNR/20) sqrt(Nt) (:66, an amplitude, as the reference).
 
 On the card every denoiser conv runs `conv2d_taps`, forward and input
-gradient. Random streams: the parameters are drawn on the CPU from
-(seed, 0), each step's batch on the CPU from (seed, 1, step), each step's
-divergence directions on the run's device from (seed, 2, step).
+gradient, and the JAX package's jitted step is one CUDA graph
+(`LDAMPStepRunner`), replayed for every step after the first. Random
+streams: the parameters are drawn on the CPU from (seed, 0), each step's
+batch on the CPU from (seed, 1, step), each step's divergence directions
+on the run's device from (seed, 2, step).
 """
 
 from __future__ import annotations
@@ -18,12 +20,14 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import (
+    Callable, Dict, Iterable, Optional, Sequence, Tuple, Union,
+)
 
 import numpy as np
 import torch
 
-from .. import cplx
+from .. import _graph, cplx, kernels
 from .._device import resolve_device
 from ..config import Config, OptimConfig
 from ..data.dataset import ChannelDataset
@@ -96,16 +100,203 @@ def make_ldamp_optimizer(model: LDAMP, tc: LDAMPTrainConfig,
                          tc.decay_gamma))
 
 
-def ldamp_train_step(model: LDAMP, opt: Optimizer, batch,
-                     generator: Optional[torch.Generator] = None,
-                     directions: Optional[Sequence[torch.Tensor]] = None):
-    """One step: loss, backward, Adam; returns (mse, nmse) as 0-dim device
-    tensors (no host sync)."""
+def ldamp_update(model: LDAMP, opt: Optimizer, batch,
+                 generator: Optional[torch.Generator] = None,
+                 directions: Optional[Sequence[torch.Tensor]] = None):
+    """A step's device work: loss, backward, the optimizer's `update` (the
+    scheduled rate from its table); returns (mse, nmse) as 0-dim device
+    tensors. It reads no host value that changes between steps and
+    leaves `opt.count` to its caller, so one capture of it serves every
+    step (`LDAMPStepRunner`)."""
     mse, nmse = ldamp_losses(model, batch, generator, directions)
     opt.zero_grad()
     mse.backward()
-    opt.step()
+    opt.update()
     return mse.detach(), nmse.detach()
+
+
+def ldamp_train_step(model: LDAMP, opt: Optimizer, batch,
+                     generator: Optional[torch.Generator] = None,
+                     directions: Optional[Sequence[torch.Tensor]] = None):
+    """One eager step: `ldamp_update` and the optimizer's count; returns
+    (mse, nmse) as 0-dim device tensors (no host sync)."""
+    out = ldamp_update(model, opt, batch, generator, directions)
+    opt.count += 1
+    return out
+
+
+class LDAMPStepRunner:
+    """LDAMP training steps on static buffers, the JAX package's jitted
+    `train_step` (train/ldamp.py:81-97), one `ldamp_update` a step.
+
+    `run(batches, seeds, directions=None)` runs one step per seed: the
+    step's batch (a dict as `ldamp_batch` makes it, on any device) is
+    copied into the runner's buffers, and its directions (max_unrolls
+    tensors) into a (max_unrolls, B, Nt, Nr, 2) buffer when given; the
+    generator is seeded from the step's seed (the divergence directions
+    it draws); the step's (mse, nmse) go into row k of a (rows, 2) device
+    buffer at a 0-d device counter k, which each run starts at 0. It
+    returns the buffer's first n rows (the next run overwrites them) and
+    advances `opt.count` once a step.
+    - On the CPU, and on the card when `capture` is False (the eager loop
+      the graph is held against), it calls the step once a step.
+    - On the card, at the first step, the step runs eagerly on a side
+      stream (the first launch of every conv and dgrad shape, of cuDNN's
+      transposed conv, its algorithm choice and the weight gradients,
+      happens outside a capture) and the gradients are dropped; then one
+      step (forward with its divergence probes, losses, backward, the
+      optimizer) is captured in a `torch.cuda.CUDAGraph`, with the
+      generator registered, and replayed for every later step of every
+      run.
+    `batches` and `directions` are iterated as the steps run, so the host
+    makes step k+1's batch after it launched step k: on the card, while
+    replay k runs. On the card a batch on the host goes into the buffers
+    through pinned staging buffers by copies ordered on the stream after
+    replay k, which do not hold the host (`_stage`); directions, a test's
+    seam, are copied as given.
+
+    The graph reads the parameters, the optimizer's moments and its table
+    in place: an optimizer whose table was made anew (it grew past
+    `updates`, or a schedule was set after) needs a new runner (each step
+    checks). A capture that fails raises; nothing falls back to the eager
+    loop. Every step takes batches of the first step's shapes, with
+    directions or without as the first.
+
+    Counts: the capture records one step's kernel launches and gradient
+    work; the runner takes them back (a capture launches nothing) and
+    adds them once a replay, so `kernels.counts()` and
+    `kernels.grad_counts()` hold what ran on the card. `stats` counts the
+    steps, captures and replays, the capture's seconds and its graph
+    pool's bytes.
+    """
+
+    def __init__(self, model: LDAMP, opt: Optimizer,
+                 generator: torch.Generator, rows: int, updates: int,
+                 capture: bool = True):
+        dev = opt.count_t.device
+        if generator.device.type != dev.type:
+            raise ValueError("the generator lies on another device than "
+                             "the model")
+        self.model, self.opt, self.generator = model, opt, generator
+        self.capture = capture and dev.type == "cuda"
+        self.buf: Optional[Dict[str, torch.Tensor]] = None
+        self.dirs: Optional[torch.Tensor] = None
+        self.shapes = None         # the first step's input shapes
+        self.staging = None        # pinned host buffers of the batch
+        self.landed = None         # an event after the last staged copies
+        self.losses = torch.zeros((rows, 2), dtype=torch.float32, device=dev)
+        self.k = torch.zeros((), dtype=torch.int64, device=dev)
+        self.warmed = False
+        self.graph = None
+        self.recorded = None       # kernel name -> launches a replay makes
+        self.recorded_grad = None  # kernel name -> gradient work a replay
+        self.stats = dict(steps=0, captures=0, replays=0,
+                          capture_seconds=0.0, pool_bytes=0)
+        opt.reserve(updates)
+        opt.count_t.fill_(opt.count)
+        self.table = opt.table
+
+    def run(self, batches: Iterable[Dict[str, torch.Tensor]],
+            seeds: Sequence[int],
+            directions: Optional[Iterable[Sequence[torch.Tensor]]] = None
+            ) -> torch.Tensor:
+        """len(seeds) steps -> their (n, 2) (mse, nmse) rows, the runner's
+        buffer."""
+        n = len(seeds)
+        if n > len(self.losses):
+            raise ValueError(f"a run takes at most {len(self.losses)} "
+                             f"steps: got {n}")
+        self.k.zero_()
+        dirs = iter(directions) if directions is not None else None
+        for seed, batch in zip(seeds, batches):
+            self._load(batch, next(dirs) if dirs is not None else None)
+            self.opt.reserve_in(1, self.table)
+            self.generator.manual_seed(seed)
+            if not self.capture:
+                self._step()
+            elif not self.warmed:
+                _graph.on_side_stream(self._step, self.k.device)
+                self.opt.zero_grad()  # the capture makes its own in its pool
+                self.warmed = True
+            else:
+                if self.graph is None:
+                    self._capture()
+                self.graph.replay()
+                kernels.add_launches(self.recorded)
+                kernels.add_grad_counts(self.recorded_grad)
+                self.stats["replays"] += 1
+            self.stats["steps"] += 1
+            self.opt.count += 1
+        return self.losses[:n]
+
+    def _load(self, batch: Dict[str, torch.Tensor],
+              directions: Optional[Sequence[torch.Tensor]]) -> None:
+        """Copy a step's inputs into the buffers (made at the first step
+        with the first inputs' shapes)."""
+        shapes = ({k: tuple(v.shape) for k, v in batch.items()},
+                  None if directions is None else
+                  (len(directions),) + tuple(directions[0].shape))
+        if self.buf is None:
+            dev = self.k.device
+            self.buf = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                        for k, v in batch.items()}
+            if directions is not None:
+                self.dirs = torch.empty(shapes[1], dtype=torch.float32,
+                                        device=dev)
+            self.shapes = shapes
+        elif shapes != self.shapes:
+            raise ValueError("a runner's steps take the inputs of its first "
+                             f"step, {self.shapes}: got {shapes}")
+        if self.k.device.type == "cuda":
+            self._stage(batch)
+        else:
+            for k, v in batch.items():
+                self.buf[k].copy_(v)
+        if directions is not None:
+            for buf, d in zip(self.dirs, directions):
+                buf.copy_(d)
+
+    def _stage(self, batch: Dict[str, torch.Tensor]) -> None:
+        """Copy a batch into the card's buffers by copies that do not wait
+        for the stream: a host tensor goes through a pinned staging
+        buffer, which changes only once the last staged copies landed, so
+        the card runs on from replay k into copy and replay k+1 while the
+        host makes the next batch."""
+        host = [k for k, v in batch.items() if v.device.type == "cpu"]
+        if host:
+            if self.staging is None:
+                self.staging = {k: torch.empty(batch[k].shape,
+                                               dtype=batch[k].dtype,
+                                               pin_memory=True)
+                                for k in host}
+                self.landed = torch.cuda.Event()
+            self.landed.synchronize()
+            for k in host:
+                self.staging[k].copy_(batch[k])
+        for k, v in batch.items():
+            self.buf[k].copy_(self.staging[k] if k in host else v,
+                              non_blocking=True)
+        if host:
+            self.landed.record()
+
+    def _step(self) -> None:
+        """One step on the buffers: `ldamp_update`, (mse, nmse) into row
+        k, k += 1."""
+        mse, nmse = ldamp_update(self.model, self.opt, self.buf,
+                                 self.generator, self.dirs)
+        self.losses.index_copy_(0, self.k.view(1),
+                                torch.stack([mse, nmse]).view(1, 2))
+        self.k.add_(1)
+
+    def _capture(self) -> None:
+        """Capture one step (`_graph.capture`)."""
+        cap = _graph.capture(self._step, self.generator, self.k.device)
+        self.graph = cap.graph
+        self.recorded, self.recorded_grad = cap.launches, cap.grad
+        self.stats["captures"] += 1
+        self.stats["capture_seconds"] += cap.seconds
+        self.stats["pool_bytes"] = max(self.stats["pool_bytes"],
+                                       cap.pool_bytes)
 
 
 def train_ldamp_snr(
@@ -120,11 +311,14 @@ def train_ldamp_snr(
     _init: Optional[dict] = None,
     _batches: Optional[Callable[[int], dict]] = None,
     _directions: Optional[Callable[[int], Sequence[torch.Tensor]]] = None,
+    _capture: bool = True,
 ) -> Tuple[LDAMP, dict]:
     """Train one LDAMP at one SNR on `device` (None: the card); returns
-    (model, logs). `_init` (a state dict), `_batches(step)` and
-    `_directions(step)` replace the run's own draws (a test feeds the JAX
-    package's through them)."""
+    (model, logs). The steps run through one `LDAMPStepRunner` (on the
+    card one captured step, replayed); `_capture` False runs the same
+    steps eagerly, the loop the graph is held against. `_init` (a state
+    dict), `_batches(step)` and `_directions(step)` replace the run's own
+    draws (a test feeds the JAX package's through them)."""
     dev = resolve_device(device)
     n_epochs = n_epochs if n_epochs is not None else tc.n_epochs
     num_pilots = int(config.data.num_tx * tc.alpha)
@@ -140,25 +334,27 @@ def train_ldamp_snr(
     if _init is not None:
         model.load_state_dict(_init, strict=True)
     opt = make_ldamp_optimizer(model, tc, max(1, len(ds) // tc.batch_size))
-    gen = torch.Generator(device=dev)
+    runner = LDAMPStepRunner(model, opt, torch.Generator(device=dev),
+                             steps_per_epoch, n_epochs * steps_per_epoch,
+                             capture=_capture)
+
+    def batch(s):  # made on the host
+        return (_batches(s) if _batches is not None else ldamp_batch(
+            ds, torch.Generator().manual_seed(derive_seed(tc.seed, 1, s)),
+            batch_size, "cpu"))
 
     loss_log, nmse_log = [], []
     t0 = time.time()
     step = 0
     with matmul_precision(config.training.matmul_precision):
         for epoch in range(n_epochs):
-            losses = []
-            for _ in range(steps_per_epoch):
-                batch = (_batches(step) if _batches is not None
-                         else ldamp_batch(ds, torch.Generator().manual_seed(
-                             derive_seed(tc.seed, 1, step)), batch_size, dev))
-                batch = {k: v.to(dev) for k, v in batch.items()}
-                gen.manual_seed(derive_seed(tc.seed, 2, step))
-                losses.append(torch.stack(ldamp_train_step(
-                    model, opt, batch, gen,
-                    _directions(step) if _directions is not None else None)))
-                step += 1
-            chunk = torch.stack(losses).cpu().numpy()  # one sync an epoch
+            steps = range(step, step + steps_per_epoch)
+            rows = runner.run(
+                (batch(s) for s in steps),
+                [derive_seed(tc.seed, 2, s) for s in steps],
+                None if _directions is None else map(_directions, steps))
+            step += steps_per_epoch
+            chunk = rows.cpu().numpy()  # one sync an epoch
             loss_log.extend(chunk[:, 0].tolist())
             nmse_log.extend(chunk[:, 1].tolist())
             log_fn(f"SNR {train_snr:.1f} epoch {epoch} "

@@ -90,14 +90,21 @@ class Optimizer:
     learning rate in place of `optim_cfg.lr` (optax's
     `scale_by_schedule`, e.g. `staircase_decay`).
 
-    The Adam family's bias corrections depend on the count. They come
-    from `table`, a float32 device tensor with one row (1 - b1^c,
-    1 - b2^c) per count c = 1, 2, ..., made on the host with optax's
-    float32 arithmetic, at the row of `count_t`, a 0-d int64 device
-    counter that each update advances: an update then takes no host value
-    that changes from step to step, so a CUDA graph of it (the training
-    runner's) serves every step. `count` stays the host's int and the
-    checkpoint's.
+    What depends on the count comes from `table`, a float32 device tensor
+    made on the host, at the row of `count_t`, a 0-d int64 device counter
+    that each update advances. Row r holds, for the update of 0-based
+    index r: the Adam family's bias corrections (1 - b1^c, 1 - b2^c) at
+    c = r + 1, in optax's float32 arithmetic; with a schedule, last,
+    -schedule(r) in float32, the factor optax's `scale_by_learning_rate`
+    multiplies by. An update then takes no host value that changes from
+    step to step, so a CUDA graph of it (the training runners') serves
+    every step. A rule with neither has no table. `count` stays the
+    host's int and the checkpoint's.
+
+    The scheduled step is `addcmul` with the rate's 0-d tensor, which
+    gives the bits of `add(alpha=-lr)` with the host float on the CPU
+    (one fused multiply-add each); without a schedule the step keeps
+    `alpha=-lr`.
     """
 
     def __init__(self, named_params, optim_cfg,
@@ -123,17 +130,31 @@ class Optimizer:
 
     def reserve(self, n: int) -> None:
         """Make `table` hold the rows of the next n updates (a new tensor
-        when it grows: a CUDA graph that read the old one no longer
-        serves)."""
+        when it grows, or when a schedule was set after it was made: a
+        CUDA graph that read the old one no longer serves)."""
+        b = ((np.float32(self.cfg.beta1), np.float32(self.cfg.beta2))
+             if self.rule in _ADAM else ())
+        cols = len(b) + (self.schedule is not None)
         rows = 0 if self.table is None else self.table.shape[0]
-        if self.rule not in _ADAM or self.count + n <= rows:
+        if cols == 0 or (self.count + n <= rows
+                         and self.table.shape[1] == cols):
             return
-        b = (np.float32(self.cfg.beta1), np.float32(self.cfg.beta2))
-        # optax's bias corrections: 1 - decay**count in float32
-        tab = np.asarray([[1 - d ** np.float32(c) for d in b] for c in
-                          range(1, max(self.count + n, 2 * rows) + 1)],
-                         np.float32)
+        tab = np.zeros((max(self.count + n, 2 * rows), cols), np.float32)
+        for r in range(tab.shape[0]):
+            # optax's bias corrections: 1 - decay**count in float32
+            tab[r, :len(b)] = [1 - d ** np.float32(r + 1) for d in b]
+            if self.schedule is not None:
+                tab[r, -1] = -np.float32(self.schedule(r))
         self.table = torch.from_numpy(tab).to(self.count_t.device)
+
+    def reserve_in(self, n: int, table: Optional[torch.Tensor]) -> None:
+        """`reserve(n)`, raising if that made the table anew: a runner's
+        captured graph reads the table it was built with."""
+        self.reserve(n)
+        if self.table is not table:
+            raise RuntimeError("the optimizer's table grew past the updates "
+                               "this runner was built for, or a schedule "
+                               "was set after it")
 
     @torch.no_grad()
     def step(self) -> None:
@@ -145,13 +166,15 @@ class Optimizer:
     def update(self) -> None:
         """The update's device work alone (what `step` and a captured
         training step run): `count` is the caller's to advance. The table
-        grows here only when it lacks the row of `count` + 1, which a
-        runner reserves before its capture. With a schedule the learning
-        rate is the host's value at `count`."""
+        grows here only when it lacks the row of `count`, which a runner
+        reserves before its capture."""
         self.reserve(1)
         c, p = self.cfg, self.params
         g = [q.grad for q in p]
-        lr = c.lr if self.schedule is None else self.schedule(self.count)
+        row = None
+        if self.table is not None:
+            row = self.table.index_select(0, self.count_t.view(1))[0]
+            self.count_t.add_(1)
         if self.rule in _ADAM:
             if c.weight_decay:
                 g = torch._foreach_add(g, torch._foreach_mul(p, c.weight_decay))
@@ -161,8 +184,7 @@ class Optimizer:
             torch._foreach_mul_(nu, c.beta2)
             torch._foreach_add_(nu, torch._foreach_mul(g, g),
                                 alpha=1.0 - c.beta2)
-            bc1, bc2 = self.table.index_select(0, self.count_t.view(1))[0]
-            self.count_t.add_(1)
+            bc1, bc2 = row[0], row[1]
             m_hat = torch._foreach_div(mu, bc1)
             v_hat = torch._foreach_div(nu, bc2)
             if self.rule == "amsgrad":
@@ -172,19 +194,29 @@ class Optimizer:
             torch._foreach_sqrt_(v_hat)
             torch._foreach_add_(v_hat, c.eps)
             torch._foreach_div_(m_hat, v_hat)
-            torch._foreach_add_(p, m_hat, alpha=-lr)
+            self._descend(m_hat, row)
         elif self.rule == "rmsprop":
             nu = self.moments["nu"]
             torch._foreach_mul_(nu, 0.99)
             torch._foreach_add_(nu, torch._foreach_mul(g, g), alpha=1 - 0.99)
             scale = torch._foreach_add(nu, 1e-8)
             torch._foreach_rsqrt_(scale)
-            torch._foreach_add_(p, torch._foreach_mul(g, scale), alpha=-lr)
+            self._descend(torch._foreach_mul(g, scale), row)
         else:  # sgd with momentum 0.9
             tr = self.moments["trace"]
             torch._foreach_mul_(tr, 0.9)
             torch._foreach_add_(tr, g)
-            torch._foreach_add_(p, tr, alpha=-lr)
+            self._descend(tr, row)
+
+    def _descend(self, direction: List[torch.Tensor],
+                 row: Optional[torch.Tensor]) -> None:
+        """params -= lr * direction: lr the config's constant, or with a
+        schedule the rate of `row` (the table's, a device value)."""
+        if self.schedule is None:
+            torch._foreach_add_(self.params, direction, alpha=-self.cfg.lr)
+        else:
+            torch._foreach_addcmul_(self.params, direction,
+                                    [row[-1]] * len(direction))
 
     def zero_grad(self) -> None:
         for q in self.params:
@@ -207,11 +239,11 @@ class Optimizer:
     def load_state_leaves(self, leaves) -> None:
         """The inverse of `state_leaves`, from either package's checkpoint."""
         leaves = list(leaves)
-        if self.schedule is not None:
-            leaves.pop()
+        if self.schedule is not None:  # scale_by_schedule's own count
+            self.count = int(leaves.pop())
         if self.rule in _ADAM:
             self.count = int(leaves.pop(0))
-            self.count_t.fill_(self.count)
+        self.count_t.fill_(self.count)
         paths = tree_paths(state_dict_to_jax_params(dict(zip(self.names,
                                                              self.params))))
         if len(leaves) != len(paths) * len(_MOMENTS[self.rule]):
@@ -341,14 +373,14 @@ class TrainChunkRunner:
       draws from the seed, as the eager step's.
     Nothing inside the step makes a tensor from host data, reads a Python
     value that changes between steps or synchronises with the host: the
-    optimizer's bias corrections come from its device table at its device
-    counter (`Optimizer.update`), which the runner sets from the count
-    when it is built. A capture that fails raises; nothing falls back to
-    the eager loop. The graph reads the parameters, EMA, moments, x_all
-    and the optimizer's table in place: a state whose tensors are
-    replaced, or an optimizer whose table grew, needs a new runner (a run
-    checks the table). With a learning-rate schedule the rate would be
-    frozen at the capture's, so a runner refuses one.
+    optimizer's bias corrections and a schedule's learning rate come from
+    its device table at its device counter (`Optimizer.update`), which
+    the runner sets from the count when it is built. A capture
+    that fails raises; nothing falls back to the eager loop. The graph
+    reads the parameters, EMA, moments, x_all and the optimizer's table
+    in place: a state whose tensors are replaced, or an optimizer whose
+    table was made anew (it grew, or a schedule was set after it), needs
+    a new runner (a run checks the table).
 
     Every run takes the same inputs as the first: with or without
     `labels` and `noise` (the (n, batch) labels and (n, *x.shape[1:])
@@ -366,9 +398,6 @@ class TrainChunkRunner:
                  x_all: torch.Tensor, batch: int, chunk_len: int,
                  generator: torch.Generator, updates: int,
                  capture: bool = True):
-        if state.opt.schedule is not None:
-            raise ValueError("a captured step would keep the first step's "
-                             "learning rate: the runner takes no schedule")
         dev = x_all.device
         if generator.device.type != dev.type:
             raise ValueError("the generator lies on another device than "
@@ -401,10 +430,7 @@ class TrainChunkRunner:
                              f"{self.idx.shape[1]} rows: got idx "
                              f"{tuple(idx.shape)} for {n} seeds")
         opt = self.state.opt
-        opt.reserve(n)
-        if opt.table is not self.table:
-            raise RuntimeError("the optimizer's table grew past the updates "
-                               "this runner was built for")
+        opt.reserve_in(n, self.table)
         self.idx[:n].copy_(idx)
         self._load_draws(labels, noise, n)
         self.k.zero_()

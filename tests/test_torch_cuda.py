@@ -1344,3 +1344,136 @@ def test_train_capture_with_a_host_sync_raises(card):
     ok = TrainChunkRunner(trainer.update, trainer.init_state(1), x_all, 8, 3,
                           torch.Generator(device=card), 20)
     assert torch.isfinite(ok.run(torch.arange(16).view(2, 8), [1, 2])).all()
+
+
+def _ldamp_tiny():
+    """CDL-C at 8 realizations, LDAMP of 2 unrolls, 8 channels, 2 pools,
+    batch 4: 2 steps an epoch, the rate x0.1 after the first epoch."""
+    from score_based_channels_torch.config import Config, DataConfig
+    from score_based_channels_torch.train.ldamp import LDAMPTrainConfig
+
+    return (Config(data=DataConfig(num_channels=8)),
+            LDAMPTrainConfig(max_unrolls=2, chans=8, num_pools=2,
+                             batch_size=4, n_epochs=3, decay_epochs=1))
+
+
+def _ldamp_runs(card, capture, steps=6):
+    """(model, optimizer, (steps, 2) rows, runner) of `steps` runner steps
+    on the tiny LDAMP, one run an epoch of 2 steps."""
+    from score_based_channels_torch.data import ChannelDataset
+    from score_based_channels_torch.train.ldamp import (
+        LDAMPStepRunner, ldamp_batch, make_ldamp_model, make_ldamp_optimizer,
+    )
+
+    cfg, tc = _ldamp_tiny()
+    ds = ChannelDataset(1234, dataclasses.replace(
+        cfg.data, noise_std=2.5, num_pilots=38), norm="global")
+    model = make_ldamp_model(tc, card)
+    opt = make_ldamp_optimizer(model, tc, 2)
+    runner = LDAMPStepRunner(model, opt, torch.Generator(device=card), 2,
+                             steps, capture=capture)
+    rows = []
+    for run in range(steps // 2):
+        s = range(2 * run, 2 * run + 2)
+        rows.append(runner.run(
+            (ldamp_batch(ds, torch.Generator().manual_seed(i), 4, "cpu")
+             for i in s), [100 + i for i in s]).clone())
+    return model, opt, torch.cat(rows), runner
+
+
+def test_ldamp_graph_equals_the_eager_loop_bitwise(card, deterministic):
+    """6 steps over 3 epochs, across two drops of the rate: parameters,
+    Adam moments, count and every (mse, nmse) row, bit for bit."""
+    a, b = _ldamp_runs(card, True), _ldamp_runs(card, False)
+    assert a[3].stats["replays"] == 5 and b[3].stats["replays"] == 0
+    for p, q in zip(a[0].parameters(), b[0].parameters()):
+        assert torch.equal(p, q)
+    for key in ("mu", "nu"):
+        for p, q in zip(a[1].moments[key], b[1].moments[key]):
+            assert torch.equal(p, q)
+    assert a[1].count == b[1].count == int(a[1].count_t) == 6
+    assert torch.equal(a[2], b[2]) and torch.isfinite(a[2]).all()
+
+
+def test_ldamp_graph_counts_what_the_eager_loop_launches(card):
+    """train_ldamp_snr through the graph (step 0 eager, one capture, 5
+    replays) counts the conv launches and gradient work of the same 6
+    steps run eagerly, with no plain call."""
+    from score_based_channels_torch.train.ldamp import train_ldamp_snr
+
+    cfg, tc = _ldamp_tiny()
+    seen = []
+    for capture in (True, False):
+        reset_counts()
+        _, logs = train_ldamp_snr(cfg, 10.0, tc, log_fn=lambda s: None,
+                                  device=card, _capture=capture)
+        seen.append((counts(), grad_counts()))
+        assert np.isfinite(logs["loss_log"]).all()
+        assert len(logs["loss_log"]) == 6
+    assert seen[0] == seen[1]
+    fwd = 2 * 11  # unrolls x convs of a 2-pool U-Net apply
+    assert seen[0][0]["conv2d_taps"] == {"launches": (3 * fwd - 1) * 6,
+                                         "plain": 0}
+    assert seen[0][1]["conv2d_taps"] == {"functions": fwd * 6,
+                                         "dgrad": (fwd - 1) * 6}
+
+
+def test_ldamp_capture_with_a_host_sync_raises(card, monkeypatch):
+    """A step that reads a value on the host runs eagerly at step 0 but
+    cannot be captured: the run raises, nothing falls back to the eager
+    loop, and the card stays usable."""
+    from score_based_channels_torch.train import ldamp
+
+    losses = ldamp.ldamp_losses
+
+    def syncing(*args, **kwargs):
+        mse, nmse = losses(*args, **kwargs)
+        return mse * float(mse.item() > -1), nmse
+
+    monkeypatch.setattr(ldamp, "ldamp_losses", syncing)
+    with pytest.raises(RuntimeError):
+        _ldamp_runs(card, True, steps=2)
+    monkeypatch.setattr(ldamp, "ldamp_losses", losses)
+    assert torch.isfinite(_ldamp_runs(card, True, steps=2)[2]).all()
+
+
+@pytest.mark.parametrize("name", ["fista", "amp"])
+def test_baseline_graph_equals_the_plain_loop_bitwise(card, name):
+    """The captured iteration, replayed, against the Python loop on the
+    card: estimate and trace, bit for bit (B = 6, 64x16, lift 4)."""
+    from score_based_channels_torch import cplx
+    from score_based_channels_torch.baselines import amp, lasso
+
+    A, X, Y = (t.to(card) for t in _baseline_inputs())
+    L2, R2 = (cplx.from_complex(d).to(card)
+              for d in lasso.lifted_fourier_dicts(64, 16, 4))
+    if name == "fista":
+        run = lambda f: f(A, Y, L2, R2, 0.3, 3e-3, num_iters=60, oracle2=X)
+        got, want = run(lasso.fista_l1_lifted), run(
+            lasso.fista_l1_lifted_plain)
+    else:
+        run = lambda f: f(A, Y, L2, R2, num_iters=30, oracle2=X)
+        got, want = run(amp.em_gm_amp), run(amp.em_gm_amp_plain)
+    assert got[0].device.type == "cuda"
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.isfinite(got[1]).all()
+
+
+def test_run_steps_capture_with_a_host_sync_raises(card):
+    """An iteration that reads a value on the host cannot be captured:
+    run_steps raises after the eager first iteration."""
+    from score_based_channels_torch import _graph
+
+    x = torch.zeros(4, device=card)
+
+    def step():
+        x.add_(float(x.sum().item() > -1))
+
+    with pytest.raises(RuntimeError):
+        _graph.run_steps([step], 3, card)
+    assert float(x.sum()) >= 4  # the first iteration ran
+    # two steps in turn: 2 eager iterations, then the graphs alternate
+    y = torch.zeros(4, device=card)
+    caps = _graph.run_steps([lambda: y.add_(1), lambda: y.mul_(2)], 5, card)
+    assert len(caps) == 2
+    assert torch.equal(y, torch.full((4,), 7.0, device=card))  # +1 x2 +1 x2 +1

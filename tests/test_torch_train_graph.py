@@ -339,17 +339,23 @@ def test_table_rows_are_optax_float32_bias_corrections():
 
 
 def test_runner_refuses_a_schedule_and_changed_inputs():
+    """A scheduled optimizer runs (its rates are in its table); a schedule
+    set after the runner was built (its rates are not in the table the
+    runner reads), a table that grew, and inputs that change between
+    runs raise."""
     trainer = ScoreTrainer(_cfg(Config), device="cpu")
     state = trainer.init_state(0)
     x_all = torch.randn(8, 64, 16, 2)
+    idx = torch.arange(8).view(2, 4)
     scheduled = Optimizer(state.model.named_parameters(), OptimConfig(),
                           schedule=staircase_decay(1e-4, 2, 0.1))
-    with pytest.raises(ValueError, match="schedule"):
-        TrainChunkRunner(trainer.update, dataclasses.replace(
-            state, opt=scheduled), x_all, 4, 3, torch.Generator(), 3)
+    losses = TrainChunkRunner(trainer.update, dataclasses.replace(
+        state, opt=scheduled), x_all, 4, 3, torch.Generator(), 3).run(
+            idx, [1, 2])
+    assert torch.isfinite(losses).all() and scheduled.count == 2
+    assert scheduled.table.shape == (3, 3)
     runner = TrainChunkRunner(trainer.update, state, x_all, 4, 3,
                               torch.Generator(), 6)
-    idx = torch.arange(8).view(2, 4)
     runner.run(idx, [1, 2])
     with pytest.raises(ValueError, match="at most 3 steps"):
         runner.run(torch.zeros(4, 4, dtype=torch.int64), [1, 2, 3, 4])
@@ -358,6 +364,10 @@ def test_runner_refuses_a_schedule_and_changed_inputs():
     with pytest.raises(ValueError, match="same inputs"):
         runner.run(idx, [1, 2], labels=torch.zeros(2, 4, dtype=torch.int64),
                    noise=torch.zeros(2, 4, 64, 16, 2))
+    state.opt.schedule = staircase_decay(1e-4, 2, 0.1)
+    with pytest.raises(RuntimeError, match="schedule was set"):
+        runner.run(idx, [1, 2])
+    state.opt.schedule = None
     state.opt.reserve(100)  # the table grew past what the runner reserved
     with pytest.raises(RuntimeError, match="table grew"):
         runner.run(idx, [1, 2])
