@@ -37,7 +37,14 @@ Phases (any failure propagates and the exit code is non-zero):
   5. link path: `run_link_simulation` at the reference's full width (256
      packets, Nr 16, Nt 64, 4 QPSK streams, exact-ML LLRs, 25 BP
      iterations, 9 SNRs, ideal and estimated CSI at -10 dB NMSE) with its
-     launch counts and BER/BLER, and a profiler window of one SNR point;
+     launch counts and BER/BLER; the sweep runs through one receiver
+     graph (detector, de-interleave and decode captured at the second
+     call and replayed), and `link_graph_phase` holds it, for the ML,
+     K-best and ZF-SIC detectors, against the same sweep with the
+     receiver eager (BER/BLER at every SNR, one point's bits and LLRs bit
+     for bit), times both in turns as packets/s, profiles one point each
+     way (wall, device busy, largest device ops) beside the host encoder
+     timed alone, with the capture's seconds and pool MB;
   6. conv probe: `conv_im2col` against its plain version at the 5 probe
      cases (with and without bias and ELU) and at every conv shape of the
      forward (timed beside `conv2d_taps`), `conv_chain` at 8x2 c128 for
@@ -87,7 +94,11 @@ Phases (any failure propagates and the exit code is non-zero):
      `run_estimation` from its checkpoint;
  10. the samplers: unconditional, inpainting and interpolation on the
      full-width NCSNv2-Deepest, with their launch counts, each held against
-     the CPU on a 2-sample slice fed the same draws;
+     the CPU on a 2-sample slice fed the same draws; each runs one captured
+     inner step, replayed, and `sampler_graph_check` holds it bit for bit
+     against its eager loop fed the generator's draws (4 levels x 10
+     steps at 64 chains), times both in turns as steps/s and profiles a
+     run each way;
  11. LDAMP: `train_ldamp_snr` at the JAX package's defaults (10 unrolls,
      chans 16, batch 128) for 4 steps with its launch counts (conv2d_taps
      forward and dgrad), the card's gradient against the CPU's at batch 4,
@@ -103,7 +114,9 @@ Phases (any failure propagates and the exit code is non-zero):
  12. WGAN: `train_wgan` at the defaults (2 generator iterations of 100
      critic steps), ms per D and G step, `run_wgan_eval` on a reduced grid
      held against the CPU and float64 on 2 channels (the whole run on the
-     card's ReLU branches), an inversion step at 4,096 chains;
+     card's ReLU branches), an inversion step at 4,096 chains, and the
+     device busy share of one D, one G and one inversion step in one
+     profiler window;
  13. `generate-data --backend native` against the torch generator's
      moments;
  14. variants: NCSNv2Deepest at full width (batch 256, f32) with each
@@ -171,6 +184,7 @@ BENCH_RUNS = 5  # timed runs of the bench workload (one level schedule each)
 LINK_PACKETS = 256
 LINK_SNRS = np.arange(-10, 12.5, 2.5)  # the reference's grid
 BP_ITERS = 25
+LINK_DETECTORS = ("ml", "kbest", "zf-sic")  # each through its receiver graph
 
 
 def cuda_ms(fn, reps=20):
@@ -482,21 +496,16 @@ def busy_window(fn, top=12):
             sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
 
 
-def link_phase():
-    """`run_link_simulation` at the reference's full width on the card."""
-    from torch.profiler import ProfilerActivity, profile
-
+def link_phase(card):
+    """`run_link_simulation` at the reference's full width on the card,
+    through its receiver graph; then `link_graph_phase`."""
     from score_based_channels_torch import cplx, kernels
     from score_based_channels_torch.comms import link
     from score_based_channels_torch.comms.ldpc import make_wifi_ldpc
+    from score_based_channels_torch.comms.link_bench import channels
     from score_based_channels_torch.comms.mimo import mimo_ml_llr
 
-    rng = np.random.default_rng(3)
-    shape = (LINK_PACKETS, 16, 64)
-    cn = lambda: (rng.standard_normal(shape) + 1j * rng.standard_normal(
-        shape)) / np.sqrt(2)
-    H = cn().astype(np.complex64)  # i.i.d. Rayleigh, unit power
-    H_est = (H + np.sqrt(0.1) * cn()).astype(np.complex64)  # -10 dB NMSE
+    H, H_est = channels(LINK_PACKETS)  # i.i.d. Rayleigh, -10 dB NMSE
     Ht, He = cplx.from_complex(H).cuda(), cplx.from_complex(H_est).cuda()
     code = make_wifi_ldpc()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -527,26 +536,9 @@ def link_phase():
     assert res.ber_est[i10] >= res.ber_ideal[i10], (res.ber_est, res.ber_ideal)
     assert np.isfinite(res.ber_est).all() and np.isfinite(res.bler_est).all()
 
-    # profiler window: one SNR point (2 detections, 2 decodes of 25 iterations)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        link.simulate_packets(gen, Ht, He, 10.0, code)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = device_ms_by_name(prof)
-    busy = sum(by_name.values())
-    ldpc_ms = sum(ms for k, ms in by_name.items() if "ldpc_minsum_kernel" in k)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"# link profile, one SNR point at {LINK_PACKETS} packets: wall "
-          f"{wall_ms:.1f} ms, device busy {busy:.1f} ms "
-          f"({100 * busy / wall_ms:.1f}%), LDPC kernel {ldpc_ms:.2f} ms "
-          f"({100 * ldpc_ms / wall_ms:.1f}% of wall; "
-          f"{ldpc_ms / (2 * BP_ITERS):.4f} ms per iteration in the path)"
-          if busy else "# link profile: no device time reported (not "
-          "measured)")
-    for name, ms in top:
-        print(f"#   {ms:9.3f} ms  {name[:90]}")
+    graph = link_graph_phase(H, H_est, Ht, He, code, card)
+    win = graph["ml"]["windows"]["graph"]
+    ldpc_ms = sum(ms for k, ms in win["top"] if "ldpc_minsum_kernel" in k)
 
     # the ML detector of the same point, alone (2 calls per SNR point)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -555,23 +547,129 @@ def link_phase():
     Y = cplx.matmul(cplx.randn(g, (LINK_PACKETS, 81, 4)),
                     cplx.transpose(Heff))
     ml_ms = cuda_ms(lambda: mimo_ml_llr(Y, Heff, 0.05), reps=5)
-    # the host's numpy encoder of one SNR point (the JAX package's, copied)
-    bits = np.random.default_rng(4).integers(0, 2, (LINK_PACKETS, code.k),
-                                             dtype=np.uint8)
-    t0 = time.perf_counter()
-    code.encode(bits)
-    enc_ms = (time.perf_counter() - t0) * 1e3
     print(f"# ML LLR alone: {ml_ms:.3f} ms per call ({LINK_PACKETS} packets "
           f"x 81 slots x 256 hypotheses), 2 per SNR point: "
-          f"{100 * 2 * ml_ms / wall_ms:.1f}% of the window's wall; host "
-          f"encoder {enc_ms:.1f} ms per SNR point")
+          f"{100 * 2 * ml_ms / win['wall_ms']:.1f}% of the graph window's "
+          f"wall; LDPC kernel {ldpc_ms:.2f} ms a point in that window "
+          f"({ldpc_ms / (2 * BP_ITERS):.4f} ms per iteration in the path)")
     return dict(seconds=dt, packets_per_s=LINK_PACKETS * len(LINK_SNRS) / dt,
                 counts=n, ber_ideal=res.ber_ideal.tolist(),
                 ber_est=res.ber_est.tolist(), bler_ideal=res.bler_ideal.tolist(),
-                bler_est=res.bler_est.tolist(), profile_wall_ms=wall_ms,
-                profile_busy_ms=busy, profile_ldpc_ms=ldpc_ms,
-                profile_top=top, ml_llr_ms=ml_ms, host_encode_ms=enc_ms,
-                ms_per_iteration_in_path=ldpc_ms / (2 * BP_ITERS))
+                bler_est=res.bler_est.tolist(), profile_wall_ms=win["wall_ms"],
+                profile_busy_ms=win["busy_ms"], profile_ldpc_ms=ldpc_ms,
+                profile_top=win["top"], ml_llr_ms=ml_ms,
+                host_encode_ms=graph["host_encode_ms"],
+                ms_per_iteration_in_path=ldpc_ms / (2 * BP_ITERS),
+                graph=graph)
+
+
+@contextlib.contextmanager
+def captures_made(caps):
+    """Every `_graph.capture` made inside, appended to caps."""
+    from score_based_channels_torch import _graph
+
+    capture = _graph.capture
+    _graph.capture = lambda *a: caps.append(capture(*a)) or caps[-1]
+    try:
+        yield
+    finally:
+        _graph.capture = capture
+
+
+def link_graph_phase(H, H_est, Ht, He, code, card):
+    """The link's receiver graph (in phase 5), at the link phase's full
+    width, for each detector: `run_link_simulation` through the graph
+    (one capture a sweep: call 1 eager, 17 replays) against the same
+    sweep with its receivers eager, BER and BLER equal at every SNR;
+    the hard bits and final LLRs of one point (10 dB, estimated CSI)
+    bit for bit; whole sweeps in turns (eager, graph, graph, eager) as
+    packets/s; one point's wall and device time in a profiler window
+    each way with its largest device ops; a point's host wall beside the
+    numpy encoder timed alone; the capture's seconds and pool MB."""
+    from score_based_channels_torch import kernels
+    from score_based_channels_torch.comms import link
+    from score_based_channels_torch.comms.link_bench import eager_receivers
+
+    n_pk = LINK_PACKETS * len(LINK_SNRS)
+    bits = np.random.default_rng(4).integers(0, 2, (LINK_PACKETS, code.k),
+                                             dtype=np.uint8)
+    enc_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        code.encode(bits)
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"host_encode_ms": float(np.median(enc_ms))}
+    print(f"# link graph: host numpy encoder {out['host_encode_ms']:.2f} ms "
+          f"a point ({LINK_PACKETS} packets, median of 5) on {card}")
+    for det in LINK_DETECTORS:
+        sweep = lambda: link.run_link_simulation(
+            H, H_est, snr_range=LINK_SNRS, num_bp_iters=BP_ITERS,
+            detector=det, device="cuda")
+
+        def eager():
+            with eager_receivers():
+                return sweep()
+
+        caps = []
+        kernels.reset_counts()
+        with captures_made(caps):
+            got = sweep()
+        n = kernels.counts()
+        want = eager()
+        keys = ("ber_ideal", "ber_est", "bler_ideal", "bler_est")
+        same = all(np.array_equal(getattr(got, k), getattr(want, k))
+                   for k in keys)
+        # one point through a kept receiver each way: bits and LLRs
+        rx = {"graph": link.LinkReceiver(code, LINK_PACKETS, 16,
+                                         detector=det, device="cuda")}
+        with eager_receivers():
+            rx["eager"] = link.LinkReceiver(code, LINK_PACKETS, 16,
+                                            detector=det, device="cuda")
+        point = {way: (lambda r=r: link.simulate_packets(
+            torch.Generator(device="cuda").manual_seed(7), Ht, He, 10.0,
+            code, detector=det, receiver=r)) for way, r in rx.items()}
+        for way in ("graph", "graph", "eager"):  # graph: eager, capture
+            point[way]()
+        bit_equal = (torch.equal(rx["graph"].decoder.bits,
+                                 rx["eager"].decoder.bits)
+                     and same_bits(rx["graph"].decoder.post,
+                                   rx["eager"].decoder.post))
+        print(f"# link graph, {det}: {LINK_PACKETS} packets x "
+              f"{len(LINK_SNRS)} SNRs; BER/BLER equal to the eager sweep at "
+              f"every SNR {same}; one point's bits and LLRs bit-equal "
+              f"{bit_equal}; {len(caps)} capture a sweep of "
+              f"{rounded([c.seconds for c in caps], 4)} s, pool "
+              f"{rounded([c.pool_bytes / 2**20 for c in caps], 1)} MB; "
+              f"ldpc_minsum {n['ldpc_minsum']}", flush=True)
+        assert same and bit_equal, (det, same, bit_equal)
+        assert len(caps) == 1, caps
+        assert n["ldpc_minsum"] == {"launches": BP_ITERS * 2 * len(LINK_SNRS),
+                                    "plain": 0}, n
+        secs, _ = in_turns(eager, sweep, f"link {det} sweeps, eager "
+                           "receiver and graph")
+        rate = {k: [n_pk / v for v in vs] for k, vs in secs.items()}
+        print(f"#   packets/s: eager {rounded(rate['plain'], 1)}, graph "
+              f"{rounded(rate['graph'], 1)}")
+        windows, host = {}, {}
+        for way in ("eager", "graph"):
+            wall, busy, top = busy_window(point[way])
+            windows[way] = dict(wall_ms=wall, busy_ms=busy, top=top)
+            walls = [timed(point[way])[1] * 1e3 for _ in range(5)]
+            host[way] = float(np.median(walls))
+            print(f"#   one point (10 dB), {way}: profiled wall {wall:.2f} "
+                  f"ms, device busy {busy:.2f} ms ({100 * busy / wall:.1f}%)"
+                  f"; wall {host[way]:.2f} ms (median of 5), of which "
+                  f"{out['host_encode_ms']:.2f} the encoder and "
+                  f"{host[way] - out['host_encode_ms'] - busy:.2f} neither "
+                  f"the encoder nor the card")
+            for k, ms in top[:8]:
+                print(f"#     {ms:9.3f} ms  {k[:80]}")
+        out[det] = dict(equal=same, bit_equal=bit_equal, counts=n,
+                        capture_seconds=[c.seconds for c in caps],
+                        pool_bytes=[c.pool_bytes for c in caps],
+                        seconds=secs, packets_per_s=rate, windows=windows,
+                        point_wall_ms=host, ber_est=got.ber_est.tolist())
+    return out
 
 
 def rel_check(got, want, tol, what):
@@ -1569,7 +1667,7 @@ def baseline_graph_phase(card):
     run of 2 iterations through the graph (the eager first one, the
     capture, one replay); the busy share and largest kernels of a whole
     run each way in a profiler window."""
-    from score_based_channels_torch import _graph, cplx, physics
+    from score_based_channels_torch import cplx, physics
     from score_based_channels_torch.baselines import amp, lasso
     from score_based_channels_torch.config import default_score_config
     from score_based_channels_torch.data import ChannelDataset
@@ -1598,12 +1696,9 @@ def baseline_graph_phase(card):
     for name, (iters, call, graph_fn, plain_fn) in ways.items():
         graph = lambda n=iters: call(graph_fn, n)
         plain = lambda n=iters: call(plain_fn, n)
-        caps, capture = [], _graph.capture
-        _graph.capture = lambda *a: caps.append(capture(*a)) or caps[-1]
-        try:
+        caps = []
+        with captures_made(caps):
             got = graph()
-        finally:
-            _graph.capture = capture
         want = plain()
         same = [same_bits(a, b) for a, b in zip(got, want)]
         print(f"# eval {name} graph, {S * C} rows x {iters} iterations: "
@@ -2041,6 +2136,7 @@ def archs_phase(deepest_convs, deepest_norms, g):
 SAMPLER_LEVELS = 4       # sigma 39.15, 1.93, 0.095, 0.0047 ...
 SAMPLER_EVERY = 600      # ... every 600th level of the schedule
 SAMPLER_STEPS = 2
+SAMPLER_GRAPH_STEPS = 10  # steps a level of the graph-vs-eager runs
 SAMPLER_BATCH = 64
 SAMPLER_RTOL = 1e-3
 
@@ -2050,7 +2146,7 @@ def samplers_phase(model, g):
     on the full-width NCSNv2-Deepest (f32) on the card, 4 levels x 2 steps
     at 64 chains each, with their launch counts; each again on a 2-sample
     slice on the card and on the CPU, fed the same draws (noise_fn), held
-    within SAMPLER_RTOL of max|CPU|."""
+    within SAMPLER_RTOL of max|CPU|; then `sampler_graph_check`."""
     from score_based_channels_torch import kernels
     from score_based_channels_torch.config import ModelConfig
     from score_based_channels_torch.diffusion import (
@@ -2070,15 +2166,19 @@ def samplers_phase(model, g):
     refer = torch.randn(SAMPLER_BATCH, 64, 16, 2, generator=g)
     mask = torch.zeros(1, 64, 16, 1)
     mask[:, :, :8] = 1.0  # the known half of every channel
+    S = SAMPLER_STEPS
     runs = {
-        "unconditional": (lambda fn, x, **k: annealed_langevin_unconditional(
-            fn, x, sig, n_steps_each=SAMPLER_STEPS, **k), 1, 1),
-        "inpainting": (lambda fn, x, **k: annealed_langevin_inpainting(
+        "unconditional": (lambda fn, x, steps=S, **k:
+                          annealed_langevin_unconditional(
+                              fn, x, sig, n_steps_each=steps, **k), 1, 1),
+        "inpainting": (lambda fn, x, steps=S, **k: annealed_langevin_inpainting(
             fn, x, refer[:x.shape[0]].to(x.device), mask.to(x.device), sig,
-            n_steps_each=SAMPLER_STEPS, **k), 2, 1),
-        "interpolation": (lambda fn, x, **k: annealed_langevin_interpolation(
-            fn, x, sig, n_interpolations=8 if x.shape[0] > 1 else 2,
-            n_steps_each=SAMPLER_STEPS, **k), 2, 8),
+            n_steps_each=steps, **k), 2, 1),
+        "interpolation": (lambda fn, x, steps=S, **k:
+                          annealed_langevin_interpolation(
+                              fn, x, sig,
+                              n_interpolations=8 if x.shape[0] > 1 else 2,
+                              n_steps_each=steps, **k), 2, 8),
     }
     out = {}
     for name, (run, n_draws, ni) in runs.items():
@@ -2113,8 +2213,57 @@ def samplers_phase(model, g):
               f"{SAMPLER_RTOL})", flush=True)
         assert err <= SAMPLER_RTOL, (name, err)
         out[name] = dict(seconds=secs, counts=n, forwards=nfe,
-                         slice_rel_err=err)
+                         slice_rel_err=err,
+                         graph=sampler_graph_check(name, run, n_draws,
+                                                   x0.cuda(), card_fn))
     return out
+
+
+def sampler_graph_check(name, run, n_draws, x0, score):
+    """One sampler (in phase 10) at SAMPLER_LEVELS x SAMPLER_GRAPH_STEPS
+    on the phase's chains through its captured step and through its eager
+    loop, fed the same generator's draws (noise_fn drawing what the step
+    draws): equal bits; whole runs in turns (eager, graph, graph, eager)
+    as steps/s; the busy share of a whole run in a profiler window each
+    way (the graph's run holds its eager step 0 and its capture)."""
+    steps = SAMPLER_GRAPH_STEPS
+    shape = tuple(x0.shape)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(5)
+
+    def eager():
+        g = gen()
+        return run(score, x0, steps, noise_fn=lambda lvl, i: tuple(
+            torch.randn(shape, generator=g, device="cuda")
+            for _ in range(n_draws)))
+
+    graph = lambda: run(score, x0, steps, generator=gen())
+    caps = []
+    with captures_made(caps):
+        got = graph()
+    same = same_bits(got, eager())
+    print(f"#   {name} through its captured step, {SAMPLER_LEVELS} levels x "
+          f"{steps} steps, {x0.shape[0]} draws a step: bit-equal to the "
+          f"eager loop {same}; capture {rounded([c.seconds for c in caps], 4)}"
+          f" s, pool {rounded([c.pool_bytes / 2**20 for c in caps], 1)} MB",
+          flush=True)
+    assert same and len(caps) == 1, (name, same, caps)
+    n_steps = SAMPLER_LEVELS * steps
+    secs, _ = in_turns(eager, graph, f"{name}, eager loop and graph")
+    rate = {k: [n_steps / v for v in vs] for k, vs in secs.items()}
+    windows = {}
+    for way, fn in (("eager", eager), ("graph", graph)):
+        wall, busy, top = busy_window(fn)
+        windows[way] = dict(wall_ms=wall, busy_ms=busy, top=top)
+    print(f"#   steps/s: eager {rounded(rate['plain'])}, graph "
+          f"{rounded(rate['graph'])}; busy share of a run: eager "
+          f"{100 * windows['eager']['busy_ms'] / windows['eager']['wall_ms']:.1f}"
+          f"%, graph "
+          f"{100 * windows['graph']['busy_ms'] / windows['graph']['wall_ms']:.1f}"
+          f"% ({windows['graph']['busy_ms'] / n_steps:.3f} ms of card time "
+          f"a step)")
+    return dict(bit_equal=same, capture_seconds=[c.seconds for c in caps],
+                pool_bytes=[c.pool_bytes for c in caps], seconds=secs,
+                steps_per_s=rate, windows=windows)
 
 
 LDAMP_STEPS = 4      # epochs of one step: 200 realizations, batch 128
@@ -2541,7 +2690,8 @@ def wgan_phase(card):
     ReLU branches replayed (`relu_branches`), rtol 1e-3 against the CPU
     and against float64 on the card, 0.01 dB on the best NMSE; each free
     f32 run's drift from float64 by quarter. One inversion step timed at a
-    chunk of 4,096 chains."""
+    chunk of 4,096 chains; one D, one G and one inversion step in one
+    profiler window, for their device busy share."""
     from score_based_channels_torch import cplx
     from score_based_channels_torch.config import default_score_config
     from score_based_channels_torch.data import ChannelDataset
@@ -2675,6 +2825,19 @@ def wgan_phase(card):
         print(f"# wgan_invert at {B} chains: {step_ms:.2f} ms a step "
               f"(mean of 5, synchronised; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB)")
+        # is the card busy through the steps a graph would replay? One D
+        # step, one G step and one inversion step in one profiler window
+        wall, busy, top = busy_window(lambda: (
+            wgan_d_step(state, H[:tc.batch_size], z, tc.clamp),
+            wgan_g_step(state, z),
+            wgan_invert(gen, *args, num_steps=1, oracle2=X2[idx].cuda())))
+        print(f"# wgan busy share, one D step + one G step (batch "
+              f"{tc.batch_size}) + one inversion step ({B} chains): wall "
+              f"{wall:.2f} ms, device busy {busy:.2f} ms "
+              f"({100 * busy / wall:.1f}%) on {card}")
+        for k, ms in top[:8]:
+            print(f"#   {ms:9.3f} ms  {k[:80]}")
+        out["busy_window"] = dict(wall_ms=wall, busy_ms=busy, top=top)
     out.update(seconds=train_s, step_ms=med, d_log=logs["d_log"].tolist(),
                g_log=logs["g_log"].tolist(), eval_seconds=eval_s,
                eval_best_nmse_db=card_res.best_nmse_db().ravel().tolist(),
@@ -3296,7 +3459,7 @@ def main():
     print(f"# in-path ms per forward: {path_ms}")
 
     # -- link path ------------------------------------------------------------
-    link_res = link_phase()
+    link_res = link_phase(card)
 
     # -- conv probe -----------------------------------------------------------
     probe = conv_probe_phase(convs, conv_rows, model, g)

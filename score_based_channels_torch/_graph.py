@@ -1,9 +1,10 @@
 """The two steps that the port's CUDA-graph runners share (the sampler's
 `PosteriorRunner`, the trainers' `TrainChunkRunner` and
-`LDAMPStepRunner`, the baselines' iterations): a warm-up run on a side
-stream, and the capture of one step with its kernel counts taken back (a
-capture records launches and runs none). `run_steps` runs a loop whose
-steps need nothing from the host through both, then the replays."""
+`LDAMPStepRunner`, the baselines' iterations, the other samplers' steps,
+the link's receiver and decoder): a warm-up run on a side stream, and the
+capture of one step with its kernel counts taken back (a capture records
+launches and runs none). `Replayer` runs one step a call through both,
+then its replays; `run_steps` runs a loop of such steps."""
 
 from __future__ import annotations
 
@@ -73,28 +74,50 @@ def capture(fn: Callable[[], None], generator: Optional[torch.Generator],
     return Capture(graph, launches, grad, seconds, pool)
 
 
-def run_steps(steps: Sequence[Callable[[], None]], n: int,
-              device: torch.device) -> List[Capture]:
+class Replayer:
+    """fn() once a call, where fn is a step on static buffers that reads no
+    host value that changes between calls. On the CPU, fn(). On the card,
+    the first call runs fn on a side stream (`on_side_stream`), the
+    second captures it (`capture`, the generator registered when fn
+    draws) and replays the graph, every later call replays it, and each
+    replay adds the captured counts to `kernels.counts()` and
+    `kernels.grad_counts()`. A capture that fails raises. `_capture =
+    False` runs every call eagerly on the current stream: the yardstick
+    beside the graph, not a user option."""
+
+    def __init__(self, fn: Callable[[], None], device,
+                 generator: Optional[torch.Generator] = None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.generator = generator
+        self.cap: Optional[Capture] = None
+        self.warm = False
+        self.replays = 0
+        self._capture = True
+
+    def __call__(self) -> None:
+        if self.device.type != "cuda" or not self._capture:
+            self.fn()
+        elif not self.warm:
+            on_side_stream(self.fn, self.device)
+            self.warm = True
+        else:
+            if self.cap is None:
+                self.cap = capture(self.fn, self.generator, self.device)
+            self.cap.graph.replay()
+            self.replays += 1
+            kernels.add_launches(self.cap.launches)
+            kernels.add_grad_counts(self.cap.grad)
+
+
+def run_steps(steps: Sequence[Callable[[], None]], n: int, device,
+              generator: Optional[torch.Generator] = None) -> List[Capture]:
     """n iterations, iteration i calling steps[i % len(steps)] (steps that
-    take turns, say with the roles of two buffers swapped); each updates
-    its buffers in place and reads no host value that changes between
-    iterations. On the CPU n calls; on the card the first len(steps)
-    iterations on a side stream, then one capture (`capture`) of each
-    step, replayed in turn for the other iterations, its counts added
-    once a replay. Returns the captures (none when n <= len(steps))."""
-    k = len(steps)
-    if device.type != "cuda":
-        for i in range(n):
-            steps[i % k]()
-        return []
-    for i in range(min(n, k)):
-        on_side_stream(steps[i], device)
-    if n <= k:
-        return []
-    caps = [capture(step, None, device) for step in steps]
-    for i in range(k, n):
-        cap = caps[i % k]
-        cap.graph.replay()
-        kernels.add_launches(cap.launches)
-        kernels.add_grad_counts(cap.grad)
-    return caps
+    take turns, say with the roles of two buffers swapped), each through
+    its own `Replayer`: on the card the first len(steps) iterations on a
+    side stream, then each step captured at its second iteration and
+    replayed. Returns the captures made."""
+    runs = [Replayer(step, device, generator) for step in steps]
+    for i in range(n):
+        runs[i % len(runs)]()
+    return [r.cap for r in runs if r.cap is not None]

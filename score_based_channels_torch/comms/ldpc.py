@@ -11,7 +11,11 @@ IEEE 802.11n LDPC with codeword length 648, rate 1/2 (Z=27), BP decoding.
   - `minsum_decode` runs normalized min-sum BP as `num_iters` calls of
     `kernels.ldpc_minsum.bp_iteration` on dense masked (B, m, n) messages:
     the hand-written CUDA kernel on the card, its plain PyTorch version on
-    the CPU.
+    the CPU;
+  - `MinsumDecoder` runs the same decode on static buffers, the
+    counterpart of the JAX package's jitted `minsum_decode` and its
+    `lax.scan` (comms/ldpc.py:199, :252): on the card one CUDA graph of
+    the whole decode, replayed a call.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import _graph
+from .._device import resolve_device
 from ..kernels.ldpc_minsum import bp_iteration, column_sums, edge_tables
 
 # IEEE 802.11n (HT) rate-1/2, n=648, Z=27 prototype matrix: IEEE Std
@@ -209,3 +215,57 @@ def minsum_decode(llr: torch.Tensor, H, num_iters: int = 25,
     post = llr + column_sums(c2v, tables)
     bits = (post < 0).to(torch.uint8)  # positive LLR => bit 0
     return bits, post
+
+
+class MinsumDecoder:
+    """`minsum_decode` of `batch` packets on static buffers, with the same
+    bits: the edge tables built once, an `llr` input buffer, two message
+    buffers that take turns (each iteration reads one and the kernel
+    writes the other), and the `post` and `bits` outputs.
+
+    A call copies its LLRs into `llr` and runs the whole decode (`decode`:
+    `num_iters` iterations, the column sums, the hard decision) through a
+    `_graph.Replayer`: on the CPU the plain loop; on the card the first
+    call eagerly on a side stream, the second captured as one CUDA graph
+    and replayed, every later call replayed (`replayer._capture = False`
+    runs each call eagerly: the yardstick). `decode` reads no host value,
+    so a caller may also record it inside a graph of its own
+    (`comms.link.LinkReceiver` does). A call returns the decoder's own
+    `bits` and `post`, which the next call overwrites.
+    """
+
+    def __init__(self, H, batch: int, num_iters: int = 25,
+                 normalize: float = 0.75, device=None):
+        dev = resolve_device(device)
+        self.H = H
+        self.num_iters = num_iters
+        self.normalize = normalize
+        self.tables = edge_tables(H, device=dev)
+        m, n = self.tables.m, self.tables.n
+        self.llr = torch.empty(batch, n, device=dev)
+        self.c2v = (torch.empty(batch, m, n, device=dev),
+                    torch.empty(batch, m, n, device=dev))
+        self.post = torch.empty(batch, n, device=dev)
+        self.bits = torch.empty(batch, n, dtype=torch.uint8, device=dev)
+        self.replayer = _graph.Replayer(self.decode, dev)
+
+    def __call__(self, llr: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Decode llr (batch, n) -> (hard bits uint8, final LLRs)."""
+        if llr.shape != self.llr.shape:
+            raise ValueError(f"MinsumDecoder takes llr {tuple(self.llr.shape)}"
+                             f", got {tuple(llr.shape)}")
+        self.llr.copy_(llr)
+        self.replayer()
+        return self.bits, self.post
+
+    def decode(self) -> None:
+        """The decode of `llr` into `post` and `bits`."""
+        c2v, other = self.c2v
+        c2v.zero_()
+        for _ in range(self.num_iters):
+            bp_iteration(c2v, self.llr, self.H, self.normalize,
+                         tables=self.tables, out=other)
+            c2v, other = other, c2v
+        torch.add(self.llr, column_sums(c2v, self.tables), out=self.post)
+        torch.lt(self.post, 0, out=self.bits)  # positive LLR => bit 0

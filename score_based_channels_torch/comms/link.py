@@ -15,6 +15,12 @@ noise w are drawn on the device from a `torch.Generator`; `draws` injects
 them instead (the parity tests pass the JAX package's draws). Detection
 and decoding run on the device, the decoder through the CUDA kernel of
 kernels/ldpc_minsum.py on the card.
+
+The JAX package jits the detector and the decode with its scan
+(comms/mimo.py:36, comms/ldpc.py:199, :252). Here `LinkReceiver` runs a
+CSI mode's receiver (detector, de-interleave, decode) on static buffers:
+on the card one CUDA graph, captured at its second call and replayed for
+both CSI modes at every SNR point of a sweep.
 """
 
 from __future__ import annotations
@@ -25,10 +31,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .. import cplx
+from .. import _graph, cplx
 from .._device import resolve_device
-from .ldpc import LDPCCode, make_wifi_ldpc, minsum_decode
-from .mimo import mimo_kbest_llr, mimo_ml_llr, mimo_zf_sic_llr
+from .ldpc import LDPCCode, MinsumDecoder, make_wifi_ldpc
+from .mimo import (
+    detector_tables, mimo_kbest_llr, mimo_ml_llr, mimo_zf_sic_llr,
+)
 from .modulation import qpsk_modulate
 
 
@@ -54,6 +62,77 @@ def _interleaver(n: int, seed: int = 11) -> np.ndarray:
     return np.random.default_rng(seed).permutation(n)
 
 
+class LinkReceiver:
+    """One CSI mode's receiver for `batch` packets on static buffers: y
+    (B, L, Nr, 2), Heff (B, Nr, Ns, 2) and the 0-d noise variance in; the
+    detector (with its `detector_tables`, built once), the de-interleave
+    (a gather by the inverse permutation, made once on the device) and
+    the decode (`MinsumDecoder.decode`) run as one step, `receive`, and
+    the hard bits (B, n) come out in the decoder's `bits`.
+
+    Each call copies its inputs in and runs `receive` through a
+    `_graph.Replayer`: on the CPU directly; on the card the first call
+    eagerly on a side stream, the second captured as one CUDA graph and
+    replayed, every later call replayed (`replayer._capture = False`: the
+    eager yardstick). A call returns the buffer `bits`, which the next
+    call overwrites. The noise variance must lie on the device (a host
+    value would be copied from pageable memory at each call).
+    """
+
+    def __init__(self, code: LDPCCode, batch: int, n_rx: int,
+                 n_streams: int = 4, num_bp_iters: int = 25,
+                 detector: str = "ml", max_log: bool = False, device=None):
+        dev = resolve_device(device)
+        n = code.n
+        if (n // 2) % n_streams:
+            raise ValueError(f"{n // 2} QPSK symbols do not fill "
+                             f"{n_streams} streams evenly")
+        if detector == "ml":
+            tables = detector_tables(n_streams, dev)
+            self.detect = lambda y, H, nv: mimo_ml_llr(
+                y, H, nv, n_streams=n_streams, max_log=max_log,
+                tables=tables)
+        elif detector == "kbest":
+            tables = detector_tables(n_streams, dev)
+            self.detect = lambda y, H, nv: mimo_kbest_llr(
+                y, H, nv, n_streams=n_streams, tables=tables)
+        elif detector == "zf-sic":
+            self.detect = lambda y, H, nv: mimo_zf_sic_llr(
+                y, H, nv, n_streams=n_streams)
+        else:
+            raise ValueError(f"unknown detector {detector!r}")
+        self.settings = (n_streams, num_bp_iters, detector, max_log)
+        L = n // 2 // n_streams
+        self.y = torch.empty(batch, L, n_rx, 2, device=dev)
+        self.heff = torch.empty(batch, n_rx, n_streams, 2, device=dev)
+        self.noise_var = torch.empty((), device=dev)
+        # llr_d[:, perm[j]] = llr[:, j]  <=>  llr_d = llr[:, argsort(perm)]
+        self.unperm = torch.from_numpy(np.argsort(_interleaver(n))).to(dev)
+        self.decoder = MinsumDecoder(code.H, batch, num_iters=num_bp_iters,
+                                     device=dev)
+        self.replayer = _graph.Replayer(self.receive, dev)
+
+    def __call__(self, y: torch.Tensor, heff: torch.Tensor,
+                 noise_var: torch.Tensor) -> torch.Tensor:
+        """Hard bits (B, n) uint8 of y through heff at this noise variance
+        (per component)."""
+        for buf, v in ((self.y, y), (self.heff, heff),
+                       (self.noise_var, noise_var)):
+            if v.shape != buf.shape:
+                raise ValueError(f"LinkReceiver takes {tuple(buf.shape)}, "
+                                 f"got {tuple(v.shape)}")
+            buf.copy_(v)
+        self.replayer()
+        return self.decoder.bits
+
+    def receive(self) -> None:
+        """Detect, de-interleave and decode the buffers."""
+        llr = self.detect(self.y, self.heff, self.noise_var)  # (B, L, 2Ns)
+        torch.index_select(llr.reshape(self.decoder.llr.shape), 1,
+                           self.unperm, out=self.decoder.llr)
+        self.decoder.decode()
+
+
 def simulate_packets(
     generator: Optional[torch.Generator],
     H_true2: torch.Tensor,  # (B, Nr, Nt, 2) true channels (one per packet)
@@ -66,6 +145,7 @@ def simulate_packets(
     detector: str = "ml",  # ComputeLLRMIMO.m mode: ml | kbest | zf-sic
     seed: int = 5,
     draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    receiver: Optional[LinkReceiver] = None,
 ) -> Tuple[dict, dict]:
     """One SNR point over a batch of packets -> (ideal-CSI, est-CSI) stats,
     on H_true2's device.
@@ -73,15 +153,19 @@ def simulate_packets(
     generator: draws V (B, Nt, Ns, 2) and then w (B, L, Nr, 2), unit-power
     c2, on its device. draws: (V, w) given instead (then generator may be
     None); V is used as given, scaled by 1/sqrt(Nt) as a drawn one is.
+    receiver: a `LinkReceiver` of these settings on this device, kept
+    across points (by default one is built for the call).
     """
     B, Nr, Nt, _ = H_true2.shape
     dev = H_true2.device
     n, k = code.n, code.k
-    n_sym = n // 2
-    if n_sym % n_streams:
-        raise ValueError(f"{n_sym} QPSK symbols do not fill {n_streams} "
-                         "streams evenly")
-    L = n_sym // n_streams  # symbol slots per packet
+    if receiver is None:
+        receiver = LinkReceiver(code, B, Nr, n_streams, num_bp_iters,
+                                detector, max_log, dev)
+    elif receiver.settings != (n_streams, num_bp_iters, detector, max_log):
+        raise ValueError(f"the receiver was built for (streams, iterations,"
+                         f" detector, max_log) {receiver.settings}")
+    L = n // 2 // n_streams  # symbol slots per packet
 
     bits_rng = np.random.default_rng(seed + int(snr_db * 10) % 97)
     bits = bits_rng.integers(0, 2, size=(B, k), dtype=np.uint8)
@@ -108,24 +192,9 @@ def simulate_packets(
     noise_pow = sig_pow * 10.0 ** (-snr_db / 10.0)
     y = y + w * torch.sqrt(noise_pow)
 
-    perm_t = torch.from_numpy(perm).to(dev)
     out = {}
     for name, Heff in (("ideal", Heff_true), ("est", Heff_est)):
-        if detector == "ml":
-            llr = mimo_ml_llr(y, Heff, noise_pow / 2.0, n_streams=n_streams,
-                              max_log=max_log)  # (B, L, 2Ns)
-        elif detector == "kbest":
-            llr = mimo_kbest_llr(y, Heff, noise_pow / 2.0,
-                                 n_streams=n_streams)
-        elif detector == "zf-sic":
-            llr = mimo_zf_sic_llr(y, Heff, noise_pow / 2.0,
-                                  n_streams=n_streams)
-        else:
-            raise ValueError(f"unknown detector {detector!r}")
-        llr_flat = llr.reshape(B, n)
-        llr_d = torch.empty_like(llr_flat)  # de-interleave
-        llr_d[:, perm_t] = llr_flat
-        bits_hat, _ = minsum_decode(llr_d, code.H, num_iters=num_bp_iters)
+        bits_hat = receiver(y, Heff, noise_pow / 2.0)
         # info bits live at code.perm[:k] positions of the codeword
         info_hat = bits_hat.cpu().numpy()[:, code.perm[:k]]
         bit_errs = (info_hat != bits).sum(-1)
@@ -159,7 +228,8 @@ def run_link_simulation(
 ) -> LinkResults:
     """BER/BLER sweep with ideal vs estimated CSI (test_end_to_end.m:38-60)
     on `device` (None: the card). SNR point i draws from a generator
-    seeded by (seed, i)."""
+    seeded by (seed, i). One `LinkReceiver` serves every point: on the
+    card one captured graph, replayed for both CSI modes at each point."""
     from ..eval.estimate import derive_seed
 
     dev = resolve_device(device)
@@ -167,13 +237,15 @@ def run_link_simulation(
     H_true2 = _c2(H_true, dev)
     H_est2 = _c2(H_est, dev)
     per_snr_est = H_est2.dim() == 5  # (S, B, Nr, Nt, 2): SNR-matched
+    receiver = LinkReceiver(code, H_true2.shape[0], H_true2.shape[1],
+                            n_streams, num_bp_iters, detector, device=dev)
     bi, be, li, le = [], [], [], []
     for i, snr in enumerate(np.asarray(snr_range, np.float64)):
         gen = torch.Generator(device=dev).manual_seed(derive_seed(seed, i))
         ideal, est = simulate_packets(
             gen, H_true2, H_est2[i] if per_snr_est else H_est2, float(snr),
             code, n_streams=n_streams, num_bp_iters=num_bp_iters,
-            detector=detector)
+            detector=detector, receiver=receiver)
         bi.append(ideal["ber"])
         be.append(est["ber"])
         li.append(ideal["bler"])

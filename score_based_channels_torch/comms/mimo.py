@@ -9,12 +9,17 @@ Reference ComputeLLRMIMO.m: for y = H_eff*s + n with s in QPSK^Ns,
     :77-115) with a fixed beam (`torch.topk`);
   - ZF-SIC (:15-57).
 All plain PyTorch on the tensors' device (the JAX package has no kernel
-here).
+here). The JAX package jits each detector (comms/mimo.py:36, :116,
+:190); here the ML and K-best detectors take their constant tables from
+`detector_tables`, built once on the device, so that a caller can record
+them in a CUDA graph (`comms.link.LinkReceiver`): given `tables`, given a
+noise variance on the device, no detector makes a tensor from host data
+or waits for the host.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +40,29 @@ def _candidate_table(n_streams: int) -> Tuple[np.ndarray, np.ndarray]:
     return syms.astype(np.float32), bits
 
 
+class DetectorTables(NamedTuple):
+    """The detectors' constants on one device."""
+
+    syms: torch.Tensor    # (4^Ns, Ns, 2) f32: every QPSK^Ns candidate
+    m0: torch.Tensor      # (4^Ns, 2Ns) f32: 0 where the bit is 0, else -1e30
+    m1: torch.Tensor      # (4^Ns, 2Ns) f32: 0 where the bit is 1, else -1e30
+    points: torch.Tensor  # (4, 2) f32: QPSK_POINTS
+    bits: torch.Tensor    # (4, 2) uint8: QPSK_BITS
+
+
+def detector_tables(n_streams: int, device) -> DetectorTables:
+    """The candidate table, its bit masks and the QPSK tables of
+    `n_streams` streams, made on the host and copied to `device` once."""
+    syms, bits = _candidate_table(n_streams)
+    bit0 = torch.from_numpy(bits == 0).to(device)  # (M, 2Ns)
+    return DetectorTables(
+        syms=torch.from_numpy(syms).to(device),
+        m0=torch.where(bit0, 0.0, _NEG_INF),
+        m1=torch.where(bit0, _NEG_INF, 0.0),
+        points=torch.from_numpy(QPSK_POINTS.astype(np.float32)).to(device),
+        bits=torch.from_numpy(QPSK_BITS).to(device))
+
+
 def _noise_var(noise_var, like: torch.Tensor) -> torch.Tensor:
     """Per-component variance as a tensor broadcastable to (B, L, M)."""
     nv = torch.as_tensor(noise_var, dtype=torch.float32, device=like.device)
@@ -45,33 +73,32 @@ def _noise_var(noise_var, like: torch.Tensor) -> torch.Tensor:
 
 def mimo_ml_llr(Y: torch.Tensor, H_eff: torch.Tensor, noise_var,
                 n_streams: int = 4, max_log: bool = False,
-                clip: float = 6.0) -> torch.Tensor:
+                clip: float = 6.0,
+                tables: Optional[DetectorTables] = None) -> torch.Tensor:
     """Per-bit LLRs (B, L, 2*Ns), positive => bit 0 (testPackets LLR clip
     +-6).
 
     Y (B, L, Nr, 2) received symbols, H_eff (B, Nr, Ns, 2) the effective
     channel (may be an estimate), noise_var the per-component variance,
-    scalar or (B,).
+    scalar or (B,). tables: `detector_tables(n_streams, Y.device)`, when
+    the caller already built them (by default built here).
     """
-    syms, bits = _candidate_table(n_streams)
-    syms = torch.from_numpy(syms).to(Y.device)  # (M, Ns, 2)
+    t = tables if tables is not None else detector_tables(n_streams,
+                                                           Y.device)
     # candidate received points: H_eff (B,Nr,Ns) @ syms^T (Ns,M) -> (B,Nr,M)
-    cand = cplx.matmul(H_eff, cplx.transpose(syms))
+    cand = cplx.matmul(H_eff, cplx.transpose(t.syms))
     cand = cand.movedim(2, 1)  # (B, M, Nr, 2)
     diff = Y[:, :, None] - cand[:, None]  # (B, L, M, Nr, 2)
     d2 = cplx.abs2(diff).sum(dim=-1)  # (B, L, M)
     metric = -d2 / (2.0 * _noise_var(noise_var, Y))
 
-    bit0 = torch.from_numpy(bits == 0).to(Y.device)  # (M, 2Ns)
-    m0 = torch.where(bit0, 0.0, _NEG_INF)
-    m1 = torch.where(bit0, _NEG_INF, 0.0)
     metric = metric[..., None]  # (B, L, M, 1) against (M, 2Ns)
     if max_log:
-        l0 = (metric + m0).amax(dim=-2)
-        l1 = (metric + m1).amax(dim=-2)
+        l0 = (metric + t.m0).amax(dim=-2)
+        l1 = (metric + t.m1).amax(dim=-2)
     else:
-        l0 = torch.logsumexp(metric + m0, dim=-2)
-        l1 = torch.logsumexp(metric + m1, dim=-2)
+        l0 = torch.logsumexp(metric + t.m0, dim=-2)
+        l1 = torch.logsumexp(metric + t.m1, dim=-2)
     return (l0 - l1).clamp(-clip, clip)  # (B, L, 2Ns)
 
 
@@ -102,16 +129,19 @@ def _c2_qr(H: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def mimo_kbest_llr(Y: torch.Tensor, H_eff: torch.Tensor, noise_var,
                    n_streams: int = 4, k_best: int = 16,
-                   clip: float = 6.0) -> torch.Tensor:
+                   clip: float = 6.0,
+                   tables: Optional[DetectorTables] = None) -> torch.Tensor:
     """K-best breadth-first tree detector, max-log LLRs (B, L, 2*Ns).
 
     QR-decompose H_eff, walk the stream tree from the last stream up
     keeping a fixed beam of `k_best` partial candidates per level, then
     max-log LLRs over the surviving list. With k_best >= 4^Ns the search
-    is exhaustive and matches `mimo_ml_llr(max_log=True)`.
+    is exhaustive and matches `mimo_ml_llr(max_log=True)`. tables: as in
+    `mimo_ml_llr` (only the QPSK tables are read).
     """
     Ns = n_streams
-    points = torch.from_numpy(QPSK_POINTS.astype(np.float32)).to(Y.device)
+    t = tables if tables is not None else detector_tables(Ns, Y.device)
+    points = t.points
     Q, R = _c2_qr(H_eff)
     # z = Q^H y per slot: (B, Ns, Nr) @ (B, Nr, L) -> (B, L, Ns, 2)
     z = cplx.matmul(cplx.conj_transpose(Q), Y.transpose(1, 2)).transpose(1, 2)
@@ -141,7 +171,7 @@ def mimo_kbest_llr(Y: torch.Tensor, H_eff: torch.Tensor, noise_var,
         sym_idx[..., j] = keep_idx % 4
 
     metric = -dist / (2.0 * _noise_var(noise_var, Y))  # (B, L, K)
-    bits = torch.from_numpy(QPSK_BITS).to(Y.device)[sym_idx]  # (B,L,K,Ns,2)
+    bits = t.bits[sym_idx]  # (B, L, K, Ns, 2)
     bits = bits.reshape(bits.shape[:3] + (2 * Ns,))  # (B, L, K, 2Ns)
     metric = metric[..., None]
     l0 = torch.where(bits == 0, metric, _NEG_INF).amax(dim=2)
@@ -156,7 +186,10 @@ def mimo_zf_sic_llr(Y: torch.Tensor, H_eff: torch.Tensor, noise_var,
     Streams are detected in fixed order: ZF-equalise the remaining system
     (regularised normal equations in real block form), hard-slice the
     current stream, cancel, repeat. LLRs per stream come from the
-    post-equalisation scalar channel. Returns (B, L, 2*Ns).
+    post-equalisation scalar channel. Returns (B, L, 2*Ns). It reads no
+    constant table. The solve is `solve_ex` without its error check (the
+    bits of `solve`: the system is regularised, never singular), since
+    the check would wait for the host.
     """
     y = Y
     llrs = []
@@ -170,7 +203,7 @@ def mimo_zf_sic_llr(Y: torch.Tensor, H_eff: torch.Tensor, noise_var,
         Gr = Gr + 1e-5 * torch.eye(2 * k, device=Y.device)
         rhs = cplx.matmul(Hh, y.transpose(1, 2))  # (B, k, L, 2)
         rhs_r = torch.cat([rhs[..., 0], rhs[..., 1]], -2)  # (B, 2k, L)
-        sol = torch.linalg.solve(Gr, rhs_r)
+        sol, _ = torch.linalg.solve_ex(Gr, rhs_r, check_errors=False)
         x_eq = torch.stack([sol[:, :k], sol[:, k:]], -1)  # (B, k, L, 2)
         x0 = x_eq[:, 0]  # (B, L, 2)
         llrs.append(qpsk_demap_llr(x0[:, :, None, :], noise_var, clip=clip))

@@ -22,6 +22,12 @@ kernels of a level one by one: a Python loop over levels with no host
 synchronisation (`annealed_langevin_posterior_c2_plain`, the plain
 version) still left the host setting the pace, at 5.3-10 ms of host time
 against ~4.3 ms of card time per bf16 forward at batch 256.
+
+The JAX package runs each of the other samplers as one `lax.scan` over
+levels of a `lax.fori_loop` over inner steps (sampling.py:232/235,
+:277/280, :325/328). Here each runs one inner step on static buffers
+(`_langevin`: sigma and step size from `step_table` at a device step
+counter), on the card captured once and replayed for every step.
 """
 
 from __future__ import annotations
@@ -412,14 +418,59 @@ def annealed_langevin_posterior(
     return torch.view_as_complex(x.contiguous()), trace
 
 
-def _drawer(generator: Optional[torch.Generator], noise_fn, dev):
-    """The (level, step) -> draws function of a sampler: noise_fn, or
-    standard normal draws of the given shapes from `generator`."""
+def step_table(sigmas: torch.Tensor, step_lr: float,
+               n_steps_each: int) -> torch.Tensor:
+    """(L x n_steps_each, 3) float32 rows (sigma, step, amp) of the other
+    samplers' inner steps, row lvl * n_steps_each + i for level lvl:
+    step = step_lr (sigma / sigma_end)^2 and amp = sqrt(2 step), by the
+    eager loop's operations on the whole schedule, so each row holds the
+    bits of the values that loop computes at its level."""
+    step = step_lr * (sigmas / sigmas[-1]) ** 2
+    rows = torch.stack([sigmas, step, torch.sqrt(2.0 * step)], dim=1)
+    return rows.repeat_interleave(n_steps_each, dim=0)
+
+
+def _langevin(x: torch.Tensor, sigmas: torch.Tensor, n_steps_each: int,
+              step_lr: float, generator: Optional[torch.Generator],
+              noise_fn, shapes: Sequence[tuple], update) -> torch.Tensor:
+    """The inner steps of a sampler: x <- update(x, sigma, step, amp,
+    draws) at every level and inner step, draws of `shapes` (standard
+    normal, in order) from `generator`, or noise_fn(level, step).
+
+    With noise_fn, the eager loop over levels and steps (draws made in
+    Python cannot be replayed by a graph). Otherwise one step on static
+    buffers (the state x, a 0-d step counter): sigma, step and amp from
+    `step_table` at the counter, the draws from the generator, the
+    counter advanced; run by `_graph.run_steps` (on the CPU once a step;
+    on the card step 0 eagerly on a side stream, then one capture with
+    the generator registered, replayed for every other step, so the
+    replays draw what the eager loop draws). Returns x."""
+    dev = x.device
+    sigmas = sigmas.to(dev, torch.float32)
     if noise_fn is not None:
-        return lambda lvl, step, shapes: noise_fn(lvl, step)
+        sigma_end = sigmas[-1]
+        for lvl in range(sigmas.shape[0]):
+            sigma = sigmas[lvl]
+            step = step_lr * (sigma / sigma_end) ** 2
+            amp = torch.sqrt(2.0 * step)
+            for i in range(n_steps_each):
+                draws = tuple(d.to(dev) for d in noise_fn(lvl, i))
+                x = update(x, sigma, step, amp, draws)
+        return x
     _check_generator(generator, dev)
-    return lambda lvl, step, shapes: tuple(
-        torch.randn(s, generator=generator, device=dev) for s in shapes)
+    table = step_table(sigmas, step_lr, n_steps_each)
+    t = torch.zeros((), dtype=torch.int64, device=dev)
+    x = x.clone()
+
+    def one_step():
+        sigma, step, amp = table.index_select(0, t.view(1)).view(3).unbind()
+        draws = tuple(torch.randn(s, generator=generator, device=dev)
+                      for s in shapes)
+        x.copy_(update(x, sigma, step, amp, draws))
+        t.add_(1)
+
+    _graph.run_steps([one_step], table.shape[0], dev, generator)
+    return x
 
 
 @torch.no_grad()
@@ -436,21 +487,15 @@ def annealed_langevin_unconditional(
     """Prior sampling (sampling.py:202): per level i and inner step,
       step = step_lr (sigma_i / sigma_end)^2;  x <- x + step s + sqrt(2 step) z,
     then, with `denoise`, x <- x + sigma_end^2 s(x, sigma_end). x is real
-    NHWC; noise_fn(level, step) returns (z,)."""
-    dev = x_init.device
-    draw = _drawer(generator, noise_fn, dev)
-    sigmas = sigmas.to(dev, torch.float32)
-    sigma_end = sigmas[-1]
+    NHWC; noise_fn(level, step) returns (z,). The inner steps run as in
+    `_langevin` (on the card one captured step, replayed); the final
+    denoising forward runs once, eagerly."""
     x = x_init.to(torch.float32)
-    for lvl in range(sigmas.shape[0]):
-        sigma = sigmas[lvl]
-        step = step_lr * (sigma / sigma_end) ** 2
-        amp = torch.sqrt(2.0 * step)
-        for i in range(n_steps_each):
-            s = score_fn(x, sigma)
-            z, = draw(lvl, i, [x.shape])
-            x = x + step * s + amp * z.to(dev)
+    x = _langevin(x, sigmas, n_steps_each, step_lr, generator, noise_fn,
+                  [x.shape], lambda x, sigma, step, amp, d: (
+                      x + step * score_fn(x, sigma) + amp * d[0]))
     if denoise:
+        sigma_end = sigmas.to(x.device, torch.float32)[-1]
         x = x + sigma_end ** 2 * score_fn(x, sigma_end)
     return x
 
@@ -470,25 +515,21 @@ def annealed_langevin_inpainting(
     """Inpainting (sampling.py:241): at every step the known region
     (known_mask 1.0, broadcastable to x) is re-imposed as
     refer_x + sigma n1, then the Langevin step with noise z.
-    noise_fn(level, step) returns (n1, z)."""
+    noise_fn(level, step) returns (n1, z). The steps run as in
+    `_langevin`."""
     dev = x_init.device
-    draw = _drawer(generator, noise_fn, dev)
-    sigmas = sigmas.to(dev, torch.float32)
-    sigma_end = sigmas[-1]
     refer_x = refer_x.to(dev, torch.float32)
     mask = torch.as_tensor(known_mask, dtype=torch.float32, device=dev)
-    x = x_init.to(torch.float32)
-    for lvl in range(sigmas.shape[0]):
-        sigma = sigmas[lvl]
-        step = step_lr * (sigma / sigma_end) ** 2
-        amp = torch.sqrt(2.0 * step)
-        for i in range(n_steps_each):
-            n1, z = draw(lvl, i, [refer_x.shape, x.shape])
-            corrupted = refer_x + sigma * n1.to(dev)
-            x = mask * corrupted + (1.0 - mask) * x
-            s = score_fn(x, sigma)
-            x = x + step * s + amp * z.to(dev)
-    return x
+
+    def update(x, sigma, step, amp, draws):
+        n1, z = draws
+        corrupted = refer_x + sigma * n1
+        x = mask * corrupted + (1.0 - mask) * x
+        return x + step * score_fn(x, sigma) + amp * z
+
+    return _langevin(x_init.to(torch.float32), sigmas, n_steps_each,
+                     step_lr, generator, noise_fn,
+                     [refer_x.shape, x_init.shape], update)
 
 
 @torch.no_grad()
@@ -506,25 +547,20 @@ def annealed_langevin_interpolation(
     n_interpolations times, and row j of a group takes the noise
     cos(t_j) zp + sin(t_j) zq, t_j on a quarter circle, from two draws
     zp, zq of shape (B, ...). Returns (B * n_interpolations, ...).
-    noise_fn(level, step) returns (zp, zq)."""
+    noise_fn(level, step) returns (zp, zq). The steps run as in
+    `_langevin`."""
     dev = x_init.device
-    draw = _drawer(generator, noise_fn, dev)
-    sigmas = sigmas.to(dev, torch.float32)
-    sigma_end = sigmas[-1]
     B, ni = x_init.shape[0], n_interpolations
     x = x_init.to(torch.float32).repeat_interleave(ni, dim=0)
     angles = torch.linspace(0.0, torch.pi / 2.0, ni, device=dev)
     w_shape = (1, ni) + (1,) * (x.dim() - 1)
     cosw, sinw = angles.cos().reshape(w_shape), angles.sin().reshape(w_shape)
     shape = (B,) + tuple(x.shape[1:])
-    for lvl in range(sigmas.shape[0]):
-        sigma = sigmas[lvl]
-        step = step_lr * (sigma / sigma_end) ** 2
-        amp = torch.sqrt(2.0 * step)
-        for i in range(n_steps_each):
-            zp, zq = draw(lvl, i, [shape, shape])
-            z = (zp.to(dev)[:, None] * cosw
-                 + zq.to(dev)[:, None] * sinw).reshape(x.shape)
-            s = score_fn(x, sigma)
-            x = x + step * s + amp * z
-    return x
+
+    def update(x, sigma, step, amp, draws):
+        zp, zq = draws
+        z = (zp[:, None] * cosw + zq[:, None] * sinw).reshape(x.shape)
+        return x + step * score_fn(x, sigma) + amp * z
+
+    return _langevin(x, sigmas, n_steps_each, step_lr, generator, noise_fn,
+                     [shape, shape], update)

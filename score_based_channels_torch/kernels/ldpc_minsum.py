@@ -29,7 +29,8 @@ shared bytes, store form). Design notes are in the source.
 `bp_iteration_plain`; a CUDA tensor launches the kernel or raises. Both
 count their calls in COUNTS. The edge tables are built from the mask's
 contents (`edge_tables`); a caller that runs many iterations with one
-mask builds them once and passes them in.
+mask builds them once and passes them in, and may pass the output
+buffer too (`out`; the decoder's two message buffers take turns).
 
     python -m score_based_channels_torch.kernels.ldpc_minsum
 
@@ -227,9 +228,11 @@ def column_sums(c2v: torch.Tensor, t: EdgeTables) -> torch.Tensor:
 
 def bp_iteration_plain(c2v: torch.Tensor, llr: torch.Tensor, mask,
                        normalize: float = 0.75,
-                       tables: EdgeTables | None = None) -> torch.Tensor:
+                       tables: EdgeTables | None = None,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
     """One min-sum iteration, the formula of the JAX package's
-    comms/ldpc.py:231-249 over the live entries; (B, m, n) float32."""
+    comms/ldpc.py:231-249 over the live entries; (B, m, n) float32,
+    written into `out` when given."""
     COUNTS["plain"] += 1
     t = tables if tables is not None else edge_tables(mask, c2v.device)
     B = c2v.shape[0]
@@ -247,12 +250,15 @@ def bp_iteration_plain(c2v: torch.Tensor, llr: torch.Tensor, mask,
     odd = _gather_padded(neg.to(torch.int32), t.row_edges, 0).sum(-1) % 2
     mag = mag.reshape(B, -1)[:, t.edge_slot]            # (B, E)
     val = torch.where((odd[:, t.edge_row] == 1) != neg, -mag, mag)
-    out = c2v.new_zeros(B, t.m * t.n)
-    out[:, t.edge_flat] = val
-    return out.reshape(B, t.m, t.n)
+    if out is None:
+        out = c2v.new_empty(B, t.m, t.n)
+    flat = out.view(B, t.m * t.n)
+    flat.zero_()
+    flat[:, t.edge_flat] = val
+    return out
 
 
-def _check_cuda(c2v, llr, t: EdgeTables) -> None:
+def _check_cuda(c2v, llr, t: EdgeTables, out=None) -> None:
     if c2v.dtype != torch.float32 or llr.dtype != torch.float32:
         raise TypeError(f"bp_iteration takes float32 c2v and llr, got "
                         f"{c2v.dtype} and {llr.dtype}")
@@ -266,14 +272,22 @@ def _check_cuda(c2v, llr, t: EdgeTables) -> None:
     if llr.device != c2v.device or t.row_ptr.device != c2v.device:
         raise ValueError("bp_iteration: c2v, llr and the edge tables must "
                          "lie on one device")
+    if out is not None and (
+            out.dtype != torch.float32 or out.shape != c2v.shape
+            or not out.is_contiguous() or out.device != c2v.device):
+        raise ValueError("bp_iteration: out must be a contiguous float32 "
+                         "tensor of c2v's shape on its device")
 
 
 def _launch(c2v: torch.Tensor, llr: torch.Tensor, t: EdgeTables,
-            normalize: float, p: Plan) -> torch.Tensor:
-    """The kernel on checked card tensors, launched as `p` says."""
+            normalize: float, p: Plan,
+            out: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel on checked card tensors, launched as `p` says; it writes
+    every entry of its output."""
     from . import _build
 
-    out = torch.empty_like(c2v)
+    if out is None:
+        out = torch.empty_like(c2v)
     rc = _build.library().sbc_ldpc_minsum(
         c2v.data_ptr(), llr.data_ptr(), out.data_ptr(), t.packed.data_ptr(),
         c2v.shape[0], t.m, t.n, t.num_edges, t.max_row_degree,
@@ -287,20 +301,26 @@ def _launch(c2v: torch.Tensor, llr: torch.Tensor, t: EdgeTables,
 
 def bp_iteration(c2v: torch.Tensor, llr: torch.Tensor, mask,
                  normalize: float = 0.75,
-                 tables: EdgeTables | None = None) -> torch.Tensor:
+                 tables: EdgeTables | None = None,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     """One min-sum iteration on c2v's device; returns the new c2v.
 
     mask: the (m, n) 0/1 parity-check mask, tensor or array. tables:
     `edge_tables(mask)` on c2v's device, when the caller already built
-    them; both versions then read only the tables."""
+    them; both versions then read only the tables. out: a (B, m, n)
+    float32 buffer, neither c2v nor llr, that receives the new c2v (by
+    default a new tensor)."""
+    if out is not None and out.data_ptr() in (c2v.data_ptr(),
+                                              llr.data_ptr()):
+        raise ValueError("bp_iteration: out may not be c2v or llr")
     if c2v.device.type == "cpu":
-        return bp_iteration_plain(c2v, llr, mask, normalize, tables)
+        return bp_iteration_plain(c2v, llr, mask, normalize, tables, out)
     if c2v.device.type != "cuda":
         raise RuntimeError(f"bp_iteration: no kernel for {c2v.device}")
     t = tables if tables is not None else edge_tables(mask, c2v.device)
-    _check_cuda(c2v, llr, t)
+    _check_cuda(c2v, llr, t, out)
     return _launch(c2v, llr, t, normalize, plan(
-        c2v.shape[0], t.m, t.n, t.num_edges, t.max_row_degree))
+        c2v.shape[0], t.m, t.n, t.num_edges, t.max_row_degree), out)
 
 
 def _bench(argv=None) -> None:

@@ -1477,3 +1477,194 @@ def test_run_steps_capture_with_a_host_sync_raises(card):
     caps = _graph.run_steps([lambda: y.add_(1), lambda: y.mul_(2)], 5, card)
     assert len(caps) == 2
     assert torch.equal(y, torch.full((4,), 7.0, device=card))  # +1 x2 +1 x2 +1
+
+
+# -- the link's receiver and the other samplers' step as graphs --------------
+
+def _link_case(card, seed, B=256, Nr=16, Nt=64, Ns=4):
+    """y, Heff and the noise variance of one CSI mode at about 5 dB, as
+    `simulate_packets` makes them, on the card."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    Heff = cplx.matmul(cplx.randn(g, (B, Nr, Nt)),
+                       cplx.randn(g, (B, Nt, Ns)) / 8.0)
+    s = torch.sign(torch.randn(B, 81, Ns, 2, generator=g,
+                               device=card)) * float(np.sqrt(0.5))
+    nv = torch.tensor(0.16, device=card)
+    y = cplx.matmul(s, cplx.transpose(Heff)) + torch.sqrt(2.0 * nv) * \
+        cplx.randn(g, (B, 81, Nr))
+    return y, Heff, nv
+
+
+@pytest.mark.parametrize("detector", ["ml", "kbest", "zf-sic"])
+def test_receiver_graph_equals_the_eager_receiver(card, detector):
+    """One receiver through its graph (call 1 eager, then one capture and
+    replays) against one run eagerly on the card (`_capture = False`),
+    at 256 packets: the same bits at every call; 25 `ldpc_minsum`
+    launches a call, none plain."""
+    from score_based_channels_torch.comms import link
+
+    code = make_wifi_ldpc()
+    graph = link.LinkReceiver(code, 256, 16, detector=detector, device=card)
+    eager = link.LinkReceiver(code, 256, 16, detector=detector, device=card)
+    eager.replayer._capture = False
+    reset_counts()
+    for seed in range(4):
+        y, H, nv = _link_case(card, seed)
+        assert torch.equal(graph(y, H, nv), eager(y, H, nv))
+        assert torch.equal(graph.decoder.post, eager.decoder.post)
+    assert graph.replayer.replays == 3 and eager.replayer.cap is None
+    assert graph.replayer.cap.launches["ldpc_minsum"] == 25
+    assert counts()["ldpc_minsum"] == {"launches": 2 * 4 * 25, "plain": 0}
+
+
+def test_decoder_replays_equal_eager_decodes(card):
+    """MinsumDecoder: call 1 eager, call 2 captured and replayed, calls 3
+    and 4 replayed; each equals `minsum_decode` (25 launches a decode)."""
+    from score_based_channels_torch.comms.ldpc import MinsumDecoder
+
+    code = make_wifi_ldpc()
+    dec = MinsumDecoder(code.H, 256, device=card)
+    reset_counts()
+    for seed in range(4):
+        _, llr, _ = _ldpc_inputs(256, card, seed=seed)
+        bits, post = dec(llr)
+        want_bits, want_post = minsum_decode(llr, code.H, num_iters=25)
+        assert torch.equal(bits, want_bits) and torch.equal(post, want_post)
+    assert dec.replayer.replays == 3
+    assert dec.replayer.cap.launches == {"conv2d_taps": 0,
+                                         "instance_norm_plus": 0,
+                                         "ldpc_minsum": 25, "conv_im2col": 0,
+                                         "conv_chain": 0}
+    assert counts()["ldpc_minsum"] == {"launches": 2 * 4 * 25, "plain": 0}
+
+
+def test_link_sweep_through_the_graph_equals_the_eager_sweep(card,
+                                                             monkeypatch):
+    """`run_link_simulation` (one receiver, one capture, 2 x 3 - 2
+    replays) against the same sweep with the receiver eager: equal BER
+    and BLER, 25 launches a decode either way."""
+    from score_based_channels_torch.comms import link
+
+    g = np.random.default_rng(3)
+    cn = lambda: (g.standard_normal((64, 16, 64)) + 1j * g.standard_normal(
+        (64, 16, 64))) / np.sqrt(2)
+    H = cn()
+    H_est = H + 0.3 * cn()
+    snrs = np.array([0.0, 5.0, 10.0])
+    reset_counts()
+    got = link.run_link_simulation(H, H_est, snr_range=snrs, device=card)
+    assert counts()["ldpc_minsum"] == {"launches": 2 * 3 * 25, "plain": 0}
+
+    class Eager(link.LinkReceiver):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.replayer._capture = False
+
+    monkeypatch.setattr(link, "LinkReceiver", Eager)
+    want = link.run_link_simulation(H, H_est, snr_range=snrs, device=card)
+    for key in ("ber_ideal", "ber_est", "bler_ideal", "bler_est"):
+        np.testing.assert_array_equal(getattr(got, key), getattr(want, key))
+
+
+@pytest.mark.parametrize("what", ["receiver", "sampler"])
+def test_link_and_sampler_capture_with_a_host_sync_raises(card, what):
+    """A step that reads a value on the host runs eagerly at its first
+    call but cannot be captured: the second call raises, nothing falls
+    back to the eager path, and the card stays usable."""
+    from score_based_channels_torch.comms import link
+    from score_based_channels_torch.diffusion import (
+        annealed_langevin_unconditional,
+    )
+
+    if what == "receiver":
+        rx = link.LinkReceiver(make_wifi_ldpc(), 8, 16, device=card)
+        detect = rx.detect
+        rx.detect = lambda y, H, nv: detect(y, H, nv) * float(nv.item() > 0)
+        args = _link_case(card, 0, B=8)
+        rx(*args)
+        with pytest.raises(RuntimeError):
+            rx(*args)
+        assert rx.replayer.cap is None
+    else:
+        with pytest.raises(RuntimeError):
+            annealed_langevin_unconditional(
+                lambda x, s: x * (float(s.item()) * 0.0),
+                torch.ones(2, 64, 16, 2, device=card), torch.ones(3),
+                torch.Generator(device=card).manual_seed(0), n_steps_each=1)
+    y = torch.ones(4, device=card)
+    assert float((y + 1).sum()) == 8.0
+
+
+@pytest.mark.parametrize("name", ["unconditional", "inpainting",
+                                  "interpolation"])
+def test_sampler_step_graph_equals_the_eager_loop(card, name):
+    """Each sampler through its captured step (4 levels x 3 steps, 8
+    chains, ngf 8, f32) against its eager loop fed the same generator's
+    draws through noise_fn: the same bits, 113 conv and 25 norm launches
+    a forward either way."""
+    from score_based_channels_torch.diffusion import (
+        annealed_langevin_inpainting, annealed_langevin_interpolation,
+        annealed_langevin_unconditional,
+    )
+
+    g = torch.Generator().manual_seed(4)
+    score = score_fn_from_params(make_score_model(ModelConfig(ngf=8),
+                                                  device=card, generator=g))
+    x0 = torch.randn(8, 64, 16, 2, generator=g).to(card)
+    refer = torch.randn(8, 64, 16, 2, generator=g).to(card)
+    mask = torch.zeros(1, 64, 16, 1, device=card)
+    mask[:, :, :8] = 1.0
+    sig = get_sigmas(39.15, 0.01, 4)
+    runs = {
+        "unconditional": (lambda **k: annealed_langevin_unconditional(
+            score, x0, sig, n_steps_each=3, **k), [x0.shape], 1),
+        "inpainting": (lambda **k: annealed_langevin_inpainting(
+            score, x0, refer, mask, sig, n_steps_each=3, **k),
+            [refer.shape, x0.shape], 0),
+        "interpolation": (lambda **k: annealed_langevin_interpolation(
+            score, x0[:2], sig, n_interpolations=4, n_steps_each=3, **k),
+            [x0[:2].shape, x0[:2].shape], 0)}
+    run, shapes, denoise = runs[name]
+    reset_counts()
+    got = run(generator=torch.Generator(device=card).manual_seed(5))
+    n = counts()
+    nfe = 4 * 3 + denoise
+    assert n["conv2d_taps"] == {"launches": 113 * nfe, "plain": 0}
+    assert n["instance_norm_plus"] == {"launches": 25 * nfe, "plain": 0}
+    gen = torch.Generator(device=card).manual_seed(5)
+    want = run(noise_fn=lambda lvl, i: tuple(
+        torch.randn(s, generator=gen, device=card) for s in shapes))
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+def test_zf_sic_solve_ex_equals_solve_on_the_card(card):
+    """The ZF-SIC stages' regularised (2k, 2k) systems at 256 packets
+    (k = 4, 3, 2, 1) against (2k, 81) columns: `solve_ex` without its
+    check gives `solve`'s bits on the card too."""
+    y, H, _ = _link_case(card, 5)
+    for k in (4, 3, 2, 1):
+        Hk = H[:, :, :k]
+        Hh = cplx.conj_transpose(Hk)
+        G = cplx.matmul(Hh, Hk)
+        Gr = torch.cat([torch.cat([G[..., 0], -G[..., 1]], -1),
+                        torch.cat([G[..., 1], G[..., 0]], -1)], -2)
+        Gr = Gr + 1e-5 * torch.eye(2 * k, device=card)
+        rhs = cplx.matmul(Hh, y.transpose(1, 2))
+        rhs_r = torch.cat([rhs[..., 0], rhs[..., 1]], -2)
+        sol, info = torch.linalg.solve_ex(Gr, rhs_r, check_errors=False)
+        assert torch.equal(sol, torch.linalg.solve(Gr, rhs_r))
+        assert not info.any()
+
+
+def test_ldpc_refuses_an_out_buffer_it_cannot_write(card):
+    code, llr, mask = _ldpc_inputs(2, card)
+    t = ldpc_minsum.edge_tables(mask)
+    c2v = torch.zeros(2, code.m, code.n, device=card)
+    out = torch.empty_like(c2v)
+    assert ldpc_minsum.bp_iteration(c2v, llr, mask, tables=t, out=out) is out
+    for bad in (out[:1], out.double(), out.transpose(1, 2).contiguous()
+                .transpose(1, 2), out.cpu()):
+        with pytest.raises(ValueError, match="out must be"):
+            ldpc_minsum.bp_iteration(c2v, llr, mask, tables=t, out=bad)
+    with pytest.raises(ValueError, match="out may not be"):
+        ldpc_minsum.bp_iteration(c2v, llr, mask, tables=t, out=c2v)
