@@ -14,6 +14,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 import torch
 
 from . import kernels
+from .utils.spans import span
 
 
 class Capture(NamedTuple):
@@ -29,12 +30,13 @@ def on_side_stream(fn: Callable[[], None], device: torch.device) -> None:
     eager run before a capture: first launches, with their builds,
     `cudaFuncSetAttribute`, occupancy queries and algorithm choices,
     happen outside the capture)."""
-    main = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        fn()
-    main.wait_stream(side)
+    with span("graph.warm_up"):
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            fn()
+        main.wait_stream(side)
 
 
 def capture(fn: Callable[[], None], generator: Optional[torch.Generator],
@@ -45,33 +47,35 @@ def capture(fn: Callable[[], None], generator: Optional[torch.Generator],
     capture recorded are taken back from `kernels.counts()` and
     `kernels.grad_counts()` and returned, for the runner to add once a
     replay. A capture that fails raises."""
-    graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        graph.register_generator_state(generator)
-        rng = generator.get_state()
-    before, before_grad = kernels.counts(), kernels.grad_counts()
-    torch.cuda.synchronize(device)
-    torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved(device)
-    t0 = time.perf_counter()
-    # thread_local: another thread's CUDA calls (NCCL's watchdog under
-    # torch.distributed) may not invalidate the capture; autograd's device
-    # thread records its backward into the capturing stream all the same
-    with torch.cuda.graph(graph, stream=torch.cuda.Stream(device),
-                          capture_error_mode="thread_local"):
-        fn()
-    seconds = time.perf_counter() - t0
-    after, after_grad = kernels.counts(), kernels.grad_counts()
-    launches = {k: after[k]["launches"] - before[k]["launches"]
-                for k in after}
-    grad = {k: {w: n - before_grad[k][w] for w, n in after_grad[k].items()}
-            for k in after_grad}
-    kernels.add_launches(launches, -1)  # recorded, none launched
-    kernels.add_grad_counts(grad, -1)
-    pool = torch.cuda.memory_reserved(device) - reserved
-    if generator is not None:
-        generator.set_state(rng)
-    return Capture(graph, launches, grad, seconds, pool)
+    with span("graph.capture"):
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            graph.register_generator_state(generator)
+            rng = generator.get_state()
+        before, before_grad = kernels.counts(), kernels.grad_counts()
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        t0 = time.perf_counter()
+        # thread_local: another thread's CUDA calls (NCCL's watchdog under
+        # torch.distributed) may not invalidate the capture; autograd's
+        # device thread records its backward into the capturing stream all
+        # the same
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(device),
+                              capture_error_mode="thread_local"):
+            fn()
+        seconds = time.perf_counter() - t0
+        after, after_grad = kernels.counts(), kernels.grad_counts()
+        launches = {k: after[k]["launches"] - before[k]["launches"]
+                    for k in after}
+        grad = {k: {w: n - before_grad[k][w]
+                    for w, n in after_grad[k].items()} for k in after_grad}
+        kernels.add_launches(launches, -1)  # recorded, none launched
+        kernels.add_grad_counts(grad, -1)
+        pool = torch.cuda.memory_reserved(device) - reserved
+        if generator is not None:
+            generator.set_state(rng)
+        return Capture(graph, launches, grad, seconds, pool)
 
 
 class Replayer:
@@ -104,7 +108,8 @@ class Replayer:
         else:
             if self.cap is None:
                 self.cap = capture(self.fn, self.generator, self.device)
-            self.cap.graph.replay()
+            with span("graph.replay"):
+                self.cap.graph.replay()
             self.replays += 1
             kernels.add_launches(self.cap.launches)
             kernels.add_grad_counts(self.cap.grad)

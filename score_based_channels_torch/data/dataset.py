@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..config import Config, DataConfig
+from ..utils.spans import span
 from .cdl import generate_cdl_channels
 from .io import load_output_h
 
@@ -134,26 +135,29 @@ class ChannelDataset:
         """
         from .. import cplx
 
-        n = len(self)
-        idx = (torch.arange(n) if batch_size is None else
-               torch.randperm(n, generator=generator)[:batch_size])
-        H_raw = torch.from_numpy(self.channels)[idx]
-        H_norm = ((H_raw - torch.as_tensor(self.mean))
-                  / torch.as_tensor(self.std)).to(torch.complex64)
-        herm = lambda t: t.transpose(-1, -2).conj().resolve_conj()
-        P = torch.view_as_complex(cplx.qpsk_pilots(
-            generator, H_raw.shape[0], self.config.num_tx, self.num_pilots))
-        out = {"H": H_norm, "H_herm": cplx.as_c2(herm(H_norm)),
-               "H_herm_cplx": herm(H_raw), "P": P, "P_herm": herm(P),
-               "sigma_n": torch.tensor(self.noise_amp, dtype=torch.float32),
-               "idx": idx}
-        if with_measurements:
-            Y = H_raw @ P  # loaders.py:77
-            if self.noise_amp > 0:
-                Y = Y + self.noise_amp * torch.view_as_complex(torch.randn(
-                    Y.shape + (2,), generator=generator))
-            out["Y"] = Y
-            out["Y_herm"] = herm(Y)
-            gram = P @ herm(P)
-            out["eig1"] = torch.linalg.eigvalsh(gram)[..., -1].float()
-        return out
+        with span("data.sample_batch"):
+            n = len(self)
+            idx = (torch.arange(n) if batch_size is None else
+                   torch.randperm(n, generator=generator)[:batch_size])
+            H_raw = torch.from_numpy(self.channels)[idx]
+            H_norm = ((H_raw - torch.as_tensor(self.mean))
+                      / torch.as_tensor(self.std)).to(torch.complex64)
+            herm = lambda t: t.transpose(-1, -2).conj().resolve_conj()
+            P = torch.view_as_complex(cplx.qpsk_pilots(
+                generator, H_raw.shape[0], self.config.num_tx,
+                self.num_pilots))
+            out = {"H": H_norm, "H_herm": cplx.as_c2(herm(H_norm)),
+                   "H_herm_cplx": herm(H_raw), "P": P, "P_herm": herm(P),
+                   "sigma_n": torch.tensor(self.noise_amp,
+                                           dtype=torch.float32),
+                   "idx": idx}
+            if with_measurements:
+                Y = H_raw @ P  # loaders.py:77
+                if self.noise_amp > 0:
+                    Y = Y + self.noise_amp * torch.view_as_complex(torch.randn(
+                        Y.shape + (2,), generator=generator))
+                out["Y"] = Y
+                out["Y_herm"] = herm(Y)
+                gram = P @ herm(P)
+                out["eig1"] = torch.linalg.eigvalsh(gram)[..., -1].float()
+            return out

@@ -37,6 +37,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from .. import _graph, cplx, kernels
+from ..utils.spans import span
 
 # Counts of the posterior runner since `reset_stats`: forwards and levels
 # run on the device (eager or replayed), graph captures and replays,
@@ -129,27 +130,33 @@ class PosteriorRunner:
         iterate, trace or None), the runner's buffers."""
         dev = x_init.device
         _check_generator(self.generator, dev)
-        self._load(dev, A=A, Y=Y, noise_power=noise_power, x_init=x_init,
-                   alpha_step=alpha_step, beta_noise=beta_noise,
-                   oracle=oracle, capture_level=capture_level,
-                   start_level=start_level, coef_cap=coef_cap)
-        L = self.sigmas.shape[0]
-        if dev.type != "cuda":
-            for _ in range(L):
-                self._level()
-                self._ran()
-        else:
-            done = 0
-            if self.graph is None:
-                self._warm_up()
-                self._ran()
-                done = 1
-                if L > 1:
-                    self._capture()
-            for _ in range(done, L):
-                self.graph.replay()
-                kernels.add_launches(self.recorded)
-                self._ran(replay=True)
+        with span("sampler.run"):
+            with span("sampler.load"):
+                self._load(dev, A=A, Y=Y, noise_power=noise_power,
+                           x_init=x_init, alpha_step=alpha_step,
+                           beta_noise=beta_noise, oracle=oracle,
+                           capture_level=capture_level,
+                           start_level=start_level, coef_cap=coef_cap)
+            L = self.sigmas.shape[0]
+            if dev.type != "cuda":
+                for _ in range(L):
+                    with span("sampler.level"):
+                        self._level()
+                    self._ran()
+            else:
+                done = 0
+                if self.graph is None:
+                    with span("sampler.level"):
+                        self._warm_up()
+                    self._ran()
+                    done = 1
+                    if L > 1:
+                        self._capture()
+                for _ in range(done, L):
+                    with span("sampler.level"):
+                        self.graph.replay()
+                    kernels.add_launches(self.recorded)
+                    self._ran(replay=True)
         out = self.x_cap if self.x_cap is not None else self.x
         return out, self.trace
 

@@ -30,6 +30,7 @@ from ..data.dataset import ChannelDataset
 from ..diffusion.sampling import PosteriorRunner
 from ..diffusion.sigmas import sigmas_from_config, subsample_schedule
 from ..parallel.mesh import pad_to_multiple
+from ..utils.spans import span
 
 
 def derive_seed(seed: int, *path: int) -> int:
@@ -146,28 +147,29 @@ def langevin_chunked(
     runner = PosteriorRunner(score_fn, sigmas, torch.Generator(device=dev),
                              steps_each=steps_each, noise_rows=noise_rows)
 
-    t0 = time.time()
+    t0 = time.perf_counter()
     finals, traces = [], []
     for start in range(0, B, chunk):
         if start:
-            rate = start / (time.time() - t0)
+            rate = start / (time.perf_counter() - t0)
             print(f"# langevin {start}/{B} ({rate:.1f} est/s)",
                   file=sys.stderr, flush=True)
         sl = slice(start, min(start + chunk, B))
         n_valid = sl.stop - sl.start
-        parts = [A2[sl], Y2[sl], noise_power[sl], x2_init[sl],
-                 alpha_step[sl], beta_noise[sl],
-                 oracle2[sl] if oracle2 is not None else None,
-                 capture_level[sl] if capture_level is not None else None,
-                 start_level[sl] if start_level is not None else None,
-                 coef_cap[sl] if coef_cap is not None else None]
-        parts = [None if p is None else pad_to_multiple(p, chunk)[0]
-                 for p in parts]
-        if mesh is not None:
-            parts = [None if p is None else
-                     pad_to_multiple(p, world)[0][rows] for p in parts]
-        a, y, npow, x0, al, be, orc, cap, slv, ccap = (
-            None if p is None else p.to(dev) for p in parts)
+        with span("sweep.pad"):
+            parts = [A2[sl], Y2[sl], noise_power[sl], x2_init[sl],
+                     alpha_step[sl], beta_noise[sl],
+                     oracle2[sl] if oracle2 is not None else None,
+                     capture_level[sl] if capture_level is not None else None,
+                     start_level[sl] if start_level is not None else None,
+                     coef_cap[sl] if coef_cap is not None else None]
+            parts = [None if p is None else pad_to_multiple(p, chunk)[0]
+                     for p in parts]
+            if mesh is not None:
+                parts = [None if p is None else
+                         pad_to_multiple(p, world)[0][rows] for p in parts]
+            a, y, npow, x0, al, be, orc, cap, slv, ccap = (
+                None if p is None else p.to(dev) for p in parts)
         runner.generator.manual_seed(derive_seed(seed, start))
         xf2, trace = runner.run(
             a, y, npow, x0, al, be, oracle=orc, capture_level=cap,
@@ -175,10 +177,11 @@ def langevin_chunked(
         if mesh is not None:
             xf2 = mesh.gather(xf2)
             trace = None if trace is None else mesh.gather(trace, dim=1)
-        finals.append(cplx.to_complex(xf2)[:n_valid])
-        if trace is not None:
-            # a copy: on the CPU .cpu() is the runner's buffer itself
-            traces.append(trace.cpu().numpy()[:, :n_valid].copy())
+        with span("sweep.readback"):
+            finals.append(cplx.to_complex(xf2)[:n_valid])
+            if trace is not None:
+                # a copy: on the CPU .cpu() is the runner's buffer itself
+                traces.append(trace.cpu().numpy()[:, :n_valid].copy())
     x_final = np.concatenate(finals, axis=0)
     nmse_log = np.concatenate(traces, axis=1) if traces else None
     return x_final, nmse_log
@@ -264,90 +267,96 @@ def run_snr_sweep(
             stop_steps = np.maximum(
                 np.asarray(stop_steps) - k0 * sampling.steps_each, 0)
 
-    g = _generator(seed, 0)  # pilots, init, measurement noise: CPU draws
-    X2 = val_dataset.hermitian_c2(normalized=True)[:num_channels]
-    C = X2.shape[0]
-    P2 = cplx.qpsk_pilots(g, C, cfg.data.num_tx, val_dataset.num_pilots)
-    A2 = cplx.conj_transpose(P2)
-    x2_init = cplx.randn(g, X2.shape[:-1])  # same init for every SNR
+    with span("sweep.draws"):
+        g = _generator(seed, 0)  # pilots, init, measurement noise: CPU draws
+        X2 = val_dataset.hermitian_c2(normalized=True)[:num_channels]
+        C = X2.shape[0]
+        P2 = cplx.qpsk_pilots(g, C, cfg.data.num_tx, val_dataset.num_pilots)
+        A2 = cplx.conj_transpose(P2)
+        x2_init = cplx.randn(g, X2.shape[:-1])  # same init for every SNR
 
-    S = len(snr_range)
-    noise_powers = np.asarray(
-        physics.snr_to_noise_power(np.asarray(snr_range), cfg.data.num_tx))
-    A_b = A2.repeat(S, 1, 1, 1)
-    X_b = X2.repeat(S, 1, 1, 1)
-    x0_b = x2_init.repeat(S, 1, 1, 1)
-    npow_b = torch.from_numpy(np.repeat(noise_powers.astype(np.float32), C))
-    al_b = torch.from_numpy(np.broadcast_to(
-        np.asarray(alpha_step, np.float32), (S,)).repeat(C))
-    be_b = torch.from_numpy(np.broadcast_to(
-        np.asarray(beta_noise, np.float32), (S,)).repeat(C))
-    Y_b = physics.measure_c2(g, A_b, X_b, npow_b)
+        S = len(snr_range)
+        noise_powers = np.asarray(
+            physics.snr_to_noise_power(np.asarray(snr_range), cfg.data.num_tx))
+        A_b = A2.repeat(S, 1, 1, 1)
+        X_b = X2.repeat(S, 1, 1, 1)
+        x0_b = x2_init.repeat(S, 1, 1, 1)
+        npow_b = torch.from_numpy(
+            np.repeat(noise_powers.astype(np.float32), C))
+        al_b = torch.from_numpy(np.broadcast_to(
+            np.asarray(alpha_step, np.float32), (S,)).repeat(C))
+        be_b = torch.from_numpy(np.broadcast_to(
+            np.asarray(beta_noise, np.float32), (S,)).repeat(C))
+        Y_b = physics.measure_c2(g, A_b, X_b, npow_b)
 
-    start_b = None
-    matched = None
-    if init == "ls":
-        from ..baselines.ls import ls_estimate
+        start_b = None
+        matched = None
+        if init == "ls":
+            from ..baselines.ls import ls_estimate
 
-        x0_b = ls_estimate(A_b.to(dev), Y_b.to(dev), npow_b.to(dev)).cpu()
-    elif init == "lmmse":
-        from ..baselines.lmmse import lmmse_estimate_c2
+            x0_b = ls_estimate(A_b.to(dev), Y_b.to(dev), npow_b.to(dev)).cpu()
+        elif init == "lmmse":
+            from ..baselines.lmmse import lmmse_estimate_c2
 
-        if init_cov is None:
-            raise ValueError("init='lmmse' requires init_cov")
-        x0_b = torch.from_numpy(
-            lmmse_estimate_c2(A_b, Y_b, npow_b, init_cov)[0])
-    elif init == "auto":
-        # residual-gated choice per sample between the LMMSE warm start
-        # and the full noise anneal (estimate.py:274-338 of the JAX package)
-        from ..baselines.lmmse import lmmse_estimate_c2
+            if init_cov is None:
+                raise ValueError("init='lmmse' requires init_cov")
+            x0_b = torch.from_numpy(
+                lmmse_estimate_c2(A_b, Y_b, npow_b, init_cov)[0])
+        elif init == "auto":
+            # residual-gated choice per sample between the LMMSE warm start
+            # and the full noise anneal (estimate.py:274-338 of the JAX
+            # package)
+            from ..baselines.lmmse import lmmse_estimate_c2
 
-        if init_cov is None:
-            raise ValueError("init='auto' requires init_cov")
-        ss = 0.05 if sigma_start is None else float(sigma_start)
-        k0 = int(np.searchsorted(-sig_np, -ss))
-        x0_lm = torch.from_numpy(
-            lmmse_estimate_c2(A_b, Y_b, npow_b, init_cov)[0])
-        resid = cplx.sum_abs2(cplx.matmul(A_b, x0_lm) - Y_b,
-                              dim=(-1, -2)).numpy()
-        Np_, Nr_ = A_b.shape[1], Y_b.shape[2]
-        r_norm = resid / (npow_b.numpy() * Np_ * Nr_)
-        if auto_calib is not None:
-            gc = _generator(seed, 777)
-            Cc = auto_calib.shape[0]
-            Pc = cplx.qpsk_pilots(gc, Cc, A_b.shape[2], val_dataset.num_pilots)
-            Ac = cplx.conj_transpose(Pc).repeat(S, 1, 1, 1)
-            Xc = torch.as_tensor(np.asarray(auto_calib)).repeat(S, 1, 1, 1)
-            npc = np.repeat(noise_powers.astype(np.float32), Cc)
-            Yc = physics.measure_c2(gc, Ac, Xc, torch.from_numpy(npc))
-            xc = torch.from_numpy(lmmse_estimate_c2(Ac, Yc, npc, init_cov)[0])
-            rc = cplx.sum_abs2(cplx.matmul(Ac, xc) - Yc, dim=(-1, -2)).numpy()
-            pred = (rc / (npc * Np_ * Nr_)).reshape(S, Cc).mean(-1)
-            ratio = r_norm / np.repeat(pred, C)
-            matched = (ratio < auto_threshold) & (r_norm < 2.0)
-        else:  # uncalibrated: absolute threshold
-            matched = r_norm < max(auto_threshold, 1.2)
-        m_t = torch.from_numpy(matched)
-        x0_b = torch.where(m_t[:, None, None, None], x0_lm, x0_b)
-        start_b = torch.where(m_t, k0, 0)
-        al_b = torch.where(m_t, torch.tensor(sampling.alpha_step * alpha_scale,
-                                             dtype=torch.float32), al_b)
-        be_b = torch.where(m_t, torch.tensor(sampling.beta_noise,
-                                             dtype=torch.float32), be_b)
-        print(f"# auto protocol: {int(matched.sum())}/{matched.size} "
-              f"samples warm-started (residual median "
-              f"{float(np.median(r_norm)):.2f}, threshold "
-              f"{auto_threshold})", file=sys.stderr, flush=True)
-    elif init != "noise":
-        raise ValueError(init)
+            if init_cov is None:
+                raise ValueError("init='auto' requires init_cov")
+            ss = 0.05 if sigma_start is None else float(sigma_start)
+            k0 = int(np.searchsorted(-sig_np, -ss))
+            x0_lm = torch.from_numpy(
+                lmmse_estimate_c2(A_b, Y_b, npow_b, init_cov)[0])
+            resid = cplx.sum_abs2(cplx.matmul(A_b, x0_lm) - Y_b,
+                                  dim=(-1, -2)).numpy()
+            Np_, Nr_ = A_b.shape[1], Y_b.shape[2]
+            r_norm = resid / (npow_b.numpy() * Np_ * Nr_)
+            if auto_calib is not None:
+                gc = _generator(seed, 777)
+                Cc = auto_calib.shape[0]
+                Pc = cplx.qpsk_pilots(gc, Cc, A_b.shape[2],
+                                      val_dataset.num_pilots)
+                Ac = cplx.conj_transpose(Pc).repeat(S, 1, 1, 1)
+                Xc = torch.as_tensor(np.asarray(auto_calib)).repeat(S, 1, 1, 1)
+                npc = np.repeat(noise_powers.astype(np.float32), Cc)
+                Yc = physics.measure_c2(gc, Ac, Xc, torch.from_numpy(npc))
+                xc = torch.from_numpy(
+                    lmmse_estimate_c2(Ac, Yc, npc, init_cov)[0])
+                rc = cplx.sum_abs2(cplx.matmul(Ac, xc) - Yc,
+                                   dim=(-1, -2)).numpy()
+                pred = (rc / (npc * Np_ * Nr_)).reshape(S, Cc).mean(-1)
+                ratio = r_norm / np.repeat(pred, C)
+                matched = (ratio < auto_threshold) & (r_norm < 2.0)
+            else:  # uncalibrated: absolute threshold
+                matched = r_norm < max(auto_threshold, 1.2)
+            m_t = torch.from_numpy(matched)
+            x0_b = torch.where(m_t[:, None, None, None], x0_lm, x0_b)
+            start_b = torch.where(m_t, k0, 0)
+            al_b = torch.where(m_t, torch.tensor(
+                sampling.alpha_step * alpha_scale, dtype=torch.float32), al_b)
+            be_b = torch.where(m_t, torch.tensor(sampling.beta_noise,
+                                                 dtype=torch.float32), be_b)
+            print(f"# auto protocol: {int(matched.sum())}/{matched.size} "
+                  f"samples warm-started (residual median "
+                  f"{float(np.median(r_norm)):.2f}, threshold "
+                  f"{auto_threshold})", file=sys.stderr, flush=True)
+        elif init != "noise":
+            raise ValueError(init)
 
-    cap_b = None
-    if stop_steps is not None:  # per-SNR early stop, trailing-step units
-        levels = np.asarray(stop_steps, np.int64) // sampling.steps_each
-        cap_b = torch.from_numpy(np.repeat(levels, C))
-        if matched is not None:  # warm chains run to the final level
-            cap_b = torch.where(torch.from_numpy(matched),
-                                len(sig_np) - 1, cap_b)
+        cap_b = None
+        if stop_steps is not None:  # per-SNR early stop, trailing-step units
+            levels = np.asarray(stop_steps, np.int64) // sampling.steps_each
+            cap_b = torch.from_numpy(np.repeat(levels, C))
+            if matched is not None:  # warm chains run to the final level
+                cap_b = torch.where(torch.from_numpy(matched),
+                                    len(sig_np) - 1, cap_b)
 
     x_hat, trace = langevin_chunked(
         score_fn, A_b, Y_b, sigmas, npow_b, x0_b, derive_seed(seed, 1),

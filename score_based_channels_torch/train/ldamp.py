@@ -35,6 +35,7 @@ from ..eval.estimate import derive_seed
 from ..models.convert import state_dict_to_jax_params
 from ..models.ldamp import LDAMP
 from ..utils.checkpoint import save_checkpoint
+from ..utils.spans import span
 from .score import Optimizer, matmul_precision, staircase_decay
 
 
@@ -208,25 +209,30 @@ class LDAMPStepRunner:
                              f"steps: got {n}")
         self.k.zero_()
         dirs = iter(directions) if directions is not None else None
-        for seed, batch in zip(seeds, batches):
-            self._load(batch, next(dirs) if dirs is not None else None)
-            self.opt.reserve_in(1, self.table)
-            self.generator.manual_seed(seed)
-            if not self.capture:
-                self._step()
-            elif not self.warmed:
-                _graph.on_side_stream(self._step, self.k.device)
-                self.opt.zero_grad()  # the capture makes its own in its pool
-                self.warmed = True
-            else:
-                if self.graph is None:
-                    self._capture()
-                self.graph.replay()
-                kernels.add_launches(self.recorded)
-                kernels.add_grad_counts(self.recorded_grad)
-                self.stats["replays"] += 1
-            self.stats["steps"] += 1
-            self.opt.count += 1
+        with span("ldamp.run"):
+            for seed, batch in zip(seeds, batches):
+                with span("ldamp.load"):
+                    self._load(batch, next(dirs) if dirs is not None
+                               else None)
+                with span("ldamp.step"):
+                    self.opt.reserve_in(1, self.table)
+                    self.generator.manual_seed(seed)
+                    if not self.capture:
+                        self._step()
+                    elif not self.warmed:
+                        _graph.on_side_stream(self._step, self.k.device)
+                        # the capture makes its own in its pool
+                        self.opt.zero_grad()
+                        self.warmed = True
+                    else:
+                        if self.graph is None:
+                            self._capture()
+                        self.graph.replay()
+                        kernels.add_launches(self.recorded)
+                        kernels.add_grad_counts(self.recorded_grad)
+                        self.stats["replays"] += 1
+                self.stats["steps"] += 1
+                self.opt.count += 1
         return self.losses[:n]
 
     def _load(self, batch: Dict[str, torch.Tensor],

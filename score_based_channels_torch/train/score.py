@@ -64,6 +64,7 @@ from ..parallel.mesh import Mesh, make_mesh
 from ..parallel.multihost import is_primary
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.metrics import MetricsLogger
+from ..utils.spans import span
 
 # each rule's moment lists, in optax's state order; the Adam family's
 # state starts with its step count
@@ -430,26 +431,29 @@ class TrainChunkRunner:
                              f"{self.idx.shape[1]} rows: got idx "
                              f"{tuple(idx.shape)} for {n} seeds")
         opt = self.state.opt
-        opt.reserve_in(n, self.table)
-        self.idx[:n].copy_(idx)
-        self._load_draws(labels, noise, n)
-        self.k.zero_()
-        for seed in seeds:
-            self.generator.manual_seed(seed)
-            if not self.capture:
-                self._step()
-            elif not self.warmed:
-                self._warm_up()
-            else:
-                if self.graph is None:
-                    self._capture()
-                self.graph.replay()
-                kernels.add_launches(self.recorded)
-                kernels.add_grad_counts(self.recorded_grad)
-                STATS["replays"] += 1
-            STATS["steps"] += 1
-            opt.count += 1
-            self.state.step += 1
+        with span("dsm.run"):
+            with span("dsm.load"):
+                opt.reserve_in(n, self.table)
+                self.idx[:n].copy_(idx)
+                self._load_draws(labels, noise, n)
+                self.k.zero_()
+            for seed in seeds:
+                with span("dsm.step"):
+                    self.generator.manual_seed(seed)
+                    if not self.capture:
+                        self._step()
+                    elif not self.warmed:
+                        self._warm_up()
+                    else:
+                        if self.graph is None:
+                            self._capture()
+                        self.graph.replay()
+                        kernels.add_launches(self.recorded)
+                        kernels.add_grad_counts(self.recorded_grad)
+                        STATS["replays"] += 1
+                STATS["steps"] += 1
+                opt.count += 1
+                self.state.step += 1
         self.runs += 1
         return self.losses[:n]
 
@@ -515,11 +519,12 @@ def make_eval_loss(sigmas: torch.Tensor, anneal_power: float,
     def eval_loss(model: nn.Module, x: torch.Tensor,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
         split = mesh is not None and x.shape[0] % mesh.world_size == 0
-        loss = anneal_dsm_loss(model, x, sigmas, generator,
-                               anneal_power=anneal_power,
-                               rows=mesh.rows(x.shape[0]) if split else None)
-        if split:
-            mesh.mean([loss])
+        with span("dsm.eval_loss"):
+            loss = anneal_dsm_loss(
+                model, x, sigmas, generator, anneal_power=anneal_power,
+                rows=mesh.rows(x.shape[0]) if split else None)
+            if split:
+                mesh.mean([loss])
         return loss
 
     return eval_loss

@@ -10,6 +10,11 @@ has neither for a custom kernel, where XLA's has `bytes_accessed` and
 `model_flops`, so those cells stay empty rather than invented. The
 port's kernels have their bounds in chip_smoke.py instead.
 
+Then the device's idle time by the program span that held it
+(`idle_by_span`): the port's spans (`utils/spans.py`, the "sbc:" user
+annotations of a trace taken while they ran) say which host work was
+under way while no device event ran.
+
 Usage:
   python -m score_based_channels_torch.utils.trace_analysis \\
       <trace.json[.gz] or a directory> [--peak-gbps 3350] \\
@@ -26,12 +31,14 @@ import argparse
 import collections
 import glob
 import gzip
+import heapq
 import json
 import os
 import sys
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+SPAN_PREFIX = "sbc:"  # the port's program spans (utils/spans.py)
 # datasheet peaks of the NVIDIA H100 80GB HBM3 (SXM) at 700 W
 H100_PEAK_GBPS = 3350.0
 H100_PEAK_TFLOPS_BF16 = 989.0
@@ -47,17 +54,22 @@ def _find_trace(path: str) -> str:
     return max(hits, key=os.path.getmtime)
 
 
-def load_device_events(path: str) -> Iterator[
-        Tuple[str, str, float, Optional[int], Optional[int]]]:
-    """Yield (name, category, dur_us, bytes or None, flops or None) of each
-    complete device event of the trace."""
+def _complete_events(path: str) -> List[Dict]:
+    """The complete ("ph": "X") events of the trace."""
     trace = _find_trace(path)
     opener = gzip.open if trace.endswith(".gz") else open
     with opener(trace, "rt") as f:
         tr = json.load(f)
     events = tr.get("traceEvents", []) if isinstance(tr, dict) else tr
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATEGORIES:
+    return [e for e in events if e.get("ph") == "X"]
+
+
+def load_device_events(path: str) -> Iterator[
+        Tuple[str, str, float, Optional[int], Optional[int]]]:
+    """Yield (name, category, dur_us, bytes or None, flops or None) of each
+    complete device event of the trace."""
+    for e in _complete_events(path):
+        if e.get("cat") not in DEVICE_CATEGORIES:
             continue
         args = e.get("args") or {}
         nbytes, flops = args.get("bytes"), args.get("flops")
@@ -142,6 +154,80 @@ def top_lines(summary: Dict, top: int = 5,
             for name, r in rows[:top]]
 
 
+def idle_by_span(path: str, out=None) -> Dict:
+    """The device's idle time by the innermost program span open over it.
+
+    The window runs from the trace's first device event or program span
+    to its last; the idle time is the window less the union of the device
+    events. Each idle part goes, by time, to the innermost "sbc:" span
+    open over it (the latest to begin), "(no span)" where none is. Print
+    the table; return {"window_ms", "idle_ms", "by_span": {name: ms}}.
+    out: a text stream (stdout)."""
+    out = out or sys.stdout
+    busy, spans = [], []
+    for e in _complete_events(path):
+        s = float(e["ts"])
+        t = (s, s + float(e.get("dur", 0.0)))
+        if e.get("cat") in DEVICE_CATEGORIES:
+            busy.append(t)
+        elif (e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith(SPAN_PREFIX)):
+            spans.append((t[0], t[1], e["name"][len(SPAN_PREFIX):]))
+    ends = busy + [sp[:2] for sp in spans]
+    by = collections.Counter()
+    if ends:
+        lo, hi = min(s for s, _ in ends), max(e for _, e in ends)
+        idle, at = [], lo
+        for s, e in sorted(busy):
+            if s > at:
+                idle.append((at, s))
+            at = max(at, e)
+        if at < hi:
+            idle.append((at, hi))
+        segments, k = _innermost(spans), 0
+        for a, b in idle:
+            while k < len(segments) and segments[k][1] <= a:
+                k += 1
+            covered, j = 0.0, k
+            while j < len(segments) and segments[j][0] < b:
+                s, e, name = segments[j]
+                part = min(b, e) - max(a, s)
+                if part > 0:
+                    by[name] += part
+                    covered += part
+                j += 1
+            if b - a > covered:
+                by["(no span)"] += b - a - covered
+    summary = {"window_ms": (hi - lo) / 1e3 if ends else 0.0,
+               "idle_ms": sum(by.values()) / 1e3,
+               "by_span": {k: v / 1e3 for k, v in by.most_common()}}
+    print(f"\n== device idle by program span: {summary['idle_ms']:.3f} ms "
+          f"of a {summary['window_ms']:.3f} ms window ==", file=out)
+    for name, ms in summary["by_span"].items():
+        share = ms / summary["window_ms"] if summary["window_ms"] else 0.0
+        print(f"{100 * share:6.1f}%  {ms:9.3f} ms  {name}", file=out)
+    return summary
+
+
+def _innermost(spans) -> List[Tuple[float, float, str]]:
+    """(start, end, name) in time order where some span is open: the name
+    of the innermost one (the latest to begin; of two that begin
+    together, the one that ends first)."""
+    spans = sorted(spans)
+    marks = sorted({t for s, e, _ in spans for t in (s, e)})
+    out, open_, i = [], [], 0
+    for a, b in zip(marks, marks[1:]):
+        while i < len(spans) and spans[i][0] <= a:
+            s, e, name = spans[i]
+            heapq.heappush(open_, (-s, e, i, name))
+            i += 1
+        while open_ and open_[0][1] <= a:
+            heapq.heappop(open_)
+        if open_:
+            out.append((a, b, open_[0][3]))
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("trace", help="chrome trace (.json or .json.gz) or a "
@@ -156,6 +242,7 @@ def main(argv=None):
     p.add_argument("--top", type=int, default=25)
     args = p.parse_args(argv)
     summarize(args.trace, args.peak_gbps, args.peak_tflops, args.top)
+    idle_by_span(args.trace)
 
 
 if __name__ == "__main__":

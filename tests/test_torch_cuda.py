@@ -9,9 +9,12 @@ need not have; this file imports no JAX).
 
 import ctypes
 import dataclasses
+import gc
+import time
 
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import numpy as np
 
@@ -33,6 +36,7 @@ from score_based_channels_torch.kernels import (
 )
 from score_based_channels_torch.kernels.fused_forward import fused_forward
 from score_based_channels_torch.models import make_score_model
+from score_based_channels_torch.utils import spans
 
 pytestmark = pytest.mark.cuda
 
@@ -1219,6 +1223,126 @@ def test_capture_with_a_host_sync_raises(card):
                             steps_each=1).run(*args, beta_noise=0.0)
     assert torch.isfinite(ok).all()
 
+
+# -- the program's spans on the profiler's clock ------------------------------
+
+
+def _profiled(fn):
+    """fn() and a synchronise under a CUDA profiler -> (the program's
+    spans recorded meanwhile, the host's "sbc:" events, the host's graph
+    launches and the device operations, each as (name, start, end) ns,
+    and the time the synchronise returned). What puts time between the
+    profiler's stamp and a span's other than the clock is kept out: a
+    span "warm" opens and closes first in the same profile (a profile's
+    first record_function enter and exit on a thread set up its state,
+    50-800 us), and the garbage collector waits until the profile ends."""
+    torch.cuda.synchronize()
+    gc.disable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with spans.span("warm"):
+                pass
+            t0 = time.time_ns()
+            fn()
+            torch.cuda.synchronize()
+            synced = time.time_ns()
+    finally:
+        gc.enable()
+    got = spans.recorded(t0, synced)
+    marks, launches, device = [], [], []
+    for ev in prof.profiler.kineto_results.events():
+        t = (ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            if not ev.is_user_annotation():
+                device.append(t)
+        elif t[0].startswith(spans.PREFIX) and t[1] >= t0:
+            marks.append((t[0][len(spans.PREFIX):],) + t[1:])
+        elif "cudaGraphLaunch" in t[0]:
+            launches.append(t)
+    return got, marks, launches, device, synced
+
+
+def _near_their_events(got, marks):
+    """Each span against its profiler event (the k-th span of a name
+    against the k-th event): a clock that differed would move both of its
+    stamps; a host delay between the profiler's stamp and the span's
+    moves one (60-300 us, about one stamp in 300 on the card). So every
+    span lies within 50 us of its event at one end and within 1 ms at
+    both, and the stamps' median distance is under 20 us."""
+    by = {}
+    for name, s, e in sorted(marks, key=lambda t: t[1]):
+        by.setdefault(name, []).append((s, e))
+    assert {n: len(v) for n, v in by.items()} == {
+        n: sum(1 for r in got if r.name == n) for n in {r.name for r in got}}
+    seen, gaps = {}, []
+    for r in sorted(got, key=lambda r: r.start_ns):
+        k = seen.get(r.name, 0)
+        seen[r.name] = k + 1
+        s, e = by[r.name][k]
+        near = sorted((abs(r.start_ns - s), abs(r.end_ns - e)))
+        assert near[0] <= 50_000 and near[1] <= 1_000_000, (r, s, e)
+        gaps += near
+    assert sorted(gaps)[len(gaps) // 2] <= 20_000, sorted(gaps)
+
+
+def test_posterior_runner_spans_share_the_profilers_clock(card):
+    """A new bf16 runner under a CUDA profiler records one warm-up, one
+    capture and a level span for each of its L levels, inside its run;
+    each span lies near its "sbc:" event (`_near_their_events`); the L-1 graph
+    launches lie inside the replayed levels' spans, and the replays'
+    device operations start after the first of them began and end before
+    the profiler's last synchronise returned."""
+    levels = 4
+    score, A, Y, X, x0, npow, sig = _posterior_case(card, torch.bfloat16,
+                                                    levels=levels)
+    runner = PosteriorRunner(score, sig,
+                             torch.Generator(device=card).manual_seed(0),
+                             steps_each=2)
+    got, marks, launches, device, synced = _profiled(
+        lambda: runner.run(A, Y, npow, x0, oracle=X))
+    names = [r.name for r in got]
+    assert {n: names.count(n) for n in set(names)} == {
+        "sampler.run": 1, "sampler.load": 1, "graph.warm_up": 1,
+        "graph.capture": 1, "sampler.level": levels}
+    run, first = got[0], got[2]
+    assert (run.name, first.name) == ("sampler.run", "sampler.level")
+    assert run.parent is None
+    for r in got[1:]:
+        assert run.start_ns <= r.start_ns <= r.end_ns <= run.end_ns
+        assert r.parent == (first.index if r.name == "graph.warm_up"
+                            else run.index)
+    _near_their_events(got, marks)
+
+    capture = next(r for r in got if r.name == "graph.capture")
+    replayed = [r for r in got if r.name == "sampler.level"
+                and r.start_ns >= capture.end_ns]
+    assert len(replayed) == levels - 1 == len(launches)
+    for (_, s, e), r in zip(sorted(launches, key=lambda t: t[1]), replayed):
+        assert r.start_ns <= s <= e <= r.end_ns
+    after = [t for t in device if t[1] >= capture.end_ns]
+    assert after, "no device operation after the capture"
+    assert min(s for _, s, _ in after) >= replayed[0].start_ns
+    assert max(e for _, _, e in after) <= synced
+
+
+def test_replayer_spans_warm_up_capture_and_replays(card):
+    """A `Replayer` records its warm-up, its capture and each replay, one
+    "sbc:" event each and near it, each replay's graph launch inside its
+    span."""
+    from score_based_channels_torch import _graph
+
+    buf = torch.ones(1024, device=card)
+    rep = _graph.Replayer(lambda: buf.mul_(1.5), card)
+    got, marks, launches, _, _ = _profiled(
+        lambda: [rep() for _ in range(5)])
+    names = [r.name for r in got]
+    assert names == ["graph.warm_up", "graph.capture"] + ["graph.replay"] * 4
+    assert sorted(m[0] for m in marks) == sorted(names)
+    assert len(launches) == 4 and rep.replays == 4
+    for (_, s, e), r in zip(sorted(launches, key=lambda t: t[1]), got[2:]):
+        assert r.start_ns <= s <= e <= r.end_ns
+    _near_their_events(got, marks)
 
 
 # -- the training runner: one DSM step captured, replayed for every step -----

@@ -1,7 +1,8 @@
 """utils/trace_analysis.py of the PyTorch port: the device-time tables of
 a torch.profiler chrome trace, on synthetic traces with known kernel,
 copy and set events (and host events it must leave out), and on a real
-CPU trace, which holds no device event.
+CPU trace, which holds no device event; the device's idle time by the
+innermost program span, on a synthetic trace and a real CPU one.
 """
 
 import gzip
@@ -110,3 +111,54 @@ def test_a_cpu_profile_has_no_device_events(tmp_path, capsys):
 def test_a_directory_without_a_trace_raises(tmp_path):
     with pytest.raises(FileNotFoundError):
         ta.summarize(str(tmp_path))
+
+
+def test_idle_time_by_innermost_program_span(tmp_path):
+    """Device events (busy 10-20, 30-40, 60-70 us) under nested and
+    sibling "sbc:" spans over a 0-100 us window: each idle part goes to
+    the innermost span open over it; the device's mirror of a span and a
+    host op are left out."""
+    ev = [("k1", "kernel", 10, 10), ("k2", "kernel", 30, 10),
+          ("Memcpy DtoH", "gpu_memcpy", 60, 10),
+          ("sbc:sampler.run", "user_annotation", 0, 80),
+          ("sbc:sampler.load", "user_annotation", 0, 5),
+          ("sbc:sampler.level", "user_annotation", 22, 6),
+          ("sbc:sweep.readback", "user_annotation", 85, 15),
+          ("sbc:sampler.run", "gpu_user_annotation", 10, 60),
+          ("aten::mm", "cpu_op", 40, 20)]
+    tr = {"traceEvents": [{"ph": "X", "cat": c, "name": n, "ts": t,
+                           "dur": d, "pid": 0, "tid": 1}
+                          for n, c, t, d in ev]}
+    path = tmp_path / "spans.pt.trace.json"
+    path.write_text(json.dumps(tr))
+    buf = io.StringIO()
+    s = ta.idle_by_span(str(path), out=buf)
+    assert s["window_ms"] == pytest.approx(0.1)
+    assert s["idle_ms"] == pytest.approx(0.07)
+    want = {"sampler.run": 39, "sampler.load": 5, "sampler.level": 6,
+            "sweep.readback": 15, "(no span)": 5}
+    assert s["by_span"] == pytest.approx({k: v / 1e3 for k, v in
+                                          want.items()})
+    text = buf.getvalue()
+    assert "device idle by program span: 0.070 ms of a 0.100 ms" in text
+    assert text.splitlines()[2].endswith("sampler.run")  # largest first
+
+
+def test_a_cpu_trace_of_a_program_span(tmp_path, capsys):
+    """A real CPU trace holding one program span and no device event:
+    the whole window is idle under that span; the CLI prints both
+    tables."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from score_based_channels_torch.utils.spans import span
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with span("sweep.draws"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    prof.export_chrome_trace(str(tmp_path / "cpu.pt.trace.json"))
+    s = ta.idle_by_span(str(tmp_path))
+    assert list(s["by_span"]) == ["sweep.draws"]
+    assert s["idle_ms"] == pytest.approx(s["window_ms"]) and s["idle_ms"] > 0
+    ta.main([str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "no device events found" in out and "sweep.draws" in out
