@@ -102,7 +102,10 @@ Phases (any failure propagates and the exit code is non-zero):
  11. LDAMP: `train_ldamp_snr` at the JAX package's defaults (10 unrolls,
      chans 16, batch 128) for 4 steps with its launch counts (conv2d_taps
      forward and dgrad), the card's gradient against the CPU's at batch 4,
-     ms per step, `run_ldamp_eval` from the checkpoint; training runs
+     ms per step, `run_ldamp_eval` from the checkpoint, their
+     `pilot_eigmax` launch counts (one a step, one an evaluated SNR),
+     the kernel at the recipe's pilots against its plain version and
+     float64 and timed beside eigvalsh; training runs
      through the LDAMP runner (step 0 eager, one step captured in a CUDA
      graph, replayed for the others), and `ldamp_graph_phase` holds it
      bit for bit against the eager loop under deterministic algorithms
@@ -178,6 +181,8 @@ SOURCES = {
                     "score_based_channels_tpu/kernels/conv_probe.py:135"),
     "conv_chain": ("score_based_channels_torch/csrc/conv_chain.cu",
                    "score_based_channels_tpu/kernels/conv_probe.py:178"),
+    # replaces no Pallas kernel: eig1 was eigvalsh on the host's batch
+    "pilot_eigmax": ("score_based_channels_torch/csrc/pilot_eigmax.cu", None),
 }
 ROUTE = {torch.bfloat16: "wgmma", torch.float32: "fma"}  # the convs' routes
 BENCH_RUNS = 5  # timed runs of the bench workload (one level schedule each)
@@ -2278,16 +2283,18 @@ def ldamp_phase(card):
     batch 4 at the initial parameters with the same divergence directions
     and the card's LeakyReLU branches replayed (1e-3 of each tensor's
     max|g|, the train phase's bar); ms per step (forward, backward,
-    optimizer) and steps/s; `run_ldamp_eval` from the saved checkpoint."""
+    optimizer) and steps/s; `run_ldamp_eval` from the saved checkpoint;
+    the `pilot_eigmax` launches of both (one a step, one an SNR) and
+    `eigmax_check`."""
     from score_based_channels_torch import kernels
     from score_based_channels_torch.config import default_score_config
     from score_based_channels_torch.data import ChannelDataset
     from score_based_channels_torch.eval.estimate import derive_seed
     from score_based_channels_torch.eval.ldamp import run_ldamp_eval
     from score_based_channels_torch.train.ldamp import (
-        LDAMPTrainConfig, checkpoint_name, ldamp_batch, ldamp_losses,
-        ldamp_train_step, make_ldamp_model, make_ldamp_optimizer,
-        train_ldamp_snr,
+        LDAMPTrainConfig, checkpoint_name, ldamp_batch, ldamp_inputs,
+        ldamp_losses, ldamp_train_step, make_ldamp_model,
+        make_ldamp_optimizer, train_ldamp_snr,
     )
 
     cfg = default_score_config("CDL-C")
@@ -2316,14 +2323,18 @@ def ldamp_phase(card):
         assert n["conv2d_taps"] == {"launches": (3 * fwd - 1) * LDAMP_STEPS,
                                     "plain": 0}, n
         assert n["instance_norm_plus"] == {"launches": 0, "plain": 0}, n
+        # each step's drawn batch assembled in the step, eig1 by the kernel
+        assert n["pilot_eigmax"] == {"launches": LDAMP_STEPS,
+                                     "plain": 0}, n
         train_counts, train_grad_counts = n, ng
+        eig = eigmax_check(tc)
 
         # card vs CPU gradient at the initial parameters, batch 4
         ds = ChannelDataset(1234, dataclasses.replace(
             cfg.data, noise_std=float(10 ** (-LDAMP_SNR / 20) * 8),
             num_pilots=int(64 * tc.alpha)), norm="global")
         gb = torch.Generator().manual_seed(21)
-        b4 = ldamp_batch(ds, gb, 4, "cpu")
+        b4 = ldamp_inputs(ldamp_batch(ds, gb, 4, "cpu"))
         dirs = [torch.randn(4, 64, 16, 2, generator=gb)
                 for _ in range(tc.max_unrolls)]
         init = lambda dev: make_ldamp_model(tc, dev, torch.Generator()
@@ -2364,7 +2375,7 @@ def ldamp_phase(card):
         # ms per step: forward, backward, optimizer (synchronised)
         opt = make_ldamp_optimizer(model, tc, 1)
         gen = torch.Generator(device="cuda").manual_seed(3)
-        batch = ldamp_batch(ds, gb, tc.batch_size, "cuda")
+        batch = ldamp_inputs(ldamp_batch(ds, gb, tc.batch_size, "cuda"))
         phases = {"forward": [], "backward": [], "optimizer": []}
         for i in range(8):
             torch.cuda.synchronize()
@@ -2405,14 +2416,46 @@ def ldamp_phase(card):
     assert np.isfinite(res.nmse).all()
     assert n["conv2d_taps"] == {"launches": 2 * tc.max_unrolls * unet_convs,
                                 "plain": 0}, n
+    assert n["pilot_eigmax"] == {"launches": 1, "plain": 0}, n  # one SNR
     graph = ldamp_graph_phase(card)
     return dict(steps=LDAMP_STEPS, seconds=train_s, counts=train_counts,
+                eigmax=eig,
                 grad_counts=train_grad_counts, graph=graph,
                 loss_log=logs["loss_log"].tolist(), grad_check_worst=worst,
                 grad_check_loss_rel=loss_rel, grad_check_flips=flips,
                 grad_check_free_worst=free_worst, phase_ms=med,
                 steps_per_s=steps_per_s, eval_nmse_db=res.avg_db().tolist(),
                 eval_counts=n)
+
+
+EIGMAX_TOL = 1e-5  # relative, against the plain version and float64
+
+
+def eigmax_check(tc):
+    """`pilot_eigmax` (in phase 11) on card pilots at LDAMP's recipe, batch
+    x (64, alpha 64): against its plain version on the same card tensor
+    and against float64 eigvalsh (EIGMAX_TOL relative), every sample's
+    sweeps under the cap; ms a call of the kernel, the plain version and
+    eigvalsh of the Grams alone, and its bound."""
+    from score_based_channels_torch import cplx
+    from score_based_channels_torch.kernels import eigmax
+
+    P = cplx.qpsk_pilots(torch.Generator().manual_seed(29), tc.batch_size,
+                         64, int(64 * tc.alpha)).to("cuda")
+    m = eigmax.measure(P)
+    m.update(ops_ms=m["operations"] / PEAK_OPS[torch.float32] * 1e3,
+             bytes_ms=m["bytes"] / PEAK_BYTES * 1e3)
+    print(f"# pilot_eigmax {tuple(P.shape[:3])}: {m['kernel_ms']:.4f} ms "
+          f"(plain {m['plain_ms']:.4f}, eigvalsh of the Grams "
+          f"{m['library_ms']:.4f}; bound {max(m['ops_ms'], m['bytes_ms']):.4f}"
+          f"); against the plain version {m['kernel_vs_plain']:.2e}, float64 "
+          f"{m['kernel_err']:.2e} (tol {EIGMAX_TOL:g}); sweeps "
+          f"{m['sweeps_min']}-{m['sweeps_max']} of at most "
+          f"{m['max_sweeps']}")
+    assert m["kernel_vs_plain"] <= EIGMAX_TOL, m
+    assert m["kernel_err"] <= EIGMAX_TOL, m
+    assert m["sweeps_max"] < m["max_sweeps"], m
+    return m
 
 
 LDAMP_DECAY_EPOCHS = 2   # the bit-for-bit runs: the rate drops after step 2
@@ -3536,6 +3579,18 @@ def main():
         bound_by="bytes" if ch["bytes_ms"] >= ch["ops_ms"] else "operations",
         library_ms=None, library_chain_ms=ch["library_chain_ms"],
         cluster=ch["cluster"]))
+
+    eig = later["ldamp"]["eigmax"]
+    kernel_json.append(dict(
+        name="pilot_eigmax", route="cuda", source=SOURCES["pilot_eigmax"][0],
+        replaces=SOURCES["pilot_eigmax"][1],
+        launches=later["ldamp"]["counts"]["pilot_eigmax"]["launches"],
+        max_rel_err=max(eig["kernel_vs_plain"], eig["kernel_err"]),
+        ms=eig["kernel_ms"], plain_ms=eig["plain_ms"],
+        bound_ms=max(eig["ops_ms"], eig["bytes_ms"]),
+        bound_by=("bytes" if eig["bytes_ms"] >= eig["ops_ms"]
+                  else "operations"),
+        library_ms=eig["library_ms"]))
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -99,13 +99,28 @@ def randn(generator: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
                        device=generator.device) * _SQRT_HALF
 
 
+def qpsk_bits(generator: torch.Generator, batch: int, num_tx: int,
+              num_pilots: int, dtype: torch.dtype = torch.int64
+              ) -> torch.Tensor:
+    """The 0/1 draws of `qpsk_pilots`: (batch, num_tx, num_pilots, 2) of
+    `dtype` on the generator's device. A CPU generator draws the same bits
+    whatever the integer dtype, and leaves the same state after."""
+    return torch.randint(0, 2, (batch, num_tx, num_pilots, 2),
+                         generator=generator, device=generator.device,
+                         dtype=dtype)
+
+
+def qpsk_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """QPSK entries (+-1 +-j)/sqrt(2) in c2 float32 from 0/1 bits (..., 2),
+    on the bits' device."""
+    return (2.0 * bits.float() - 1.0) * _SQRT_HALF
+
+
 def qpsk_pilots(generator: torch.Generator, batch: int, num_tx: int,
                 num_pilots: int) -> torch.Tensor:
     """Per-sample QPSK pilots in c2, entries (+-1 +-j)/sqrt(2):
     (batch, num_tx, num_pilots, 2) float32 on the generator's device."""
-    bits = torch.randint(0, 2, (batch, num_tx, num_pilots, 2),
-                         generator=generator, device=generator.device)
-    return (2.0 * bits.float() - 1.0) * _SQRT_HALF
+    return qpsk_from_bits(qpsk_bits(generator, batch, num_tx, num_pilots))
 
 
 def nmse(estimate: torch.Tensor, oracle: torch.Tensor) -> torch.Tensor:

@@ -8,11 +8,13 @@ the whole complex train tensor, 'entrywise' is per-entry mean/std, and an
 explicit [mean, std] passes the TRAIN stats to a val/test set; the network
 sees the normalised Hermitian H^H.
 
-`sample_batch` assembles a batch with pilots and measurements
-(loaders.py:52-106), as LDAMP trains and evaluates on it. Deliberate
-deviation, kept from the JAX package (data/dataset.py:21-24): `eig1` is the
-true largest eigenvalue of P P^H (eigvalsh), where the reference takes the
-first, unsorted eigenvalue of np.linalg.eigvals.
+`sample_draws` makes a batch's draws, pilots and measurement noise
+included (loaders.py:52-106), and nothing else: LDAMP trains and
+evaluates on them, assembled on the run's device
+(train/ldamp.py::ldamp_inputs). Deliberate deviation there, kept from the
+JAX package (data/dataset.py:21-24): `eig1` is the true largest
+eigenvalue of P P^H, where the reference takes the first, unsorted
+eigenvalue of np.linalg.eigvals.
 """
 
 from __future__ import annotations
@@ -115,23 +117,21 @@ class ChannelDataset:
         score network takes it (loaders.py:90-91), contiguous."""
         return self.hermitian_c2(normalized=True).contiguous()
 
-    def sample_batch(self, generator: torch.Generator,
+    def sample_draws(self, generator: torch.Generator,
                      batch_size: Optional[int] = None,
                      with_measurements: bool = True) -> dict:
-        """A batch as loaders.py:97-106 builds it (the JAX package's
-        data/dataset.py:148-204), drawn from `generator` (a CPU generator:
-        the draws are the same whatever the run's device). CPU tensors:
+        """A batch's draws from `generator` (a CPU generator: the draws are
+        the same whatever the run's device), in the reference loader's
+        order (loaders.py:97-106; the JAX package's data/dataset.py:148-204),
+        and nothing computed from them. CPU tensors:
 
-          H           (B, Nr, Nt)     normalised complex channel
-          H_herm      (B, Nt, Nr, 2)  normalised Hermitian, c2
-          H_herm_cplx (B, Nt, Nr)     unnormalised Hermitian, complex
-          P           (B, Nt, Np)     QPSK pilots
-          P_herm      (B, Np, Nt)     conjugate-transposed pilots (operator A)
-          Y           (B, Nr, Np)     unnormalised measurements H P (+ noise)
-          Y_herm      (B, Np, Nr)
-          eig1        (B,)            lambda_max(P P^H), float32
-          sigma_n     ()              per-component noise amplitude
-          idx         (B,)            realization indices (without replacement)
+          idx         (B,)              realization indices (randperm,
+                                        without replacement)
+          H           (B, Nr, Nt)       the raw (unnormalised) rows, complex
+          pilot_bits  (B, Nt, Np, 2)    the QPSK pilots' 0/1 draws, uint8
+          noise       (B, Nr, Np, 2)    the measurement noise's unit draws,
+                                        float32; None without measurements
+                                        or at noise amplitude 0
         """
         from .. import cplx
 
@@ -140,24 +140,13 @@ class ChannelDataset:
             idx = (torch.arange(n) if batch_size is None else
                    torch.randperm(n, generator=generator)[:batch_size])
             H_raw = torch.from_numpy(self.channels)[idx]
-            H_norm = ((H_raw - torch.as_tensor(self.mean))
-                      / torch.as_tensor(self.std)).to(torch.complex64)
-            herm = lambda t: t.transpose(-1, -2).conj().resolve_conj()
-            P = torch.view_as_complex(cplx.qpsk_pilots(
-                generator, H_raw.shape[0], self.config.num_tx,
-                self.num_pilots))
-            out = {"H": H_norm, "H_herm": cplx.as_c2(herm(H_norm)),
-                   "H_herm_cplx": herm(H_raw), "P": P, "P_herm": herm(P),
-                   "sigma_n": torch.tensor(self.noise_amp,
-                                           dtype=torch.float32),
-                   "idx": idx}
-            if with_measurements:
-                Y = H_raw @ P  # loaders.py:77
-                if self.noise_amp > 0:
-                    Y = Y + self.noise_amp * torch.view_as_complex(torch.randn(
-                        Y.shape + (2,), generator=generator))
-                out["Y"] = Y
-                out["Y_herm"] = herm(Y)
-                gram = P @ herm(P)
-                out["eig1"] = torch.linalg.eigvalsh(gram)[..., -1].float()
-            return out
+            bits = cplx.qpsk_bits(generator, H_raw.shape[0],
+                                  self.config.num_tx, self.num_pilots,
+                                  dtype=torch.uint8)
+            noise = None
+            if with_measurements and self.noise_amp > 0:
+                noise = torch.randn(
+                    (H_raw.shape[0], H_raw.shape[1], self.num_pilots, 2),
+                    generator=generator)
+            return {"idx": idx, "H": H_raw, "pilot_bits": bits,
+                    "noise": noise}

@@ -1,7 +1,8 @@
 """LDAMP evaluation over SNR, the counterpart of the JAX package's
 eval/ldamp.py (reference test_ldamp.py): the per-SNR checkpoints that
 `train-ldamp` of either package wrote, each run on the validation
-channels at its own SNR, on the card by default.
+channels at its own SNR, on the card by default: the host draws each
+SNR's batch, the device assembles it (`ldamp_inputs`).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from ..config import Config
 from ..data.dataset import ChannelDataset
 from ..models.convert import jax_params_to_state_dict
 from ..train.ldamp import (
-    LDAMPTrainConfig, checkpoint_name, ldamp_batch, make_ldamp_model,
+    LDAMPTrainConfig, checkpoint_name, ldamp_batch, ldamp_inputs,
+    make_ldamp_model,
 )
 from ..train.score import matmul_precision
 from ..utils.checkpoint import load_checkpoint
@@ -79,6 +81,7 @@ def run_ldamp_eval(
                 ds = ChannelDataset(val_seed, val_cfg, norm="global")
                 batch = ldamp_batch(ds, torch.Generator().manual_seed(
                     derive_seed(seed, i, 0)), min(num_channels, len(ds)), dev)
+            batch = ldamp_inputs(batch)
             gen = torch.Generator(device=dev).manual_seed(
                 derive_seed(seed, i, 1))
             h = model(batch["Y_herm"], batch["P_herm"], batch["eig1"], gen,

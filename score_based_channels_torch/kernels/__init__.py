@@ -1,10 +1,10 @@
 """Hand-written Hopper kernels of the port, each beside its plain version."""
 
-from . import conv, conv_chain, conv_im2col, instance_norm, ldpc_minsum
+from . import conv, conv_chain, conv_im2col, eigmax, instance_norm, ldpc_minsum
 
 KERNEL_MODULES = {"conv2d_taps": conv, "instance_norm_plus": instance_norm,
                   "ldpc_minsum": ldpc_minsum, "conv_im2col": conv_im2col,
-                  "conv_chain": conv_chain}
+                  "conv_chain": conv_chain, "pilot_eigmax": eigmax}
 GRAD_MODULES = {"conv2d_taps": conv, "instance_norm_plus": instance_norm}
 
 

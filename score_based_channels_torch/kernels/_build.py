@@ -53,6 +53,9 @@ _SIGNATURES = {
     "sbc_ldpc_minsum": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                         _I, _P],
     "sbc_conv_last_launch": [_IP],
+    "sbc_pilot_eigmax": [_P, _P, _P, _I, _I, _I, _P],
+    "sbc_pilot_eigmax_fits": [_I, _I],
+    "sbc_pilot_eigmax_max_sweeps": [],
 }
 
 _lock = threading.Lock()

@@ -9,10 +9,13 @@ amplitude 10^(-SNR/20) sqrt(Nt) (:66, an amplitude, as the reference).
 
 On the card every denoiser conv runs `conv2d_taps`, forward and input
 gradient, and the JAX package's jitted step is one CUDA graph
-(`LDAMPStepRunner`), replayed for every step after the first. Random
-streams: the parameters are drawn on the CPU from (seed, 0), each step's
-batch on the CPU from (seed, 1, step), each step's divergence directions
-on the run's device from (seed, 2, step).
+(`LDAMPStepRunner`), replayed for every step after the first. The host
+makes only a batch's draws (`ldamp_batch`); the step assembles them into
+LDAMP's inputs on its device (`ldamp_inputs`: the measurements, the
+conjugate transposes, and eig1 by the `pilot_eigmax` kernel on the card).
+Random streams: the parameters are drawn on the CPU from (seed, 0), each
+step's batch on the CPU from (seed, 1, step), each step's divergence
+directions on the run's device from (seed, 2, step).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from .._device import resolve_device
 from ..config import Config, OptimConfig
 from ..data.dataset import ChannelDataset
 from ..eval.estimate import derive_seed
+from ..kernels.eigmax import pilot_eigmax
 from ..models.convert import state_dict_to_jax_params
 from ..models.ldamp import LDAMP
 from ..utils.checkpoint import save_checkpoint
@@ -69,12 +73,45 @@ def make_ldamp_model(tc: LDAMPTrainConfig,
 
 def ldamp_batch(ds: ChannelDataset, generator: torch.Generator,
                 batch_size: int, device) -> Dict[str, torch.Tensor]:
-    """A `sample_batch` as the c2 tensors LDAMP takes, on `device` (the
-    JAX package's train/ldamp.py::_device_batch)."""
-    b = ds.sample_batch(generator, batch_size)
-    return {k: cplx.as_c2(b[k]).to(device)
-            for k in ("Y_herm", "P_herm", "H_herm_cplx")} | {
-        "eig1": b["eig1"].to(device)}
+    """The draws of a batch (`ChannelDataset.sample_draws` from
+    `generator`, a CPU generator) on `device`, for `ldamp_inputs` to
+    assemble there:
+
+      H           (B, Nr, Nt, 2)   the raw rows, c2
+      pilot_bits  (B, Nt, Np, 2)   the QPSK pilots' bits, uint8
+      noise       (B, Nr, Np, 2)   the noise's unit draws (absent at
+                                   noise amplitude 0)
+      amp         ()               the noise amplitude, float32
+    """
+    d = ds.sample_draws(generator, batch_size)
+    out = {"H": cplx.as_c2(d["H"]), "pilot_bits": d["pilot_bits"],
+           "amp": torch.tensor(ds.noise_amp, dtype=torch.float32)}
+    if d["noise"] is not None:
+        out["noise"] = d["noise"]
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def ldamp_inputs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """LDAMP's inputs on the batch's device: Y_herm, P_herm, H_herm_cplx
+    (c2) and eig1 (the JAX package's train/ldamp.py::_device_batch). A
+    batch that carries eig1 is returned as it is; `ldamp_batch`'s draws
+    are assembled as the reference loader assembles them
+    (loaders.py:77-106), Y = H P + amp n (the product by `torch.matmul` at
+    the caller's precision) and eig1 = lambda_max(P P^H) by `pilot_eigmax`
+    (eigvalsh on the CPU). Nothing reads a value on the host, so a
+    captured step can begin with it."""
+    if "eig1" in batch:
+        return batch
+    H = cplx.as_complex(batch["H"])
+    P2 = cplx.qpsk_from_bits(batch["pilot_bits"])
+    P = torch.view_as_complex(P2)
+    Y = H @ P
+    if "noise" in batch:
+        Y = Y + batch["amp"] * torch.view_as_complex(batch["noise"])
+    herm = lambda t: t.transpose(-1, -2).conj().resolve_conj()
+    return {"Y_herm": cplx.as_c2(herm(Y)), "P_herm": cplx.as_c2(herm(P)),
+            "H_herm_cplx": cplx.as_c2(herm(H)),
+            "eig1": pilot_eigmax(P2)[0]}
 
 
 def ldamp_losses(model: LDAMP, batch: Dict[str, torch.Tensor],
@@ -82,7 +119,8 @@ def ldamp_losses(model: LDAMP, batch: Dict[str, torch.Tensor],
                  directions: Optional[Sequence[torch.Tensor]] = None,
                  num_unrolls: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(e2e MSE, mean NMSE) of one batch (train_ldamp.py:117-120)."""
+    """(e2e MSE, mean NMSE) of one batch of LDAMP's inputs
+    (train_ldamp.py:117-120)."""
     h = model(batch["Y_herm"], batch["P_herm"], batch["eig1"], generator,
               num_unrolls, directions)
     mse = cplx.sum_abs2(h - batch["H_herm_cplx"], dim=(-1, -2)).mean()
@@ -104,12 +142,14 @@ def make_ldamp_optimizer(model: LDAMP, tc: LDAMPTrainConfig,
 def ldamp_update(model: LDAMP, opt: Optimizer, batch,
                  generator: Optional[torch.Generator] = None,
                  directions: Optional[Sequence[torch.Tensor]] = None):
-    """A step's device work: loss, backward, the optimizer's `update` (the
-    scheduled rate from its table); returns (mse, nmse) as 0-dim device
-    tensors. It reads no host value that changes between steps and
+    """A step's device work: the batch's inputs (`ldamp_inputs`: drawn
+    batches are assembled here), loss, backward, the optimizer's `update`
+    (the scheduled rate from its table); returns (mse, nmse) as 0-dim
+    device tensors. It reads no host value that changes between steps and
     leaves `opt.count` to its caller, so one capture of it serves every
     step (`LDAMPStepRunner`)."""
-    mse, nmse = ldamp_losses(model, batch, generator, directions)
+    mse, nmse = ldamp_losses(model, ldamp_inputs(batch), generator,
+                             directions)
     opt.zero_grad()
     mse.backward()
     opt.update()
@@ -131,14 +171,13 @@ class LDAMPStepRunner:
     `train_step` (train/ldamp.py:81-97), one `ldamp_update` a step.
 
     `run(batches, seeds, directions=None)` runs one step per seed: the
-    step's batch (a dict as `ldamp_batch` makes it, on any device) is
-    copied into the runner's buffers, and its directions (max_unrolls
-    tensors) into a (max_unrolls, B, Nt, Nr, 2) buffer when given; the
-    generator is seeded from the step's seed (the divergence directions
-    it draws); the step's (mse, nmse) go into row k of a (rows, 2) device
-    buffer at a 0-d device counter k, which each run starts at 0. It
-    returns the buffer's first n rows (the next run overwrites them) and
-    advances `opt.count` once a step.
+    step's batch (on any device) is copied into the runner's buffers, and
+    its directions (max_unrolls tensors) into a (max_unrolls, B, Nt, Nr,
+    2) buffer when given; the generator is seeded from the step's seed
+    (the divergence directions it draws); the step's (mse, nmse) go into
+    row k of a (rows, 2) device buffer at a 0-d device counter k, which
+    each run starts at 0. It returns the buffer's first n rows (the next
+    run overwrites them) and advances `opt.count` once a step.
     - On the CPU, and on the card when `capture` is False (the eager loop
       the graph is held against), it calls the step once a step.
     - On the card, at the first step, the step runs eagerly on a side
@@ -149,12 +188,16 @@ class LDAMPStepRunner:
       optimizer) is captured in a `torch.cuda.CUDAGraph`, with the
       generator registered, and replayed for every later step of every
       run.
-    `batches` and `directions` are iterated as the steps run, so the host
-    makes step k+1's batch after it launched step k: on the card, while
-    replay k runs. On the card a batch on the host goes into the buffers
-    through pinned staging buffers by copies ordered on the stream after
-    replay k, which do not hold the host (`_stage`); directions, a test's
-    seam, are copied as given.
+    The batch's form is the first step's: `ldamp_batch`'s draws, which
+    the step assembles on the device first (`ldamp_inputs`, counted in
+    `stats["assembled"]`), or a batch that carries eig1 (as the JAX
+    package's batches come through `train_ldamp_snr`'s `_batches`), which
+    the step takes as it is. `batches` and `directions` are iterated as
+    the steps run, so the host makes step k+1's batch after it launched
+    step k: on the card, while replay k runs. On the card a batch on the
+    host goes into the buffers through pinned staging buffers by copies
+    ordered on the stream after replay k, which do not hold the host
+    (`_stage`); directions, a test's seam, are copied as given.
 
     The graph reads the parameters, the optimizer's moments and its table
     in place: an optimizer whose table was made anew (it grew past
@@ -166,9 +209,10 @@ class LDAMPStepRunner:
     Counts: the capture records one step's kernel launches and gradient
     work; the runner takes them back (a capture launches nothing) and
     adds them once a replay, so `kernels.counts()` and
-    `kernels.grad_counts()` hold what ran on the card. `stats` counts the
-    steps, captures and replays, the capture's seconds and its graph
-    pool's bytes.
+    `kernels.grad_counts()` hold what ran on the card (`pilot_eigmax`
+    once a step on draws). `stats` counts the steps, the steps whose
+    batch the step assembled, captures and replays, the capture's seconds
+    and its graph pool's bytes.
     """
 
     def __init__(self, model: LDAMP, opt: Optimizer,
@@ -191,7 +235,7 @@ class LDAMPStepRunner:
         self.graph = None
         self.recorded = None       # kernel name -> launches a replay makes
         self.recorded_grad = None  # kernel name -> gradient work a replay
-        self.stats = dict(steps=0, captures=0, replays=0,
+        self.stats = dict(steps=0, assembled=0, captures=0, replays=0,
                           capture_seconds=0.0, pool_bytes=0)
         opt.reserve(updates)
         opt.count_t.fill_(opt.count)
@@ -232,6 +276,7 @@ class LDAMPStepRunner:
                         kernels.add_grad_counts(self.recorded_grad)
                         self.stats["replays"] += 1
                 self.stats["steps"] += 1
+                self.stats["assembled"] += int("eig1" not in self.buf)
                 self.opt.count += 1
         return self.losses[:n]
 

@@ -1540,6 +1540,131 @@ def test_ldamp_graph_counts_what_the_eager_loop_launches(card):
                                          "plain": 0}
     assert seen[0][1]["conv2d_taps"] == {"functions": fwd * 6,
                                          "dgrad": (fwd - 1) * 6}
+    # each step assembles its drawn batch, eig1 by the kernel
+    assert seen[0][0]["pilot_eigmax"] == {"launches": 6, "plain": 0}
+
+
+def _qpsk_or_gaussian(B, Nt, Np, qpsk=True):
+    g = torch.Generator().manual_seed(Np)
+    if qpsk:
+        return cplx.qpsk_pilots(g, B, Nt, Np)
+    return torch.randn(B, Nt, Np, 2, generator=g)
+
+
+@pytest.mark.parametrize("B,Nt,Np,qpsk", [
+    (128, 64, 38, True),                      # LDAMP's recipe, alpha 0.6
+    (128, 64, 12, True), (128, 64, 26, True),  # alpha 0.2, 0.4
+    (128, 64, 51, True), (128, 64, 64, True),  # alpha 0.8, 1.0
+    (5, 64, 33, False),                       # an odd number of columns
+    (6, 16, 40, False)])                      # the rows: Np > Nt
+def test_pilot_eigmax_matches_float64_eigvalsh(card, B, Nt, Np, qpsk):
+    """lambda_max(P P^H) by the kernel against float64 eigvalsh: 1e-5
+    relative, every sample's sweeps under the cap, one launch; the CPU
+    tensor takes the plain version."""
+    from score_based_channels_torch.kernels import eigmax
+
+    P = _qpsk_or_gaussian(B, Nt, Np, qpsk)
+    Pc = torch.view_as_complex(P).to(torch.complex128)
+    want = torch.linalg.eigvalsh(Pc @ Pc.mH)[..., -1]
+    reset_counts()
+    got, sweeps = eigmax.pilot_eigmax(P.to(card))
+    assert counts()["pilot_eigmax"] == {"launches": 1, "plain": 0}
+    assert got.dtype == torch.float32 and sweeps.dtype == torch.int32
+    err = ((got.cpu().double() - want).abs() / want).max().item()
+    assert err <= 1e-5, err
+    assert 1 <= sweeps.min().item() and sweeps.max().item() < \
+        eigmax.max_sweeps()
+    plain, none = eigmax.pilot_eigmax(P)
+    assert none is None and counts()["pilot_eigmax"]["plain"] == 1
+    assert ((plain.double() - want).abs() / want).max().item() <= 1e-5
+
+
+def test_pilot_eigmax_refuses_what_the_kernel_does_not_take(card):
+    from score_based_channels_torch.kernels import eigmax
+
+    P = _qpsk_or_gaussian(2, 64, 38).to(card)
+    with pytest.raises(TypeError):
+        eigmax.pilot_eigmax(P.double())
+    with pytest.raises(ValueError):
+        eigmax.pilot_eigmax(P.transpose(1, 2))
+    with pytest.raises(ValueError):
+        eigmax.pilot_eigmax(P[..., 0])
+    with pytest.raises(ValueError):  # past a block's shared memory
+        eigmax.pilot_eigmax(_qpsk_or_gaussian(1, 129, 112).to(card))
+
+
+def _leaf_gap(got, want):
+    """The worst leaf's gap of norms over the larger of its norm and the
+    median leaf's, over the leaves whose wanted gradient is not nought to
+    rounding (the benchmark's `grad_gap` and `change_gap`). `got` and
+    `want` are lists of (gradient, value) pairs: the leaves are chosen by
+    the gradients, the gap taken of the values."""
+    gnorms = [w[0].double().norm().item() for w in want]
+    gmed = float(np.median(gnorms))
+    keep = [i for i, n in enumerate(gnorms) if n >= 1e-3 * gmed]
+    norms = {i: want[i][1].double().norm().item() for i in keep}
+    med = float(np.median(list(norms.values())))
+    return max(abs(got[i][1].double().norm().item() - norms[i])
+               / max(norms[i], med) for i in keep)
+
+
+def test_ldamp_runner_assembles_the_draws_in_its_graph(card, deterministic):
+    """The captured runner fed the host's draws at the recipe (10
+    unrolls, chans 16, 3 pools, batch 128, 64 x 38 pilots, CDL-C at 10 dB)
+    from `train_ldamp_snr`'s initial parameters over 3 steps: bit for bit
+    its eager loop, and within the LDAMP cell's limits of a runner fed
+    batches the host assembled (eigvalsh, the product on the CPU): each
+    step's losses 0.01 relative, the first gradient (Adam's first moment)
+    0.008 and the parameters' change 0.04 of the worst leaf. The steps it
+    assembled and the kernel's launches are both 3; the host batches'
+    eig1 took the plain version."""
+    from score_based_channels_torch.config import default_score_config
+    from score_based_channels_torch.data import ChannelDataset
+    from score_based_channels_torch.train.ldamp import (
+        LDAMPStepRunner, LDAMPTrainConfig, ldamp_batch, ldamp_inputs,
+        make_ldamp_model, make_ldamp_optimizer,
+    )
+
+    ds = ChannelDataset(1234, dataclasses.replace(
+        default_score_config("CDL-C").data, noise_std=float(10 ** -0.5 * 8),
+        num_pilots=38), norm="global")
+    tc = LDAMPTrainConfig()
+
+    def draws(s):
+        return ldamp_batch(ds, torch.Generator().manual_seed(s), 128, "cpu")
+
+    forms = {"graph": (draws, True), "eager": (draws, False),
+             "host": (lambda s: ldamp_inputs(draws(s)), True)}
+    weights = make_ldamp_model(tc, "cpu", torch.Generator().manual_seed(
+        derive_seed(tc.seed, 0))).state_dict()
+    got = {}
+    for name, (batch, capture) in forms.items():
+        model = make_ldamp_model(tc, card)
+        model.load_state_dict(weights)
+        opt = make_ldamp_optimizer(model, tc, 1)
+        runner = LDAMPStepRunner(model, opt, torch.Generator(device=card),
+                                 1, 3, capture=capture)
+        reset_counts()
+        rows, g1 = [], None
+        for s in range(3):
+            rows.append(runner.run([batch(s)], [50 + s]).clone())
+            if g1 is None:
+                g1 = [(mu / (1 - 0.9)).cpu() for mu in opt.moments["mu"]]
+        change = [(p.detach().cpu() - weights[k])
+                  for k, p in model.named_parameters()]
+        got[name] = (torch.cat(rows).cpu(), list(zip(g1, g1)),
+                     list(zip(g1, change)), runner.stats,
+                     counts()["pilot_eigmax"])
+    g, e, hb = got["graph"], got["eager"], got["host"]
+    assert torch.equal(g[0], e[0]) and torch.isfinite(g[0]).all()
+    assert all(torch.equal(a[1], b[1]) for a, b in zip(g[2], e[2]))
+    assert ((g[0] - hb[0]).abs() / hb[0].abs()).max().item() <= 0.01
+    assert _leaf_gap(g[1], hb[1]) <= 0.008
+    assert _leaf_gap(g[2], hb[2]) <= 0.04
+    assert (g[3]["assembled"], g[3]["replays"]) == (3, 2)
+    assert e[3]["assembled"] == 3 and hb[3]["assembled"] == 0
+    assert g[4] == e[4] == {"launches": 3, "plain": 0}
+    assert hb[4] == {"launches": 0, "plain": 3}  # the host's assembly
 
 
 def test_ldamp_capture_with_a_host_sync_raises(card, monkeypatch):
@@ -1658,7 +1783,7 @@ def test_decoder_replays_equal_eager_decodes(card):
     assert dec.replayer.cap.launches == {"conv2d_taps": 0,
                                          "instance_norm_plus": 0,
                                          "ldpc_minsum": 25, "conv_im2col": 0,
-                                         "conv_chain": 0}
+                                         "conv_chain": 0, "pilot_eigmax": 0}
     assert counts()["ldpc_minsum"] == {"launches": 2 * 4 * 25, "plain": 0}
 
 

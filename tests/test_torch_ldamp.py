@@ -38,7 +38,9 @@ from score_based_channels_tpu.train.ldamp import (
     LDAMPTrainConfig as JTrainConfig, _device_batch, train_ldamp_snr as
     jax_train,
 )
+from score_based_channels_torch import cplx
 from score_based_channels_torch.config import Config, DataConfig, OptimConfig
+from score_based_channels_torch.data import ChannelDataset
 from score_based_channels_torch.eval.ldamp import run_ldamp_eval
 from score_based_channels_torch.models.cnn import SRCNN, DnCNN
 from score_based_channels_torch.models.convert import (
@@ -50,7 +52,8 @@ from score_based_channels_torch.models.unet import (
     FlippedNormUnet, NormUnet, TransposeConvBlock, Unet,
 )
 from score_based_channels_torch.train.ldamp import (
-    LDAMPTrainConfig, train_ldamp_snr,
+    LDAMPStepRunner, LDAMPTrainConfig, ldamp_batch, ldamp_inputs,
+    make_ldamp_model, make_ldamp_optimizer, train_ldamp_snr,
 )
 from score_based_channels_torch.train.score import Optimizer, staircase_decay
 
@@ -352,3 +355,104 @@ def test_ldamp_commands_run_with_tf32_off(tmp_path, monkeypatch):
     assert set(seen) == {(False, False)}
     assert torch.backends.cudnn.allow_tf32
     assert torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.fixture(scope="module")
+def file_sets(tmp_path_factory):
+    """Two data sets of 130 random channels read from a file in the
+    reference naming, at noise amplitude 0 and at 10 dB's."""
+    d = tmp_path_factory.mktemp("draws")
+    rng = np.random.default_rng(5)
+    h = (rng.standard_normal((130, 1, 16, 64))
+         + 1j * rng.standard_normal((130, 1, 16, 64))).astype(np.complex64)
+    np.savez(d / "CDL-C_Nt64_Nr16_ULA0.50_seed1234.npz", output_h=h)
+    return {noisy: ChannelDataset(1234, DataConfig(
+        num_channels=130, source="file", data_dir=str(d), num_pilots=38,
+        noise_std=float(10 ** -0.5 * 8) if noisy else 0.0), norm="global")
+        for noisy in (False, True)}
+
+
+def _host_assembled(ds, gen, B):
+    """LDAMP's batch as the host made it before the draws went to the
+    device: the data set's draws and the reference loader's arithmetic
+    (loaders.py:77-106), eigvalsh included."""
+    idx = torch.randperm(len(ds), generator=gen)[:B]
+    H = torch.from_numpy(ds.channels)[idx]
+    P = torch.view_as_complex(cplx.qpsk_pilots(gen, B, 64, ds.num_pilots))
+    Y = H @ P
+    if ds.noise_amp > 0:
+        Y = Y + ds.noise_amp * torch.view_as_complex(
+            torch.randn(Y.shape + (2,), generator=gen))
+    herm = lambda t: t.transpose(-1, -2).conj().resolve_conj()
+    return {"Y_herm": cplx.as_c2(herm(Y)), "P_herm": cplx.as_c2(herm(P)),
+            "H_herm_cplx": cplx.as_c2(herm(H)),
+            "eig1": torch.linalg.eigvalsh(P @ herm(P))[..., -1].float()}
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("B", [2, 3, 128])
+@pytest.mark.parametrize("seed", [0, 17, 2**31 + 9])
+def test_assembled_draws_equal_the_host_batch_bitwise(file_sets, noisy, B,
+                                                      seed):
+    """ldamp_inputs of ldamp_batch's draws on the CPU against the batch the
+    host made before from the same seed: every tensor bit for bit, and
+    the generator left in the same state."""
+    ds = file_sets[noisy]
+    gens = [torch.Generator().manual_seed(seed) for _ in range(2)]
+    draws = ldamp_batch(ds, gens[0], B, "cpu")
+    assert ("noise" in draws) == noisy
+    got = ldamp_inputs(draws)
+    want = _host_assembled(ds, gens[1], B)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
+def test_draws_leave_the_eigensolve_to_the_step(file_sets, monkeypatch):
+    """ldamp_batch makes only the draws: no eigvalsh on the host (patched
+    to raise), the raw rows, uint8 pilot bits, the noise and its
+    amplitude."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("eigvalsh on the host")
+
+    monkeypatch.setattr(torch.linalg, "eigvalsh", refuse)
+    ds = file_sets[True]
+    d = ldamp_batch(ds, torch.Generator().manual_seed(3), 128, "cpu")
+    assert {k: (tuple(v.shape), v.dtype) for k, v in d.items()} == {
+        "H": ((128, 16, 64, 2), torch.float32),
+        "pilot_bits": ((128, 64, 38, 2), torch.uint8),
+        "noise": ((128, 16, 38, 2), torch.float32),
+        "amp": ((), torch.float32)}
+    assert d["amp"].item() == np.float32(ds.noise_amp)
+    with pytest.raises(AssertionError, match="eigvalsh on the host"):
+        ldamp_inputs(d)
+
+
+def test_runner_on_draws_equals_the_runner_on_host_batches(file_sets):
+    """Two runners, one fed the draws (assembled in its step), one the
+    host-assembled batches of the same seeds: every (mse, nmse) row, the
+    parameters and the count bit for bit; only the first counts the
+    steps it assembled."""
+    ds = file_sets[True]
+    tc = LDAMPTrainConfig(max_unrolls=2, chans=4, num_pools=1,
+                          batch_size=2, decay_epochs=1)
+    runs = []
+    for form in (lambda s: ldamp_batch(ds, torch.Generator().manual_seed(
+            s), 2, "cpu"), lambda s: _host_assembled(
+            ds, torch.Generator().manual_seed(s), 2)):
+        model = make_ldamp_model(tc, "cpu")
+        opt = make_ldamp_optimizer(model, tc, 2)
+        runner = LDAMPStepRunner(model, opt, torch.Generator(), 2, 4)
+        rows = torch.cat([runner.run((form(s) for s in steps),
+                                     [40 + s for s in steps]).clone()
+                          for steps in (range(2), range(2, 4))])
+        runs.append((model, opt, rows, runner.stats))
+    (ma, oa, ra, sa), (mb, ob, rb, sb) = runs
+    assert torch.equal(ra, rb) and torch.isfinite(ra).all()
+    for p, q in zip(ma.parameters(), mb.parameters()):
+        assert torch.equal(p, q)
+    assert oa.count == ob.count == 4
+    assert (sa["steps"], sa["assembled"]) == (4, 4)
+    assert (sb["steps"], sb["assembled"]) == (4, 0)

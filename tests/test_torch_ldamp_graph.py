@@ -36,8 +36,8 @@ from score_based_channels_torch.models.convert import (
     jax_variables_to_state_dict, state_dict_to_jax_params,
 )
 from score_based_channels_torch.train.ldamp import (
-    LDAMPStepRunner, LDAMPTrainConfig, ldamp_batch, ldamp_losses,
-    ldamp_train_step, make_ldamp_model, make_ldamp_optimizer,
+    LDAMPStepRunner, LDAMPTrainConfig, ldamp_batch, ldamp_inputs,
+    ldamp_losses, ldamp_train_step, make_ldamp_model, make_ldamp_optimizer,
     train_ldamp_snr,
 )
 from score_based_channels_torch.train.score import Optimizer, staircase_decay
@@ -181,7 +181,7 @@ def _eager_loop(tc, ds):
         batch = ldamp_batch(ds, torch.Generator().manual_seed(
             derive_seed(tc.seed, 1, step)), tc.batch_size, "cpu")
         gen.manual_seed(derive_seed(tc.seed, 2, step))
-        mse, nmse = ldamp_losses(model, batch, gen)
+        mse, nmse = ldamp_losses(model, ldamp_inputs(batch), gen)
         opt.zero_grad()
         mse.backward()
         _host_float_step(opt, step)
@@ -234,8 +234,9 @@ def test_runner_equals_the_eager_steps_bitwise(tiny):
                         opts[1].moments["mu"] + opts[1].moments["nu"]):
             assert torch.equal(p, q)
         assert opts[0].count == opts[1].count == int(opts[0].count_t) == 4
-        assert runner.stats == dict(steps=4, captures=0, replays=0,
-                                    capture_seconds=0.0, pool_bytes=0)
+        assert runner.stats == dict(steps=4, assembled=4, captures=0,
+                                    replays=0, capture_seconds=0.0,
+                                    pool_bytes=0)
 
 
 def test_runner_refuses_changed_shapes_and_a_grown_table(tiny):
