@@ -126,16 +126,22 @@ Phases (any failure propagates and the exit code is non-zero):
      config-chosen activation (relu, lrelu, swish) and norm (InstanceNorm,
      VarianceNorm, None) and the default, against the plain CPU forward on
      8 rows, with the launch counts of a forward and its device ms;
- 15. distributed: parallel/mp_smoke.run_smoke on NCCL at world size 1 (2
+ 15. wide: the wide conv2d_taps route and the two-pass instance_norm_plus
+     route at every conv and norm shape of NCSNv2-Deepest at its published
+     FFHQ widths (ngf 128, 256x256x3) at batch 8 in bf16, against their
+     plain versions, timed beside their bounds and cuDNN, and a short
+     `annealed_langevin_inpainting` run of that model (2 levels x 3 steps)
+     with its launch counts: every conv and norm on the new routes;
+ 16. distributed: parallel/mp_smoke.run_smoke on NCCL at world size 1 (2
      data-parallel DSM steps at batch 32 in f32, the checkpoint round trip,
      a sweep chunk on every 100th level from the restored EMA) against the
      same run with no process group, to 1e-6; `ScoreTrainer.train` on
      the group through the captured step (the all-reduce in the graph),
      bit for bit the run with no group;
- 16. trace: 2 bench forwards under torch.profiler, the exported chrome
+ 17. trace: 2 bench forwards under torch.profiler, the exported chrome
      trace read by utils/trace_analysis.summarize and held against the
      profiler's own device total (1%), its top 5 lines;
- 17. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
+ 18. the {"kernels": [...]} line, the card line, and the {"ok": ...} line.
 
 The train phase's gradient at the trained parameters is held norm-wise
 against float64 with the card's max-pool selections replayed
@@ -534,7 +540,7 @@ def link_phase(card):
               f"{res.bler_est[i]:.4f}")
     assert n["ldpc_minsum"] == {"launches": BP_ITERS * 2 * len(LINK_SNRS),
                                 "plain": 0}, n
-    assert all(v["launches"] == v["plain"] == 0 for k, v in n.items()
+    assert all(v["launches"] == v.get("plain", 0) == 0 for k, v in n.items()
                if k != "ldpc_minsum"), n
     i10 = int(np.argmin(np.abs(res.snr_range - 10.0)))
     assert res.ber_ideal[i10] <= 0.05, res.ber_ideal  # tests/test_comms.py:158
@@ -3009,6 +3015,160 @@ def deterministic_algorithms():
         torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
 
 
+WIDE_BATCH = 8  # the FFHQ cell's rows
+WIDE_LEVELS = 2  # levels of the short inpainting run (3 steps each)
+
+
+def wide_phase(g):
+    """Phase 15: the wide bf16 route of conv2d_taps and the two-pass route
+    of instance_norm_plus at every conv and norm shape of NCSNv2-Deepest
+    at its published FFHQ widths (ngf 128, 256x256x3: the shape table
+    perfbench/shapes/ncsnv2_deepest_ffhq256.json) at batch WIDE_BATCH in
+    bf16: each against its plain version on the card, timed (CUDA events,
+    median) beside its plain version, its bound and, for a conv, cuDNN's
+    F.conv2d; the sums over one forward. Then `annealed_langevin_inpainting`
+    on that model in bf16 (WIDE_LEVELS levels x 3 steps, WIDE_BATCH rows,
+    the left half known), through its captured step: every conv and norm
+    of every forward launched on the new routes, none plain. Returns the
+    rows, the per-forward sums and the run's counts."""
+    import dataclasses
+
+    from score_based_channels_torch import kernels
+    from score_based_channels_torch.config import ModelConfig
+    from score_based_channels_torch.diffusion import (
+        annealed_langevin_inpainting, get_sigmas)
+    from score_based_channels_torch.eval.estimate import score_fn_from_params
+    from score_based_channels_torch.kernels import conv, instance_norm
+    from score_based_channels_torch.models.ncsnv2 import NCSNv2Deepest
+
+    table = json.loads((ROOT / "perfbench" / "shapes" /
+                        "ncsnv2_deepest_ffhq256.json").read_text())
+    dt, B, rows = torch.bfloat16, WIDE_BATCH, []
+    for H, W, Cin, Cout, k, d, bias, per_fwd in table["convs"]:
+        T = len(conv.live_taps(k, d, H, W))
+        bound = 1.0 / np.sqrt(Cin * k * k)
+        x = torch.randn(B, Cin, H, W, generator=g).to(
+            "cuda", dt).contiguous(memory_format=torch.channels_last)
+        w = conv.kernel_layout(((torch.rand(Cout, Cin, k, k, generator=g)
+                                 * 2 - 1) * bound).to("cuda", dt))
+        b = (((torch.rand(Cout, generator=g) * 2 - 1) * bound).to("cuda", dt)
+             if bias else None)
+        got = conv.conv2d(x, w, b, d)
+        want = conv.conv2d_plain(x, w, b, d)
+        err = float((got.float() - want.float()).norm()
+                    / want.float().norm())
+        assert err < 8e-3 and torch.equal(got, conv.conv2d(x, w, b, d)), (
+            (H, W, Cin, Cout, k, d), err)
+        abs_err = float((got.float() - want.float()).abs().max())
+        pad = d * (k // 2)
+        nbytes = (x.numel() + T * Cin * Cout + B * H * W * Cout
+                  + (Cout if bias else 0)) * 2
+        flops = 2 * B * H * W * T * Cin * Cout
+        rows.append(dict(
+            kind="conv", shape=[H, W, Cin, Cout, k, d], bias=bool(bias),
+            per_forward=per_fwd, rel_err=err, max_abs_err=abs_err,
+            route=type(conv._launch_args(B, H, W, Cin, Cout, k, d,
+                                          True)[0]).__name__,
+            ms=cuda_ms(lambda: conv.conv2d(x, w, b, d)),
+            plain_ms=cuda_ms(lambda: conv.conv2d_plain(x, w, b, d)),
+            library_ms=cuda_ms(lambda: F.conv2d(x, w, b, padding=pad,
+                                                dilation=d)),
+            bytes_ms=nbytes / PEAK_BYTES * 1e3, ops_ms=flops / 989e9))
+        r = rows[-1]
+        print(f"wide conv {H}x{W} {Cin}->{Cout} k{k} d{d} x{per_fwd:<2d} "
+              f"{r['route']:8s} rel_err {err:.2e}  {r['ms']:.4f} ms  plain "
+              f"{r['plain_ms']:.4f}  cudnn {r['library_ms']:.4f}  bound {r['ops_ms']:.4f} (ops; bytes "
+              f"{r['bytes_ms']:.4f})", flush=True)
+    for H, W, C, per_fwd in table["norms"]:
+        x = (torch.randn(B, C, H, W, generator=g) * 2 + 0.5).to(
+            "cuda", dt).contiguous(memory_format=torch.channels_last)
+        a, gm, bt = ((torch.randn(C, generator=g) * 0.1 + 1).to("cuda", dt)
+                     for _ in range(3))
+        got = instance_norm.instance_norm_plus(x, a, gm, bt, True)
+        want = instance_norm.instance_norm_plus_plain(x, a, gm, bt, True)
+        err = float((got.float() - want.float()).norm()
+                    / want.float().norm())
+        assert err < 8e-3 and torch.equal(
+            got, instance_norm.instance_norm_plus(x, a, gm, bt, True)), (
+                (H, W, C), err)
+        nbytes = (2 * B * H * W * C + 3 * C) * 2
+        rows.append(dict(
+            kind="norm", shape=[H, W, C], per_forward=per_fwd, rel_err=err,
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            route=type(instance_norm.launch_plan(B, H, W, C, dt)).__name__,
+            ms=cuda_ms(lambda: instance_norm.instance_norm_plus(
+                x, a, gm, bt, True)),
+            device_ms=profiled_ms(lambda: instance_norm.instance_norm_plus(
+                x, a, gm, bt, True), "instance_norm_plus"),
+            plain_ms=cuda_ms(lambda: instance_norm.instance_norm_plus_plain(
+                x, a, gm, bt, True)),
+            bytes_ms=nbytes / PEAK_BYTES * 1e3))
+        r = rows[-1]
+        print(f"wide norm {H}x{W}x{C} x{per_fwd} {r['route']} rel_err "
+              f"{err:.2e}  {r['ms']:.4f} ms (device {r['device_ms']:.4f})  "
+              f"plain {r['plain_ms']:.4f}  bound {r['bytes_ms']:.4f} (bytes)",
+              flush=True)
+    sums = {}
+    for kind in ("conv", "norm"):
+        sel = [r for r in rows if r["kind"] == kind]
+        tot = lambda k: sum(r[k] * r["per_forward"] for r in sel)
+        ops = sum(r.get("ops_ms", 0.0) * r["per_forward"] for r in sel)
+        sums[kind] = dict(
+            ms=tot("ms"), plain_ms=tot("plain_ms"),
+            library_ms=tot("library_ms") if kind == "conv" else None,
+            bound_ms=sum(max(r["bytes_ms"], r.get("ops_ms", 0.0))
+                         * r["per_forward"] for r in sel),
+            bound_by="bytes" if tot("bytes_ms") >= ops else "operations",
+            max_abs_err=max(r["max_abs_err"] for r in sel),
+            routes=sorted({r["route"] for r in sel}))
+        f = sums[kind]
+        print(f"# wide {kind}s of one forward at batch {B}: {f['ms']:.3f} ms,"
+              f" bound {f['bound_ms']:.3f} ms "
+              f"({100 * f['bound_ms'] / f['ms']:.1f}%), plain "
+              f"{f['plain_ms']:.3f} ms"
+              + (f", cuDNN {f['library_ms']:.3f} ms" if kind == "conv"
+                 else ""), flush=True)
+    assert sums["conv"]["routes"] == ["WidePlan"], sums["conv"]["routes"]
+    assert sums["norm"]["routes"] == ["TwoPassPlan"], sums["norm"]["routes"]
+
+    # the model itself, through the inpainting sampler's captured step
+    n_conv = sum(r[-1] for r in table["convs"])
+    n_norm = sum(r[-1] for r in table["norms"])
+    model = NCSNv2Deepest(dataclasses.replace(ModelConfig(), ngf=128), 3)
+    model.init_parameters(g)
+    model = model.cuda()
+    score = score_fn_from_params(model, dt)
+    sig = get_sigmas(348.0, 0.01, 2311)[::32][:WIDE_LEVELS].float()  # ffhq.yml
+    refer = torch.rand(B, 256, 256, 3, generator=g).cuda()
+    mask = torch.zeros(1, 1, 256, 1, device="cuda")
+    mask[:, :, :128] = 1.0  # the left half known, as in the FFHQ cell
+    x0 = torch.rand(B, 256, 256, 3, generator=g).cuda()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    y = annealed_langevin_inpainting(
+        score, x0, refer, mask, sig, n_steps_each=3, step_lr=9e-7 * 32,
+        generator=torch.Generator(device="cuda").manual_seed(5))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = kernels.counts()
+    nfe = WIDE_LEVELS * 3
+    assert torch.isfinite(y).all() and y.shape == x0.shape
+    want = {"conv2d_taps": {"launches": n_conv * nfe, "plain": 0},
+            "conv2d_taps.wide": {"launches": n_conv * nfe},
+            "instance_norm_plus": {"launches": n_norm * nfe, "plain": 0},
+            "instance_norm_plus.two_pass": {"launches": n_norm * nfe}}
+    assert {k: n[k] for k in want} == want, n
+    print(f"# wide inpainting: NCSNv2-Deepest ngf 128, {B} rows of "
+          f"256x256x3, {WIDE_LEVELS} levels x 3 steps in {secs:.2f} s "
+          f"(capture included); launches {({k: n[k] for k in want})}",
+          flush=True)
+    del model, score
+    return dict(rows=rows, sums=sums,
+                inpaint=dict(seconds=secs, forwards=nfe,
+                             counts={k: n[k] for k in want}))
+
+
 def distributed_phase():
     """parallel/mp_smoke.run_smoke on NCCL at world size 1 (tcp on
     127.0.0.1): DIST_STEPS data-parallel DSM steps of the full-width
@@ -3524,6 +3684,7 @@ def main():
                       ("wgan", lambda: wgan_phase(card)),
                       ("native_cdl", native_phase),
                       ("variants", lambda: variants_phase(g)),
+                      ("wide", lambda: wide_phase(g)),
                       ("distributed", distributed_phase),
                       ("trace", lambda: trace_phase(model))):
         t0 = time.perf_counter()
@@ -3543,6 +3704,20 @@ def main():
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=pf["ms"], plain_ms=pf["plain_ms"], bound_ms=pf["bound_ms"],
             bound_by=pf["bound_by"], library_ms=pf["library_ms"]))
+    # the wide routes: summed over one FFHQ forward at batch 8 (phase 15)
+    for name, kind, src in (
+            ("conv2d_taps.wide", "conv",
+             "score_based_channels_torch/csrc/conv2d_taps_wide.cu"),
+            ("instance_norm_plus.two_pass", "norm",
+             "score_based_channels_torch/csrc/instance_norm_wide.cu")):
+        f = later["wide"]["sums"][kind]
+        kernel_json.append(dict(
+            name=name, route="cuda", source=src,
+            replaces=SOURCES[name.split(".")[0]][1],
+            launches=later["wide"]["inpaint"]["counts"][name]["launches"],
+            max_abs_err=f["max_abs_err"], ms=f["ms"],
+            plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+            bound_by=f["bound_by"], library_ms=f["library_ms"]))
     big = ldpc_rows[-1]  # the link path's 256 packets
     kernel_json.append(dict(
         name="ldpc_minsum", route="cuda", source=SOURCES["ldpc_minsum"][0],

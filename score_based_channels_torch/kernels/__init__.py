@@ -6,20 +6,33 @@ KERNEL_MODULES = {"conv2d_taps": conv, "instance_norm_plus": instance_norm,
                   "ldpc_minsum": ldpc_minsum, "conv_im2col": conv_im2col,
                   "conv_chain": conv_chain, "pilot_eigmax": eigmax}
 GRAD_MODULES = {"conv2d_taps": conv, "instance_norm_plus": instance_norm}
+# launches of a kernel's second route, counted among the kernel's own
+ROUTE_COUNTS = {"conv2d_taps.wide": conv.WIDE_COUNTS,
+                "instance_norm_plus.two_pass": instance_norm.TWO_PASS_COUNTS}
 
 
 def reset_counts() -> None:
     """Set every kernel's launch count and plain-call count, and the
     gradient counts of the conv and norm, to 0."""
     for d in [m.COUNTS for m in KERNEL_MODULES.values()] + [
-            m.GRAD_COUNTS for m in GRAD_MODULES.values()]:
+            m.GRAD_COUNTS for m in GRAD_MODULES.values()] + list(
+                ROUTE_COUNTS.values()):
         for k in d:
             d[k] = 0
 
 
+def _launch_counts(name: str) -> dict:
+    return (ROUTE_COUNTS[name] if name in ROUTE_COUNTS
+            else KERNEL_MODULES[name].COUNTS)
+
+
 def counts() -> dict:
-    """{kernel name: {"launches": n, "plain": n}} since the last reset."""
-    return {name: dict(mod.COUNTS) for name, mod in KERNEL_MODULES.items()}
+    """{kernel name: {"launches": n, "plain": n}} since the last reset, and
+    {route name: {"launches": n}} of each kernel's second route (those
+    launches are counted under the kernel's name too)."""
+    out = {name: dict(mod.COUNTS) for name, mod in KERNEL_MODULES.items()}
+    out.update({name: dict(c) for name, c in ROUTE_COUNTS.items()})
+    return out
 
 
 def add_launches(launches: dict, times: int = 1) -> None:
@@ -29,7 +42,7 @@ def add_launches(launches: dict, times: int = 1) -> None:
     -1 takes back what the wrappers counted while the capture recorded:
     a capture launches nothing)."""
     for name, n in launches.items():
-        KERNEL_MODULES[name].COUNTS["launches"] += times * n
+        _launch_counts(name)["launches"] += times * n
 
 
 def grad_counts() -> dict:

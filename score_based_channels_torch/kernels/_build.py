@@ -41,6 +41,9 @@ _SIGNATURES = {
     "sbc_conv2d_taps_wgmma": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                               _IP, _IP, _IP, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _P],
+    "sbc_conv2d_taps_wide": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _IP, _IP, _IP, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _P],
     "sbc_conv_im2col": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L,
                         _L, _L, _I, _IP, _IP, _IP, _I, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -50,6 +53,8 @@ _SIGNATURES = {
     "sbc_conv_chain_max_clusters": [_I, _I, _I, _IP],
     "sbc_instance_norm_plus": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _P],
+    "sbc_instance_norm_plus_two_pass": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                        _I, _I, _I, _I, _I, _P],
     "sbc_ldpc_minsum": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                         _I, _P],
     "sbc_conv_last_launch": [_IP],

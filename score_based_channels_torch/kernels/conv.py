@@ -41,9 +41,19 @@ is how models/layers.py Conv2d stores its parameter. It reads the live
 taps' matrices only, so no packed copy of the weight is kept that could go
 stale when the parameter changes.
 
+Wide route (bf16 only): a layer with more than 128 input or output
+channels, or an image wider than 128 pixels (NCSNv2-Deepest at its
+published FFHQ widths), goes to csrc/conv2d_taps_wide.cu, tile plan
+`wide_plan`: the same wgmma on a halo tile, the weight slices streamed
+through a ring instead of kept resident, a wide row cut into segments of
+at most 128 pixels, up to 512 channels. Every other shape keeps the route
+and plan above. The f32 route and the input gradient keep their cap of
+128 channels and raise beyond it.
+
 `conv2d` dispatches on the tensor's device: a CPU tensor goes to
 `conv2d_plain`; a CUDA tensor launches the kernel or raises. Both count
-their calls in COUNTS.
+their calls in COUNTS; WIDE_COUNTS counts the launches of the wide route
+among them.
 
 Gradients (training): on a CUDA tensor with grad enabled and an input that
 requires grad, `conv2d` launches through `_Conv2dFunction`, whose backward
@@ -67,6 +77,7 @@ import torch
 import torch.nn.functional as F
 
 COUNTS = {"launches": 0, "plain": 0}
+WIDE_COUNTS = {"launches": 0}
 GRAD_COUNTS = {"functions": 0, "dgrad": 0}
 
 MAX_CHANNELS = 128
@@ -90,6 +101,13 @@ MAX_WG = 2
 WGMMA_N = (8, 16, 32, 64, 128)  # the N of the kernels' wgmma instances
 MIN_BLOCKS = 128           # output channels are split down to 32 until
                            # there are this many (tile, channel tile) jobs
+
+# wide bf16 route: must match csrc/conv2d_taps_wide.cu
+WIDE_MAX_CHANNELS = 512
+WIDE_MAX_WIDTH = 256
+WIDE_SEGMENT = 128         # most columns of a tile (a TMA box is <= 256)
+WIDE_WG = (4, 2)           # consumer warpgroups of a tile, preferred first
+WIDE_MAX_STAGES = 8        # weight stages of the ring, at most
 
 def live_taps(k: int, dilation: int, H: int, W: int) -> List[Tuple[int, int, int, int]]:
     """(iy, ix, dy, dx) of the taps that can touch real data, row-major.
@@ -220,8 +238,10 @@ def plan(B: int, H: int, W: int, Cin: int, Cout: int, dy, dx) -> Plan:
     from timing every configuration at every f32 shape of the score model
     at batch 256 and 32 (`kernels.conv_f32_bench --sweep`)."""
     if not (1 <= Cin <= MAX_CHANNELS and 1 <= Cout <= MAX_CHANNELS):
-        raise ValueError(f"conv2d_taps takes 1..{MAX_CHANNELS} channels, got "
-                         f"Cin={Cin} Cout={Cout}")
+        raise ValueError(f"conv2d_taps: the float32 route takes "
+                         f"1..{MAX_CHANNELS} channels (only bf16 takes up "
+                         f"to {WIDE_MAX_CHANNELS}), got Cin={Cin} "
+                         f"Cout={Cout}")
     if not 1 <= len(dy) <= F32_MAX_TAPS:
         raise ValueError(f"conv2d_taps takes 1..9 live taps, got {len(dy)}")
     if B * H * W * max(Cin, Cout) >= 2 ** 31:
@@ -358,16 +378,124 @@ def wgmma_plan(B: int, H: int, W: int, Cin: int, Cout: int, dy,
                      (*tiles, -(-Cout // BN)))
 
 
+class WidePlan(NamedTuple):
+    SB: int        # samples per tile
+    TH: int        # output rows per tile
+    WS: int        # output columns per tile: W, or a segment of a wide row
+    py: int        # halo rows
+    px: int        # halo columns
+    BN: int        # output channels per block (a wgmma N)
+    KS: int        # 16-deep k-steps per input-channel chunk (1, 2 or 4)
+    nwg: int       # consumer warpgroups: a tile of 64 nwg pixels
+    stages: int    # weight stages of the ring
+    nchunks: int   # input-channel chunks of 16 * KS
+    threads: int   # the consumer warpgroups + one producer warp
+    smem: int      # dynamic shared bytes
+    tiles: Tuple[int, int, int]  # (row tiles x segments, sample groups,
+                                 #  channel tiles)
+
+
+def takes_wide(W: int, Cin: int, Cout: int) -> bool:
+    """Whether a bf16 launch must go to the wide route: more than
+    MAX_CHANNELS channels, or a row wider than the resident route's
+    tile."""
+    return max(Cin, Cout) > MAX_CHANNELS or W > MAX_WG * WG_ROWS
+
+
+def resident_is_cut(p: WgmmaPlan, Cout: int) -> bool:
+    """Whether the resident plan's BN is below the one the card's
+    parallelism asks for (`split_n` without its shared-memory limit):
+    its resident weight slices did not fit. Such a layer (128 -> 128
+    channels at 128x128 takes BN 32) goes to the wide route, which
+    streams the slices at the full BN; no layer of today's 64x16 tables
+    is cut."""
+    BN = next(n for n in WGMMA_N if n >= min(Cout, WGMMA_N[-1]))
+    while BN > 32 and p.tiles[0] * p.tiles[1] * -(-Cout // BN) < MIN_BLOCKS:
+        BN //= 2
+    return p.BN < BN
+
+
+def wide_smem(SB: int, TR: int, TW: int, KS: int, BN: int,
+              stages: int) -> int:
+    """Dynamic shared bytes of the wide kernel (csrc WideLayout): two halo
+    buffers of 1 KB multiples, the weight stages, the barriers, 1 KB of
+    alignment."""
+    hb = -(-(SB * TR * TW * 32 * KS) // 1024) * 1024
+    return 2 * hb + stages * 32 * KS * BN + (4 + 2 * stages) * 8 + 1024
+
+
+def wide_tile(B: int, H: int, W: int, BM: int) -> Tuple[int, int, int]:
+    """(SB, TH, WS) of the wide route's output tiles of BM pixels: SB whole
+    images or TH whole rows where a row holds at most WIDE_SEGMENT pixels,
+    else TH rows of equal segments of at most WIDE_SEGMENT columns."""
+    if W <= WIDE_SEGMENT:
+        return (*tile_rows(B, H, W, BM), W)
+    nseg = -(-W // WIDE_SEGMENT)
+    if W % nseg:
+        raise ValueError(f"conv2d_taps: a {W}-pixel row does not cut into "
+                         f"{nseg} equal segments")
+    return 1, max(1, BM * nseg // W), W // nseg
+
+
+def wide_plan(B: int, H: int, W: int, Cin: int, Cout: int, dy, dx,
+              nwg: Optional[int] = None, KS: Optional[int] = None,
+              stages: Optional[int] = None) -> WidePlan:
+    """Tile plan of one launch of the wide bf16 route; raises on a shape
+    it does not take. BN is the smallest wgmma N that holds Cout, at most
+    128 (more channels take more channel tiles); chunks of 16, 32 or 64
+    input channels as `k_steps` says. Without the choices: four
+    warpgroups (256-pixel tiles, so a weight stage feeds twice the
+    pixels) where the ring then holds 4 stages or more and the grid still
+    has MIN_BLOCKS blocks, else two; the ring holds as many stages as
+    fit, up to WIDE_MAX_STAGES. (At the FFHQ model's shapes, batch 8,
+    four warpgroups ran 1.25-1.44x faster than two wherever the grid kept
+    128 blocks, and 1.27x slower at 64; 3 to 8 stages ran within 1%.)"""
+    if not (1 <= Cin <= WIDE_MAX_CHANNELS and 1 <= Cout <= WIDE_MAX_CHANNELS):
+        raise ValueError(f"conv2d_taps takes 1..{WIDE_MAX_CHANNELS} channels "
+                         f"in bf16, got Cin={Cin} Cout={Cout}")
+    if W > WIDE_MAX_WIDTH:
+        raise ValueError(f"conv2d_taps: image width {W} is wider than "
+                         f"{WIDE_MAX_WIDTH} pixels")
+    if not 1 <= len(dy) <= 9:
+        raise ValueError(f"conv2d_taps takes 1..9 live taps, got {len(dy)}")
+    py, px = max(abs(v) for v in dy), max(abs(v) for v in dx)
+    BN = next(n for n in WGMMA_N if n >= min(Cout, WGMMA_N[-1]))
+    for g in (WIDE_WG if nwg is None else (nwg,)):
+        SB, TH, WS = wide_tile(B, H, W, g * WG_ROWS)
+        TR, TW = TH + 2 * py, WS + 2 * px
+        if TR > 256 or TW > 256:
+            raise ValueError("conv2d_taps: the halo tile exceeds a TMA box")
+        ks = KS or k_steps(Cin)
+        fits = [n for n in range(WIDE_MAX_STAGES, 1, -1)
+                if wide_smem(SB, TR, TW, ks, BN, n) <= MAX_SMEM_OPTIN]
+        n = stages or (fits[0] if fits else 0)
+        tiles = (-(-H // TH) * (W // WS), -(-B // SB), -(-Cout // BN))
+        full = n >= 4 and tiles[0] * tiles[1] * tiles[2] >= MIN_BLOCKS
+        if n in fits and (full or nwg is not None or g == WIDE_WG[-1]):
+            return WidePlan(SB, TH, WS, py, px, BN, ks, g, n,
+                            -(-Cin // (16 * ks)), g * 128 + 32,
+                            wide_smem(SB, TR, TW, ks, BN, n), tiles)
+    raise ValueError("conv: tile does not fit in shared memory")
+
+
 @functools.lru_cache(maxsize=None)
 def _launch_args(B: int, H: int, W: int, Cin: int, Cout: int, k: int,
                  dilation: int, bf16: bool = False) -> tuple:
-    """Plan (`wgmma_plan` for bf16, else `plan`) and ctypes tap arrays of
-    one launch shape, made once."""
+    """Plan (for bf16 `wgmma_plan`, or `wide_plan` where `takes_wide` or
+    the resident plan `resident_is_cut`; for f32 `plan`) and ctypes tap
+    arrays of one launch shape, made once."""
     taps = live_taps(k, dilation, H, W)
     dy, dx = [t[2] for t in taps], [t[3] for t in taps]
     T = len(taps)
     arr = ctypes.c_int * T
-    p = (wgmma_plan if bf16 else plan)(B, H, W, Cin, Cout, dy, dx)
+    if not bf16:
+        p = plan(B, H, W, Cin, Cout, dy, dx)
+    elif takes_wide(W, Cin, Cout):
+        p = wide_plan(B, H, W, Cin, Cout, dy, dx)
+    else:
+        p = wgmma_plan(B, H, W, Cin, Cout, dy, dx)
+        if resident_is_cut(p, Cout):
+            p = wide_plan(B, H, W, Cin, Cout, dy, dx)
     return (p, T, arr(*dy), arr(*dx),
             arr(*[iy * k + ix for iy, ix, _, _ in taps]))
 
@@ -454,6 +582,10 @@ def conv2d_backward(x: torch.Tensor, weight: torch.Tensor, has_bias: bool,
         grad = grad * torch.where(out > 0, 1.0, out + 1.0).to(grad.dtype)
     dx = dw = db = None
     if needs[0]:
+        if max(weight.shape[:2]) > MAX_CHANNELS:
+            raise ValueError(f"conv2d_taps: the input gradient takes "
+                             f"1..{MAX_CHANNELS} channels, got "
+                             f"{tuple(weight.shape[:2])}")
         GRAD_COUNTS["dgrad"] += 1
         dx = conv2d(grad.contiguous(memory_format=torch.channels_last),
                     transposed_weight(weight), None, dilation)
@@ -534,7 +666,15 @@ def _launch(x: torch.Tensor, weight: torch.Tensor,
     lib = _build.library()
     b_ptr = bias.data_ptr() if bias is not None else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if bf16:
+    if isinstance(p, WidePlan):
+        rc = lib.sbc_conv2d_taps_wide(
+            x.data_ptr(), weight.data_ptr(), b_ptr,
+            int(bias is not None and bias.dtype == torch.bfloat16),
+            out.data_ptr(), B, H, W, Cin, Cout, k, T, dy, dx, wi, p.SB, p.TH,
+            p.WS, p.py, p.px, p.BN, p.KS, p.nwg, p.stages, p.smem, int(elu),
+            stream)
+        WIDE_COUNTS["launches"] += 1
+    elif bf16:
         rc = lib.sbc_conv2d_taps_wgmma(
             x.data_ptr(), weight.data_ptr(), b_ptr,
             int(bias is not None and bias.dtype == torch.bfloat16),

@@ -16,9 +16,19 @@ output byte once: a large sample comes into shared memory by up to four
 registers and 16-byte stores. `plan` sizes the launch (threads, cluster,
 shared bytes, copy form). Design notes are in the source.
 
+Two-pass route (csrc/instance_norm_wide.cu, `two_pass_plan`): a sample of
+more than 128 channels (up to 512, a multiple of 8), or one larger than
+8 blocks' shared memory (NCSNv2-Deepest at its published FFHQ widths:
+256x256x128 bf16 is 16.8 MB), is spread over many blocks: per-tile f32
+partial statistics, combined in a fixed order into each channel's scale
+and shift, then one fused normalise (+ ELU) pass. `launch_plan` picks it
+where `plan`'s one-pass kernel cannot take the sample; every shape `plan`
+takes keeps that plan.
+
 `instance_norm_plus` dispatches on the tensor's device: a CPU tensor goes
 to `instance_norm_plus_plain`; a CUDA tensor launches the kernel or raises.
-Both count their calls in COUNTS.
+Both count their calls in COUNTS; TWO_PASS_COUNTS counts the launches of
+the two-pass route among them.
 
 Gradients (training): on a CUDA tensor with grad enabled and an input that
 requires grad, the launch goes through `_NormFunction`, whose backward is
@@ -37,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 COUNTS = {"launches": 0, "plain": 0}
+TWO_PASS_COUNTS = {"launches": 0}
 GRAD_COUNTS = {"functions": 0, "backward": 0}
 
 # must match csrc/instance_norm_plus.cu
@@ -51,6 +62,11 @@ MAX_SMEM = 232_448     # an H100 block's shared memory
 VEC_PER_THREAD = 8     # the pixel vectors a thread aims to hold
 CHUNK_BYTES = 16384    # a bulk copy's size, up to MAX_CHUNKS a block
 COPIES = ("element", "bulk", "vector")  # the kernel's copy codes 0, 1, 2
+
+# two-pass route: must match csrc/instance_norm_wide.cu
+WIDE_MAX_CHANNELS = 512
+STATS_THREADS = 256    # most threads of a statistics block
+STATS_VECS = 8         # pixel vectors a statistics thread holds
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,9 +133,22 @@ def plan(B: int, H: int, W: int, C: int, dtype: torch.dtype) -> Plan:
     if not 2 <= C <= MAX_CHANNELS:
         raise ValueError(f"instance_norm_plus takes 2..{MAX_CHANNELS} "
                          f"channels, got {C}")
+    _check_dtype(dtype)
+    p = _one_pass(B, H, W, C, dtype)
+    if p is None:
+        raise ValueError(f"instance_norm_plus: a {H}x{W}x{C} {dtype} sample "
+                         f"does not fit {MAX_CLUSTER} blocks' shared memory")
+    return p
+
+
+def _check_dtype(dtype: torch.dtype) -> None:
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"instance_norm_plus takes float32 or bfloat16, got "
                         f"{dtype}")
+
+
+def _one_pass(B: int, H: int, W: int, C: int, dtype: torch.dtype):
+    """`plan`'s search, or None where no cluster's blocks fit."""
     HW, es = H * W, (2 if dtype == torch.bfloat16 else 4)
     vec = 8 if C % 8 == 0 else 1
     whole16 = HW * C * es % 16 == 0
@@ -142,8 +171,52 @@ def plan(B: int, H: int, W: int, C: int, dtype: torch.dtype) -> Plan:
         smem = smem_bytes(ts, hwc, C, vec, es)
         if smem <= MAX_SMEM:
             return Plan(ts, cs, hwc, vec, form, nch, smem, B * cs)
-    raise ValueError(f"instance_norm_plus: a {H}x{W}x{C} {dtype} sample does "
-                     f"not fit {MAX_CLUSTER} blocks' shared memory")
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoPassPlan:
+    """One launch of the two-pass route: statistics blocks of `rows` pixel
+    rows x C / 8 threads, each thread STATS_VECS pixels of 8 channels, so
+    `tile_pixels` a block and `tiles` blocks a sample; the workspace holds
+    `part_floats` tile partials (B, tiles, 2, C) and `stat_floats`
+    per-channel statistics (B, 3, C)."""
+
+    rows: int
+    threads: int
+    tile_pixels: int
+    tiles: int
+    part_floats: int
+    stat_floats: int
+
+
+@functools.lru_cache(maxsize=None)
+def two_pass_plan(B: int, H: int, W: int, C: int,
+                  dtype: torch.dtype) -> TwoPassPlan:
+    """The two-pass route's launch of one (B, C, H, W) norm; raises on a
+    shape it does not take (C a multiple of 8, at most WIDE_MAX_CHANNELS)."""
+    if not 8 <= C <= WIDE_MAX_CHANNELS or C % 8:
+        raise ValueError(f"instance_norm_plus: the two-pass route takes "
+                         f"8..{WIDE_MAX_CHANNELS} channels, a multiple of 8, "
+                         f"got {C}")
+    _check_dtype(dtype)
+    rows = STATS_THREADS // (C // 8)
+    tp = rows * STATS_VECS
+    tiles = -(-H * W // tp)
+    return TwoPassPlan(rows, rows * C // 8, tp, tiles, B * tiles * 2 * C,
+                       B * 3 * C)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(B: int, H: int, W: int, C: int, dtype: torch.dtype):
+    """The launch of one norm: `plan` where its one-pass kernel takes the
+    sample, else `two_pass_plan`."""
+    _check_dtype(dtype)
+    if 2 <= C <= MAX_CHANNELS:
+        p = _one_pass(B, H, W, C, dtype)
+        if p is not None:
+            return p
+    return two_pass_plan(B, H, W, C, dtype)
 
 
 def instance_norm_plus_plain(x: torch.Tensor, alpha: torch.Tensor,
@@ -173,9 +246,9 @@ def _check_cuda(x: torch.Tensor, *params: torch.Tensor) -> None:
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"instance_norm_plus takes float32 or bfloat16, got "
                         f"{x.dtype}")
-    if x.dim() != 4 or not 2 <= x.shape[1] <= MAX_CHANNELS:
-        raise ValueError(f"instance_norm_plus takes (B, 2..{MAX_CHANNELS}, H, "
-                         f"W), got {tuple(x.shape)}")
+    if x.dim() != 4 or not 2 <= x.shape[1] <= WIDE_MAX_CHANNELS:
+        raise ValueError(f"instance_norm_plus takes (B, 2..{WIDE_MAX_CHANNELS}"
+                         f", H, W), got {tuple(x.shape)}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("instance_norm_plus takes channels-last contiguous x")
     C = x.shape[1]
@@ -193,12 +266,25 @@ def _launch(x: torch.Tensor, alpha: torch.Tensor, gamma: torch.Tensor,
 
     B, C, H, W = x.shape
     out = torch.empty_like(x, memory_format=torch.channels_last)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if isinstance(p, TwoPassPlan):
+        ws = torch.empty(p.part_floats + p.stat_floats, dtype=torch.float32,
+                         device=x.device)
+        rc = _build.library().sbc_instance_norm_plus_two_pass(
+            x.data_ptr(), alpha.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            ws[p.part_floats:].data_ptr(), B, H * W, C, int(elu),
+            int(x.dtype == torch.bfloat16), p.rows, p.tiles, stream)
+        _build.check("instance_norm_plus", rc)
+        COUNTS["launches"] += 1
+        TWO_PASS_COUNTS["launches"] += 1
+        return out
     rc = _build.library().sbc_instance_norm_plus(
         x.data_ptr(), alpha.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         out.data_ptr(), B, H * W, C, int(elu),
         int(x.dtype == torch.bfloat16), p.threads, p.cluster,
         p.pixels_per_block, p.vec, COPIES.index(p.copy), p.chunks, p.smem,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        stream)
     _build.check("instance_norm_plus", rc)
     COUNTS["launches"] += 1
     return out
@@ -284,7 +370,7 @@ def instance_norm_plus(x: torch.Tensor, alpha: torch.Tensor,
         raise RuntimeError(f"instance_norm_plus: no kernel for {x.device}")
     _check_cuda(x, alpha, gamma, beta)
     B, C, H, W = x.shape
-    p = plan(B, H, W, C, x.dtype)
+    p = launch_plan(B, H, W, C, x.dtype)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, alpha, gamma, beta)):
         GRAD_COUNTS["functions"] += 1
