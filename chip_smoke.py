@@ -17,11 +17,15 @@ Phases (any failure propagates and the exit code is non-zero):
      min-sum iteration against its plain version, bit for bit over 25
      iterations at 1, 5, 100 and 256 packets of the 802.11n (648, 324)
      code, timed at 100 and 256 (events and device time) beside a
-     Tensor.zero_ of its output;
+     Tensor.zero_ of its output; the 5x5 max-pool kernel at every pool
+     shape of NCSNv2-Deepest at ngf 32 (batch 256, bf16 and f32) and ngf
+     128 (batch 8, bf16) against F.max_pool2d (torch.equal), its device
+     time per forward beside F.max_pool2d's and the bytes bound;
   4. estimate path: the full-width 5,890,082-parameter network from a
      seed; its kernel forward against the plain forward; `run_estimation`
      (the `estimate` entry point) on a small file dataset written here,
-     with the launch counts of that run, saving its channel estimates;
+     with the launch counts of that run (12 max-pool launches a forward,
+     no plain or autograd pool), saving its channel estimates;
      the `link` command on that file; the bench.py workload (batch 256, 38
      pilots, 10 dB, alpha 3e-11, beta 0.01, bf16 network, f32 state) on a
      truncated schedule, timed in BENCH_RUNS runs; every path that samples
@@ -131,7 +135,8 @@ Phases (any failure propagates and the exit code is non-zero):
      FFHQ widths (ngf 128, 256x256x3) at batch 8 in bf16, against their
      plain versions, timed beside their bounds and cuDNN, and a short
      `annealed_langevin_inpainting` run of that model (2 levels x 3 steps)
-     with its launch counts: every conv and norm on the new routes;
+     with its launch counts: every conv and norm on the new routes, every
+     max pool on its kernel;
  16. distributed: parallel/mp_smoke.run_smoke on NCCL at world size 1 (2
      data-parallel DSM steps at batch 32 in f32, the checkpoint round trip,
      a sweep chunk on every 100th level from the restored EMA) against the
@@ -189,6 +194,9 @@ SOURCES = {
                    "score_based_channels_tpu/kernels/conv_probe.py:178"),
     # replaces no Pallas kernel: eig1 was eigvalsh on the host's batch
     "pilot_eigmax": ("score_based_channels_torch/csrc/pilot_eigmax.cu", None),
+    # replaces no Pallas kernel: the JAX package pools with XLA's
+    # reduce_window
+    "max_pool_5x5": ("score_based_channels_torch/csrc/max_pool5.cu", None),
 }
 ROUTE = {torch.bfloat16: "wgmma", torch.float32: "fma"}  # the convs' routes
 BENCH_RUNS = 5  # timed runs of the bench workload (one level schedule each)
@@ -466,6 +474,35 @@ def check_ldpc(g):
                  f"{max(row['bytes_ms'], row['ops_ms']):.4f} ms per "
                  "iteration" if "ms" in row else ""), flush=True)
     return rows
+
+
+def check_pools():
+    """The max-pool kernel against F.max_pool2d (torch.equal) at every
+    pool shape of one forward of NCSNv2-Deepest at ngf 32 (batch 256, bf16
+    and f32) and ngf 128 (batch 8, bf16), and the device time of the
+    forward's 12 pools (kernels/max_pool.py::per_forward: launches captured
+    in a CUDA graph) beside F.max_pool2d's and the bytes bound."""
+    from score_based_channels_torch.kernels import max_pool
+
+    out = {}
+    for model, B, dt in (("ngf32", BATCH, torch.bfloat16),
+                         ("ngf32", BATCH, torch.float32),
+                         ("ngf128", WIDE_BATCH, torch.bfloat16)):
+        f = max_pool.per_forward(model, B, dt)
+        for r in f["rows"]:
+            H, W, C = r["shape"]
+            print(f"pool {H}x{W}x{C} {f['dtype']:8s} B={B} "
+                  f"x{r['per_forward']}: equal {r['equal']}  "
+                  f"{r['kernel_ms']:.4f} ms  F.max_pool2d "
+                  f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} (bytes)",
+                  flush=True)
+        print(f"# max pools of one {model} {f['dtype']} forward at batch {B}: "
+              f"{f['kernel_ms']:.4f} ms, F.max_pool2d {f['library_ms']:.4f} "
+              f"ms, bound {f['bound_ms']:.4f} ms "
+              f"({100 * f['bound_ms'] / f['kernel_ms']:.1f}%)", flush=True)
+        assert f["equal"], f
+        out[f"{model}.{f['dtype']}"] = f
+    return out
 
 
 def device_ms_by_name(prof):
@@ -894,6 +931,8 @@ def fused_forward_phase(model, g):
         module_ms = cuda_ms(lambda: m16(x, sig), reps=5)
     assert n["conv2d_taps"] == {"launches": 113, "plain": 0}, n
     assert n["instance_norm_plus"] == {"launches": 25, "plain": 0}, n
+    assert n["max_pool_5x5"] == {"launches": 12, "plain": 0,
+                                 "autograd": 0}, n
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     equal = torch.equal(got, want)
     print(f"# fused_forward, batch {BATCH} bf16: launches {n}; equal to the "
@@ -1231,6 +1270,11 @@ def train_phase(convs, norms, card, g, ck_path):
         "plain": 0}, n
     assert n["instance_norm_plus"] == {
         "launches": n_norm * (steps + n_val), "plain": 0}, n
+    # the steps pool under grad on the library's pool; the validations on
+    # the kernel
+    pool = n["max_pool_5x5"]
+    assert pool["launches"] == 12 * n_val and pool["plain"] == 0 \
+        and pool["autograd"] > 0, n
 
     # the card's gradient against the plain CPU gradient, batch 4, at
     # the run's initial parameters (the first step's); once training
@@ -3157,7 +3201,9 @@ def wide_phase(g):
     want = {"conv2d_taps": {"launches": n_conv * nfe, "plain": 0},
             "conv2d_taps.wide": {"launches": n_conv * nfe},
             "instance_norm_plus": {"launches": n_norm * nfe, "plain": 0},
-            "instance_norm_plus.two_pass": {"launches": n_norm * nfe}}
+            "instance_norm_plus.two_pass": {"launches": n_norm * nfe},
+            "max_pool_5x5": {"launches": 12 * nfe, "plain": 0,
+                             "autograd": 0}}
     assert {k: n[k] for k in want} == want, n
     print(f"# wide inpainting: NCSNv2-Deepest ngf 128, {B} rows of "
           f"256x256x3, {WIDE_LEVELS} levels x 3 steps in {secs:.2f} s "
@@ -3539,6 +3585,7 @@ def main():
     conv_rows = check_convs(convs, g)
     norm_rows = check_norms(norms, g)
     ldpc_rows = check_ldpc(g)
+    pools = check_pools()
 
     # -- main path ------------------------------------------------------------
     x = torch.randn(16, 64, 16, 2, generator=g)
@@ -3598,6 +3645,8 @@ def main():
     assert launches["conv2d_taps"] == {"launches": 113 * nfe, "plain": 0}
     assert launches["instance_norm_plus"] == {"launches": 25 * nfe,
                                               "plain": 0}
+    assert launches["max_pool_5x5"] == {"launches": 12 * nfe, "plain": 0,
+                                        "autograd": 0}, launches
 
     # bench.py workload on a truncated schedule
     levels = 24
@@ -3634,6 +3683,8 @@ def main():
                                                "plain": 0}, bench_counts
         assert bench_counts["instance_norm_plus"] == {"launches": 25 * fw,
                                                       "plain": 0}
+        assert bench_counts["max_pool_5x5"] == {
+            "launches": 12 * fw, "plain": 0, "autograd": 0}, bench_counts
         bench_runs.append(dict(seconds=dt,
                                est_per_s=BATCH / dt * levels / 2311.0,
                                ms_per_forward=dt * 1e3 / (levels * 3),
@@ -3767,6 +3818,21 @@ def main():
                   else "operations"),
         library_ms=eig["library_ms"]))
 
+    # the max pool: per bf16 forward at batch 256 and per FFHQ forward at
+    # batch 8 (`ffhq_*`); its plain version is F.max_pool2d itself, and
+    # check_pools held it equal (max_abs_err 0)
+    pb, pf = pools["ngf32.bfloat16"], pools["ngf128.bfloat16"]
+    kernel_json.append(dict(
+        name="max_pool_5x5", route="cuda", source=SOURCES["max_pool_5x5"][0],
+        replaces=SOURCES["max_pool_5x5"][1],
+        launches=launches["max_pool_5x5"]["launches"], max_abs_err=0.0,
+        ms=pb["kernel_ms"], plain_ms=pb["library_ms"],
+        bound_ms=pb["bound_ms"], bound_by="bytes",
+        library_ms=pb["library_ms"], ffhq_ms=pf["kernel_ms"],
+        ffhq_bound_ms=pf["bound_ms"], ffhq_library_ms=pf["library_ms"],
+        ffhq_launches=later["wide"]["inpaint"]["counts"]["max_pool_5x5"][
+            "launches"]))
+
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(dict(
@@ -3777,6 +3843,7 @@ def main():
                           ("instance_norm_plus", norm_rows),
                           ("conv_im2col", probe["im2col_rows"]))},
         rows=conv_rows + norm_rows, ldpc_rows=ldpc_rows, link=link_res,
+        pools=pools,
         conv_probe=probe,
         forward_rel_err_f32=fwd_err32,
         forward_rel_err_bf16=fwd_err16, estimation_seconds=est_s,

@@ -61,6 +61,7 @@ _SIGNATURES = {
     "sbc_pilot_eigmax": [_P, _P, _P, _I, _I, _I, _P],
     "sbc_pilot_eigmax_fits": [_I, _I],
     "sbc_pilot_eigmax_max_sweeps": [],
+    "sbc_max_pool5": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

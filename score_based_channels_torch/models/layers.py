@@ -2,11 +2,12 @@
 the JAX package's models/layers.py:49-496.
 
 Tensors are NCHW in torch.channels_last memory, which is the JAX package's
-NHWC layout; every conv and InstanceNorm++ goes through the kernel
-wrappers of `..kernels`, which launch the Hopper kernels on the card and
-run their plain versions on the CPU. Module and parameter names follow the
-reference state dict (`res1.0.conv1.weight`, RCU's `{i}_{j}_conv`), so a
-converted JAX parameter tree loads with strict=True.
+NHWC layout; every conv, InstanceNorm++ and 5x5 max pool goes through the
+kernel wrappers of `..kernels`, which launch the Hopper kernels on the card
+and run their plain versions on the CPU (the pool keeps the library's under
+autograd). Module and parameter names follow the reference state dict
+(`res1.0.conv1.weight`, RCU's `{i}_{j}_conv`), so a converted JAX parameter
+tree loads with strict=True.
 
 Activations and norms come from the config (`get_act`, `get_normalization`,
 the JAX package's layers.py:35,222). With ELU, the default, every norm
@@ -28,6 +29,7 @@ from torch import nn
 
 from ..kernels import conv as conv_kernel
 from ..kernels import instance_norm as norm_kernel
+from ..kernels import max_pool as pool_kernel
 
 Act = Callable[[torch.Tensor], torch.Tensor]
 
@@ -199,8 +201,10 @@ def get_normalization(name: str) -> Callable[..., nn.Module]:
 
 
 def max_pool_5x5(x: torch.Tensor) -> torch.Tensor:
-    """MaxPool2d(kernel=5, stride=1, padding=2) (layers.py:240)."""
-    return F.max_pool2d(x, 5, stride=1, padding=2)
+    """MaxPool2d(kernel=5, stride=1, padding=2) (layers.py:240): the kernel
+    on a card tensor that autograd does not need, the library's pool on one
+    it does, the plain version on the CPU (`kernels.max_pool`)."""
+    return pool_kernel.max_pool_5x5(x)
 
 
 def avg_pool_5x5(x: torch.Tensor) -> torch.Tensor:

@@ -1785,7 +1785,8 @@ def test_decoder_replays_equal_eager_decodes(card):
                                          "ldpc_minsum": 25, "conv_im2col": 0,
                                          "conv_chain": 0, "pilot_eigmax": 0,
                                          "conv2d_taps.wide": 0,
-                                         "instance_norm_plus.two_pass": 0}
+                                         "instance_norm_plus.two_pass": 0,
+                                         "max_pool_5x5": 0}
     assert counts()["ldpc_minsum"] == {"launches": 2 * 4 * 25, "plain": 0}
 
 
