@@ -28,16 +28,16 @@ Phases (any failure propagates and the exit code is non-zero):
      no plain or autograd pool), saving its channel estimates;
      the `link` command on that file; the bench.py workload (batch 256, 38
      pilots, 10 dB, alpha 3e-11, beta 0.01, bf16 network, f32 state) on a
-     truncated schedule, timed in BENCH_RUNS runs; every path that samples
-     the posterior (here and in phases 7-9 and 15) runs through the
+     truncated schedule with its launch counts (the `deepest.estimate.bf16`
+     benchmark cell times that path); every path that samples the
+     posterior (here and in phases 7-9 and 15) runs through the
      posterior runner, one level captured in a CUDA graph and replayed,
      and the counts of launches and forwards come from the runner
      (`graph_forwards`: one eager level and one capture a call);
      the graph phase (`graph_phase`): the bench workload through the
-     graph against the plain loop (equal bits), in turns (plain, graph,
-     graph, plain), the host's time per run with the card held, the
-     card's ms per forward under the graph, the device busy share of a
-     2-level profiler window each way, capture seconds and pool MB;
+     graph against the same runner under `_graph.eager()` (equal bits),
+     the card's ms per forward under the graph, the device busy share of
+     a 2-level profiler window, capture seconds and pool MB;
   5. link path: `run_link_simulation` at the reference's full width (256
      packets, Nr 16, Nt 64, 4 QPSK streams, exact-ML LLRs, 25 BP
      iterations, 9 SNRs, ideal and estimated CSI at -10 dB NMSE) with its
@@ -82,9 +82,10 @@ Phases (any failure propagates and the exit code is non-zero):
      checkpoint (full width, every 100th level of the schedule),
      `run_hparam_search` (2x2 grid x 3 SNRs x 32 channels) and
      `run_mmse_estimation` (init ls, coef_cap auto, 16 samples x 2 SNRs x 8
-     channels) with their launch counts, each in turns through the plain
-     loop and the graph (NMSE within 1e-5), each again on a slice of chains
-     at beta 0 on the card and the CPU (NMSE within rtol 1e-3), the
+     channels) with their launch counts, each in turns eagerly
+     (`_graph.eager()`) and through the graph (NMSE within 1e-5), each
+     again on a slice of chains at beta 0 on the card and the CPU (NMSE
+     within rtol 1e-3), the
      tuner's slim table driving `run_estimation`, and `lmmse --cov
      analytic`; lasso and amp run one captured iteration, replayed, and
      `baseline_graph_phase` holds each against its plain loop bit for bit
@@ -199,7 +200,6 @@ SOURCES = {
     "max_pool_5x5": ("score_based_channels_torch/csrc/max_pool5.cu", None),
 }
 ROUTE = {torch.bfloat16: "wgmma", torch.float32: "fma"}  # the convs' routes
-BENCH_RUNS = 5  # timed runs of the bench workload (one level schedule each)
 LINK_PACKETS = 256
 LINK_SNRS = np.arange(-10, 12.5, 2.5)  # the reference's grid
 BP_ITERS = 25
@@ -634,9 +634,8 @@ def link_graph_phase(H, H_est, Ht, He, code, card):
     packets/s; one point's wall and device time in a profiler window
     each way with its largest device ops; a point's host wall beside the
     numpy encoder timed alone; the capture's seconds and pool MB."""
-    from score_based_channels_torch import kernels
+    from score_based_channels_torch import _graph, kernels
     from score_based_channels_torch.comms import link
-    from score_based_channels_torch.comms.link_bench import eager_receivers
 
     n_pk = LINK_PACKETS * len(LINK_SNRS)
     bits = np.random.default_rng(4).integers(0, 2, (LINK_PACKETS, code.k),
@@ -655,7 +654,7 @@ def link_graph_phase(H, H_est, Ht, He, code, card):
             detector=det, device="cuda")
 
         def eager():
-            with eager_receivers():
+            with _graph.eager():
                 return sweep()
 
         caps = []
@@ -668,14 +667,19 @@ def link_graph_phase(H, H_est, Ht, He, code, card):
         same = all(np.array_equal(getattr(got, k), getattr(want, k))
                    for k in keys)
         # one point through a kept receiver each way: bits and LLRs
-        rx = {"graph": link.LinkReceiver(code, LINK_PACKETS, 16,
-                                         detector=det, device="cuda")}
-        with eager_receivers():
-            rx["eager"] = link.LinkReceiver(code, LINK_PACKETS, 16,
-                                            detector=det, device="cuda")
-        point = {way: (lambda r=r: link.simulate_packets(
-            torch.Generator(device="cuda").manual_seed(7), Ht, He, 10.0,
-            code, detector=det, receiver=r)) for way, r in rx.items()}
+        rx = {way: link.LinkReceiver(code, LINK_PACKETS, 16, detector=det,
+                                     device="cuda")
+              for way in ("graph", "eager")}
+
+        def point_of(way):
+            def run():
+                with (_graph.eager() if way == "eager"
+                      else contextlib.nullcontext()):
+                    return link.simulate_packets(
+                        torch.Generator(device="cuda").manual_seed(7), Ht,
+                        He, 10.0, code, detector=det, receiver=rx[way])
+            return run
+        point = {way: point_of(way) for way in rx}
         for way in ("graph", "graph", "eager"):  # graph: eager, capture
             point[way]()
         bit_equal = (torch.equal(rx["graph"].decoder.bits,
@@ -1214,7 +1218,7 @@ def train_phase(convs, norms, card, g, ck_path):
     run through `run_estimation`, and ms per step."""
     from torch.profiler import ProfilerActivity, profile
 
-    from score_based_channels_torch import kernels
+    from score_based_channels_torch import _graph, kernels
     from score_based_channels_torch.config import (
         TrainingConfig, default_score_config,
     )
@@ -1239,13 +1243,14 @@ def train_phase(convs, norms, card, g, ck_path):
     n_fwd, n_norm = sum(convs.values()), sum(norms.values())
     kernels.reset_counts()
     train_score.reset_stats()
+    _graph.reset_stats()
     t0 = time.perf_counter()
     state, logs = trainer.train(checkpoint_path=ck_path,
                                 log_fn=lambda s: print("# " + s))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     n, ng = kernels.counts(), kernels.grad_counts()
-    run_stats = dict(train_score.STATS)
+    run_stats = dict(train_score.STATS, **_graph.STATS)
     steps = state.step
     n_val = len(logs["val_loss"])
     print(f"# train-score CDL-C, ngf 32, batch {TRAIN_BATCH}, f32: "
@@ -1446,14 +1451,20 @@ def train_graph_config(data_parallel=True):
                                 data_parallel=data_parallel))
 
 
-def train_run(cfg, capture=True):
+def eager_if(eager):
+    """`_graph.eager()` when eager, else a block that changes nothing."""
+    from score_based_channels_torch import _graph
+
+    return _graph.eager() if eager else contextlib.nullcontext()
+
+
+def train_run(cfg, eager=False):
     """(state, logs) of ScoreTrainer.train on cfg, through the captured
-    step or (capture False) the same steps run eagerly."""
+    step or (eager) the same steps run eagerly."""
     from score_based_channels_torch.train import ScoreTrainer
 
-    trainer = ScoreTrainer(cfg, device="cuda")
-    trainer._capture = capture
-    return trainer.train(log_fn=lambda s: None)
+    with eager_if(eager):
+        return ScoreTrainer(cfg, device="cuda").train(log_fn=lambda s: None)
 
 
 def train_runs_differ(a, b):
@@ -1488,18 +1499,18 @@ def train_graph_phase(trainer, card):
     step beside it); the device busy share of a 3-step profiler window each
     way and the top device ops a step under the graph; the capture's
     seconds and the graph pool's MB."""
+    from score_based_channels_torch import _graph
     from score_based_channels_torch.data import ChannelDataset
     from score_based_channels_torch.kernels.launch_cost import spin_cycles
     from score_based_channels_torch.train import TrainChunkRunner
-    from score_based_channels_torch.train import score as train_score
     from score_based_channels_torch.train.score import matmul_precision
 
     cfg = train_graph_config()
     with deterministic_algorithms():
-        det = train_runs_differ(train_run(cfg), train_run(cfg, False))
-    eager_run = train_run(cfg, False)
+        det = train_runs_differ(train_run(cfg), train_run(cfg, eager=True))
+    eager_run = train_run(cfg, eager=True)
     free = train_runs_differ(train_run(cfg), eager_run)
-    spread = train_runs_differ(train_run(cfg, False), eager_run)
+    spread = train_runs_differ(train_run(cfg, eager=True), eager_run)
     print(f"# train graph vs eager loop, full width f32, {TRAIN_GRAPH_EPOCHS}"
           f" epochs of {TRAIN_GRAPH_CHANNELS // TRAIN_BATCH} steps in chunks "
           f"of {TRAIN_GRAPH_LOG_EVERY}: under deterministic algorithms "
@@ -1522,14 +1533,14 @@ def train_graph_phase(trainer, card):
     seeds = list(range(n))
     gen = torch.Generator(device="cuda")
     with matmul_precision("highest"):
-        train_score.reset_stats()
+        _graph.reset_stats()
         graph = TrainChunkRunner(trainer.update, state, x_all, TRAIN_BATCH,
                                  n, gen, 20 * n)
         eager = TrainChunkRunner(trainer.update, state, x_all, TRAIN_BATCH,
-                                 n, gen, 20 * n, capture=False)
+                                 n, gen, 20 * n)
         _, first_s = timed(lambda: graph.run(idx, seeds))
-        stats = dict(train_score.STATS)
-        rec, rec_grad = graph.recorded, graph.recorded_grad
+        stats = dict(_graph.STATS)
+        rec, rec_grad = graph.replayer.cap.launches, graph.replayer.cap.grad
         print(f"#   first graph run of {n} steps {first_s:.3f} s (step 0 "
               f"eager, capture {stats['capture_seconds']:.3f} s, graph pool "
               f"{stats['pool_bytes'] / 2**20:.1f} MB); a replay records "
@@ -1539,7 +1550,11 @@ def train_graph_phase(trainer, card):
         assert rec_grad == {"conv2d_taps": {"functions": 113, "dgrad": 112},
                             "instance_norm_plus": {"functions": 25,
                                                    "backward": 25}}, rec_grad
-        runs = {"eager": lambda: eager.run(idx, seeds),
+        def eager_run(idx, seeds):
+            with _graph.eager():
+                return eager.run(idx, seeds)
+
+        runs = {"eager": lambda: eager_run(idx, seeds),
                 "graph": lambda: graph.run(idx, seeds)}
         secs = {"eager": [], "graph": []}
         for way in ("eager", "graph", "graph", "eager"):
@@ -1566,8 +1581,8 @@ def train_graph_phase(trainer, card):
             times = []
             for i in range(n if way == "graph" else 1):
                 t0 = time.perf_counter()
-                (graph if way == "graph" else eager).run(idx[i:i + 1],
-                                                         seeds[i:i + 1])
+                (graph.run if way == "graph" else eager_run)(
+                    idx[i:i + 1], seeds[i:i + 1])
                 times.append(time.perf_counter() - t0)
             held[way].append(not torch.cuda.current_stream().query())
             host[way].append(times)
@@ -1587,9 +1602,8 @@ def train_graph_phase(trainer, card):
         assert all(held["graph"]) and min(queued) > 0, (held, queued)
 
         windows = {}
-        for way, runner in (("eager", eager), ("graph", graph)):
-            wall_ms, busy, top = busy_window(
-                lambda: runner.run(idx[:3], seeds[:3]))
+        for way, run in (("eager", eager_run), ("graph", graph.run)):
+            wall_ms, busy, top = busy_window(lambda: run(idx[:3], seeds[:3]))
             windows[way] = dict(wall_ms=wall_ms, busy_ms=busy, top=top)
             print(f"#   profile, 3 steps, {way}: wall {wall_ms:.1f} ms, "
                   f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%)"
@@ -1647,14 +1661,24 @@ def counting(score_fn, calls):
     return fn
 
 
-def graph_forwards(calls, runs, steps=3):
-    """The forwards the posterior runner ran since sampling.reset_stats(),
-    held to its graph: `runs` runners (one a `langevin_chunked` call), each
-    one eager level and one capture (so 2 x steps Python calls of the
-    score function in all, `calls`), every other level a replay."""
+def reset_stats():
+    """Zero the posterior runner's counts and the graph counts."""
+    from score_based_channels_torch import _graph
     from score_based_channels_torch.diffusion import sampling
 
-    st = sampling.STATS
+    sampling.reset_stats()
+    _graph.reset_stats()
+
+
+def graph_forwards(calls, runs, steps=3):
+    """The forwards the posterior runner ran since `reset_stats()`, held to
+    its graph: `runs` runners (one a `langevin_chunked` call), each one
+    eager level and one capture (so 2 x steps Python calls of the score
+    function in all, `calls`), every other level a replay."""
+    from score_based_channels_torch import _graph
+    from score_based_channels_torch.diffusion import sampling
+
+    st = dict(sampling.STATS, **_graph.STATS)
     assert st["captures"] == runs, st
     assert st["replays"] == st["levels"] - runs, st
     assert st["forwards"] == steps * st["levels"], st
@@ -1662,35 +1686,12 @@ def graph_forwards(calls, runs, steps=3):
     return st["forwards"]
 
 
-@contextlib.contextmanager
-def plain_sampler():
-    """`langevin_chunked` with the plain loop in place of its runner: the
-    yardstick of the graph, run in turns with it."""
-    from score_based_channels_torch.diffusion.sampling import (
-        PosteriorRunner, annealed_langevin_posterior_c2_plain,
-    )
-    from score_based_channels_torch.eval import estimate
-
-    class PlainLoop(PosteriorRunner):
-        def run(self, A, Y, noise_power, x_init, alpha_step=3e-11,
-                beta_noise=0.01, **kw):
-            return annealed_langevin_posterior_c2_plain(
-                self.score_fn, A, Y, self.sigmas, noise_power, x_init,
-                self.generator, alpha_step=alpha_step, beta_noise=beta_noise,
-                steps_each=self.steps_each, noise_rows=self.noise_rows, **kw)
-
-    saved = estimate.PosteriorRunner
-    estimate.PosteriorRunner = PlainLoop
-    try:
-        yield
-    finally:
-        estimate.PosteriorRunner = saved
-
-
 def in_turns(plain, graph, what, rate=None):
     """plain, graph, graph, plain, the card synchronised around each run:
     ({"plain": [s, s], "graph": [s, s]}, the first result of each way).
-    rate(seconds) -> full-schedule est/s, printed beside the seconds."""
+    `plain` is the eager yardstick (`_graph.eager()` or the baselines'
+    Python loops). rate(seconds) -> full-schedule est/s, printed beside
+    the seconds."""
     secs = {"plain": [], "graph": []}
     first = {}
     order = ("plain", "graph", "graph", "plain")
@@ -1800,14 +1801,13 @@ def eval_phase(ck_path, card):
     import contextlib
     import io
 
-    from score_based_channels_torch import kernels
+    from score_based_channels_torch import _graph, kernels
     from score_based_channels_torch.baselines.amp import run_amp_baseline
     from score_based_channels_torch.baselines.lasso import run_lasso_baseline
     from score_based_channels_torch.baselines.lmmse import main as lmmse_main
     from score_based_channels_torch.baselines.ls import run_ls_baseline
     from score_based_channels_torch.baselines.mmse import run_mmse_estimation
     from score_based_channels_torch.config import default_score_config
-    from score_based_channels_torch.diffusion import sampling
     from score_based_channels_torch.eval.estimate import (
         load_score_fn, run_estimation,
     )
@@ -1824,23 +1824,24 @@ def eval_phase(ck_path, card):
         return n
 
     def graph_vs_plain(what, run, values, got, n_chains):
-        """run() in turns through the plain loop and the graph; values() of
-        `got` (the counted graph run) and of the turns' first graph run
-        against the first plain run's: equal bits, or within 1e-5 of
-        max|plain|. Capture seconds and pool MB of the counted run."""
-        graph = dict(sampling.STATS)
+        """run() in turns eagerly (`_graph.eager()`) and through the graph;
+        values() of `got` (the counted graph run) and of the turns' first
+        graph run against the first eager run's: equal bits, or within
+        1e-5 of max|eager|. Capture seconds and pool MB of the counted
+        run."""
+        graph = dict(_graph.STATS)
 
         def plain():
-            with plain_sampler():
+            with _graph.eager():
                 return run()
 
         secs, first = in_turns(
-            plain, run, f"eval {what}, plain loop and graph",
+            plain, run, f"eval {what}, eager runner and graph",
             rate=lambda v: n_chains / v * EVAL_LEVELS / 2311)
         ref = values(first["plain"])
         same = [np.array_equal(values(r), ref) for r in (got, first["graph"])]
         diff = float(np.abs(values(got) - ref).max() / np.abs(ref).max())
-        print(f"#   eval {what}: graph vs plain loop NMSE bit-equal {same} "
+        print(f"#   eval {what}: graph vs eager runner NMSE bit-equal {same} "
               f"(counted and next graph run), max rel diff {diff:.2e} (tol "
               f"1e-5); capture {graph['capture_seconds']:.3f} s, graph "
               f"pool {graph['pool_bytes'] / 2**20:.1f} MB")
@@ -1925,7 +1926,7 @@ def eval_phase(ck_path, card):
             num_channels=TUNE_CHANNELS, chunk_size=TUNE_CHUNK, device="cuda")
 
     kernels.reset_counts()
-    sampling.reset_stats()
+    reset_stats()
     tune_res, sec = timed(lambda: tune(counting(score32, calls)))
     nfe = graph_forwards(calls[0], runs=1)
     n = launches_per_forward(nfe)
@@ -1980,7 +1981,7 @@ def eval_phase(ck_path, card):
     _, score16 = load_score_fn(ck_path, "cuda", dtype=torch.bfloat16)
     calls = [0]
     kernels.reset_counts()
-    sampling.reset_stats()
+    reset_stats()
     est, sec = timed(lambda: run_estimation(
         counting(score16, calls), config, snr_range=table["snr_range"],
         num_channels=TUNE_CHANNELS, alpha_step=table["best_alpha_snr"],
@@ -2010,7 +2011,7 @@ def eval_phase(ck_path, card):
 
     calls = [0]
     kernels.reset_counts()
-    sampling.reset_stats()
+    reset_stats()
     mmse, sec = timed(lambda: mmse_run(counting(score32, calls)))
     nfe = graph_forwards(calls[0], runs=1)
     n = launches_per_forward(nfe)
@@ -2088,7 +2089,6 @@ def archs_phase(deepest_convs, deepest_norms, g):
     from score_based_channels_torch.config import (
         ModelConfig, TrainingConfig, default_score_config,
     )
-    from score_based_channels_torch.diffusion import sampling
     from score_based_channels_torch.eval.estimate import (
         load_score_fn, run_estimation,
     )
@@ -2162,7 +2162,7 @@ def archs_phase(deepest_convs, deepest_norms, g):
         assert config.model.arch == arch
         calls = [0]
         kernels.reset_counts()
-        sampling.reset_stats()
+        reset_stats()
         t0 = time.perf_counter()
         res = run_estimation(counting(score_fn, calls), config,
                              snr_range=np.array([0., 20.]), num_channels=32,
@@ -2531,6 +2531,7 @@ def ldamp_graph_phase(card):
     and `train_ldamp_snr` at the recipe (24 epochs of one step) through
     the graph and the eager loop: wall seconds and the logs' largest
     difference."""
+    from score_based_channels_torch import _graph
     from score_based_channels_torch.config import default_score_config
     from score_based_channels_torch.data import ChannelDataset
     from score_based_channels_torch.eval.estimate import derive_seed
@@ -2554,15 +2555,20 @@ def ldamp_graph_phase(card):
         return runner.run((batch(s) for s in steps),
                           [derive_seed(tc.seed, 2, s) for s in steps])
 
-    def runner_for(model, opt, capture, rows, updates):
-        return LDAMPStepRunner(model, opt, torch.Generator(device="cuda"),
-                               rows, updates, capture=capture)
+    def eager_run(runner, steps, batch=host_batch):
+        with _graph.eager():
+            return steps_run(runner, steps, batch)
 
-    def seeded_run(capture):
+    def runner_for(model, opt, rows, updates):
+        return LDAMPStepRunner(model, opt, torch.Generator(device="cuda"),
+                               rows, updates)
+
+    def seeded_run(eager):
         model = make_ldamp_model(tc, "cuda")
         opt = make_ldamp_optimizer(model, tc, 1)
-        runner = runner_for(model, opt, capture, 1, LDAMP_STEPS)
-        rows = torch.cat([steps_run(runner, [s]).clone()
+        runner = runner_for(model, opt, 1, LDAMP_STEPS)
+        run = eager_run if eager else steps_run
+        rows = torch.cat([run(runner, [s]).clone()
                           for s in range(LDAMP_STEPS)])
         return model, opt, rows
 
@@ -2578,10 +2584,10 @@ def ldamp_graph_phase(card):
         return same, norm, max_rel(a[2], b[2])
 
     with deterministic_algorithms():
-        det = differ(seeded_run(True), seeded_run(False))
-    eager_run = seeded_run(False)
-    free = differ(seeded_run(True), eager_run)
-    spread = differ(seeded_run(False), eager_run)
+        det = differ(seeded_run(False), seeded_run(True))
+    eager_once = seeded_run(True)
+    free = differ(seeded_run(False), eager_once)
+    spread = differ(seeded_run(True), eager_once)
     print(f"# LDAMP graph vs eager loop, {LDAMP_STEPS} steps of batch "
           f"{tc.batch_size}, rate x{tc.decay_gamma} after step "
           f"{LDAMP_DECAY_EPOCHS}: under deterministic algorithms bit-equal "
@@ -2603,18 +2609,20 @@ def ldamp_graph_phase(card):
             for k, v in batch.items():
                 self.buf[k].copy_(v)
 
-    graph = runner_for(model, opt, True, n, 40 * n)
-    eager = runner_for(model, opt, False, n, 40 * n)
+    graph = runner_for(model, opt, n, 40 * n)
+    eager = runner_for(model, opt, n, 40 * n)
     blocking = Blocking(model, opt, torch.Generator(device="cuda"), n, 40 * n)
+    _graph.reset_stats()
     _, first_s = timed(lambda: steps_run(graph, range(n)))
-    stats, rec = dict(graph.stats), graph.recorded
+    stats = dict(graph.stats, **_graph.STATS)
+    rec, rec_grad = graph.replayer.cap.launches, graph.replayer.cap.grad
     print(f"#   first graph run of {n} steps {first_s:.3f} s (step 0 eager, "
           f"capture {stats['capture_seconds']:.3f} s, graph pool "
           f"{stats['pool_bytes'] / 2**20:.1f} MB); a replay records "
           f"{rec['conv2d_taps']} conv launches, gradient work "
-          f"{graph.recorded_grad['conv2d_taps']}", flush=True)
+          f"{rec_grad['conv2d_taps']}", flush=True)
     assert rec["conv2d_taps"] == 449, rec
-    runs = {"eager": lambda: steps_run(eager, range(n)),
+    runs = {"eager": lambda: eager_run(eager, range(n)),
             "graph": lambda: steps_run(graph, range(n))}
     secs = {"eager": [], "graph": []}
     for way in ("eager", "graph", "graph", "eager"):
@@ -2677,8 +2685,9 @@ def ldamp_graph_phase(card):
     assert all(held), held
 
     windows = {}
-    for way, runner in (("eager", eager), ("graph", graph)):
-        wall, busy, top = busy_window(lambda: steps_run(runner, range(3)))
+    for way, run, runner in (("eager", eager_run, eager),
+                             ("graph", steps_run, graph)):
+        wall, busy, top = busy_window(lambda: run(runner, range(3)))
         windows[way] = dict(wall_ms=wall, busy_ms=busy, top=top)
         print(f"#   profile, 3 steps, {way} (batches made on the host): wall "
               f"{wall:.1f} ms, device busy {busy:.1f} ms "
@@ -2688,11 +2697,11 @@ def ldamp_graph_phase(card):
 
     # the recipe: 24 epochs of one step, each way
     recipe = {}
-    for way, capture in (("graph", True), ("eager", False)):
+    for way in ("graph", "eager"):
         lines = []
-        (model_r, logs), sec = timed(lambda: train_ldamp_snr(
-            cfg, LDAMP_SNR, device="cuda", log_fn=lines.append,
-            _capture=capture))
+        with eager_if(way == "eager"):
+            (model_r, logs), sec = timed(lambda: train_ldamp_snr(
+                cfg, LDAMP_SNR, device="cuda", log_fn=lines.append))
         recipe[way] = dict(seconds=sec, last_log=lines[-1], logs=logs)
         print(f"#   train_ldamp_snr at the recipe ({len(logs['loss_log'])} "
               f"steps, data generation included), {way}: {sec:.2f} s; "
@@ -2709,7 +2718,7 @@ def ldamp_graph_phase(card):
                 free_norm=free[1], free_loss=free[2], eager_spread_norm=
                 spread[1], eager_spread_loss=spread[2], first_run_seconds=
                 first_s, stats=stats, recorded=rec,
-                recorded_grad=graph.recorded_grad, seconds=secs,
+                recorded_grad=rec_grad, seconds=secs,
                 steps_per_s=sps, card_batch_seconds=card_s,
                 staging_seconds=stage_s, staging_windows=stage_win,
                 host_seconds_held=host, host_us_per_step_held=us_step,
@@ -3227,7 +3236,7 @@ def distributed_phase():
 
     import torch.distributed as dist
 
-    from score_based_channels_torch import kernels
+    from score_based_channels_torch import _graph, kernels
     from score_based_channels_torch.config import ModelConfig
     from score_based_channels_torch.diffusion import sampling
     from score_based_channels_torch.diffusion.sigmas import (
@@ -3258,21 +3267,22 @@ def distributed_phase():
             assert backend == "nccl" and dist.get_backend() == "nccl"
             try:
                 kernels.reset_counts()
-                sampling.reset_stats()
+                reset_stats()
                 t0 = time.perf_counter()
                 dp = run_smoke(ckpt_path=os.path.join(tmp, "dp.npz"), **kw)
                 torch.cuda.synchronize()
                 dp_s = time.perf_counter() - t0
                 launches = kernels.counts()
                 grads = kernels.grad_counts()
-                sweep = dict(sampling.STATS)
+                sweep = dict(sampling.STATS, **_graph.STATS)
                 # ScoreTrainer.train on the group: the gradients' all-reduce
                 # inside the captured step
                 train_score.reset_stats()
+                _graph.reset_stats()
                 t0 = time.perf_counter()
                 train_dp = train_run(train_cfg)
                 train_dp_s = time.perf_counter() - t0
-                train_stats = dict(train_score.STATS)
+                train_stats = dict(train_score.STATS, **_graph.STATS)
             finally:
                 dist.destroy_process_group()
             t0 = time.perf_counter()
@@ -3375,41 +3385,25 @@ GRAPH_HOLD_MS = 2000.0  # the spin that holds the card while the host runs
 def graph_phase(score, A, Y, X, x0, noise_power, sigmas, card):
     """The graph phase (in phase 4): the bench workload (batch 256, 38
     pilots, 10 dB, bf16 network, f32 state) on `sigmas`, through the
-    posterior runner's graph and through the plain loop. The first graph
-    run (eager level 0, the capture, the replays) against the plain loop:
-    equal bits, or within 1e-5 of max|plain|; then in turns (plain, graph,
-    graph, plain) each way's seconds and full-schedule est/s, the runner
-    capturing once and replaying every level of each later run; the
-    host's time per level with the card held by a spin kernel (as
-    kernels.launch_cost holds it), in turns: a graph run of every level, a
-    plain run of one level; the card's ms per level and per forward with
-    graph runs back to back (CUDA events); the device busy share of a
-    profiler window of 2 levels, each way; the capture's seconds and the
-    graph pool's MB."""
+    posterior runner's graph and through the same runner under
+    `_graph.eager()`. The first graph run (eager level 0, the capture, the
+    replays) against the eager run: equal bits, or within 1e-5 of
+    max|eager|; a second run that replays every level gives the first
+    run's bits; the card's ms per level and per forward with graph runs
+    back to back (CUDA events); the device busy share of a profiler
+    window of 2 levels under the graph; the capture's seconds and the
+    graph pool's MB. The `deepest.estimate.bf16` benchmark cell times
+    this path end to end."""
     from torch.profiler import ProfilerActivity, profile
 
-    from score_based_channels_torch.diffusion import sampling
-    from score_based_channels_torch.diffusion.sampling import (
-        PosteriorRunner, annealed_langevin_posterior_c2_plain,
-    )
-    from score_based_channels_torch.kernels.launch_cost import spin_cycles
+    from score_based_channels_torch import _graph
+    from score_based_channels_torch.diffusion.sampling import PosteriorRunner
 
     levels = sigmas.shape[0]
-    # sigma and the scalars (0-d: the floats' arithmetic) on the card: a
-    # run then copies nothing from the host, which would wait for the
-    # stream, and so for the spin of the held-card measurement
     sigmas = sigmas.cuda()
     noise_power, alpha, beta = (torch.tensor(v, device="cuda") for v in
                                 (noise_power, 3e-11, 0.01))
     kw = dict(alpha_step=alpha, beta_noise=beta, oracle=X)
-
-    def rate(sec):
-        return BATCH / sec * levels / 2311.0
-
-    def plain(sig=sigmas):
-        return annealed_langevin_posterior_c2_plain(
-            score, A, Y, sig, noise_power, x0,
-            torch.Generator(device="cuda").manual_seed(2), steps_each=3, **kw)
 
     def graph_runner(sig=sigmas):
         runner = PosteriorRunner(score, sig, torch.Generator(device="cuda"),
@@ -3420,53 +3414,31 @@ def graph_phase(score, A, Y, X, x0, noise_power, sigmas, card):
             return runner.run(A, Y, noise_power, x0, **kw)
         return runner, run
 
-    sampling.reset_stats()
+    reset_stats()
     runner, graph = graph_runner()
     (xg, tg), first_s = timed(graph)  # eager level 0, capture, replays
     xg, tg = xg.clone(), tg.clone()
-    stats = dict(sampling.STATS)
-    (xp, tp), _ = timed(plain)
-    same = bool(torch.equal(xg, xp) and torch.equal(tg, tp))
-    err = max(max_rel(xg, xp), max_rel(tg, tp))
-    rec = runner.recorded
+    stats = dict(_graph.STATS)
+    with _graph.eager():
+        xe, te = graph_runner()[1]()
+    same = bool(torch.equal(xg, xe) and torch.equal(tg, te))
+    err = max(max_rel(xg, xe), max_rel(tg, te))
+    rec = runner.replayer.cap.launches
     print(f"# graph phase, bench workload ({BATCH} x {levels} levels, bf16 "
           f"network): first graph run {first_s:.3f} s (capture "
           f"{stats['capture_seconds']:.3f} s, graph pool "
           f"{stats['pool_bytes'] / 2**20:.1f} MB, {rec['conv2d_taps']} conv "
           f"+ {rec['instance_norm_plus']} norm launches a replay); x_final "
-          f"and trace bit-equal to the plain loop: {same} (max rel diff "
+          f"and trace bit-equal to the eager runner: {same} (max rel diff "
           f"{err:.2e}, tol 1e-5) on {card}", flush=True)
     assert err <= 1e-5, err
-    secs, _ = in_turns(plain, graph, "bench workload, plain loop and graph",
-                       rate=rate)
+    assert rec["conv2d_taps"] == 113 * 3 and rec["instance_norm_plus"] == 75
+    graph()
     rerun_same = bool(torch.equal(runner.x, xg)
                       and torch.equal(runner.trace, tg))
     print(f"#   a run that replays every level gives the first run's bits: "
           f"{rerun_same}")
     assert rerun_same
-
-    # the host's time per run with the card held: the graph's run of every
-    # level; the plain loop's of one level (~1,100 launches: behind a spin,
-    # more than the launch queue holds would block the host on the queue)
-    cycles = spin_cycles(GRAPH_HOLD_MS)
-    runs = {"plain": (lambda: plain(sigmas[:1]), 1), "graph": (graph, levels)}
-    host, held = {"plain": [], "graph": []}, {"plain": [], "graph": []}
-    for way in ("plain", "graph", "graph", "plain"):
-        torch.cuda.synchronize()
-        torch.cuda._sleep(cycles)
-        t0 = time.perf_counter()
-        runs[way][0]()
-        host[way].append(time.perf_counter() - t0)
-        held[way].append(not torch.cuda.current_stream().query())
-        torch.cuda.synchronize()
-    assert all(held["graph"]), held
-    us_level = {k: [v * 1e6 / runs[k][1] for v in vs]
-                for k, vs in host.items()}
-    print(f"#   host time per level, card held ({GRAPH_HOLD_MS:.0f} ms spin; "
-          f"held {held}): plain loop, a run of 1 level "
-          f"{[round(v, 1) for v in us_level['plain']]} us; graph, a run of "
-          f"{levels} levels {[round(v, 5) for v in host['graph']]} s, "
-          f"{[round(v, 1) for v in us_level['graph']]} us a level")
 
     # the card's time with graph runs back to back
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -3482,35 +3454,29 @@ def graph_phase(score, A, Y, X, x0, noise_power, sigmas, card):
           f"{card_ms_level:.4f} ms per level, {card_ms_level / 3:.4f} ms per "
           f"forward (the level's sampler ops included)")
 
-    # profiler windows of 2 levels: the graph replays both
+    # a profiler window of 2 levels: the graph replays both
     _, graph2 = graph_runner(sigmas[:2])
     graph2()
-    windows = {}
-    for way, fn in (("plain", lambda: plain(sigmas[:2])), ("graph", graph2)):
-        fn()
+    graph2()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        graph2()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        by_name = device_ms_by_name(prof)
-        busy = sum(by_name.values())
-        windows[way] = dict(wall_ms=wall_ms, busy_ms=busy, by_name=by_name)
-        print(f"#   profile, 2 levels (6 forwards), {way}: wall "
-              f"{wall_ms:.1f} ms, device busy {busy:.1f} ms "
-              f"({100 * busy / wall_ms:.1f}%)" if busy else
-              f"#   profile, 2 levels, {way}: no device time reported "
-              f"(not measured)")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = device_ms_by_name(prof)
+    busy = sum(by_name.values())
+    window = dict(wall_ms=wall_ms, busy_ms=busy, by_name=by_name)
+    print(f"#   profile, 2 levels (6 forwards), graph: wall {wall_ms:.1f} ms, "
+          f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%)" if busy
+          else "#   profile, 2 levels, graph: no device time reported (not "
+          "measured)")
     return dict(levels=levels, first_run_seconds=first_s, stats=stats,
                 bit_equal=same, max_rel_diff=err, rerun_bit_equal=rerun_same,
-                seconds=secs,
-                est_per_s={k: [rate(v) for v in vs] for k, vs in secs.items()},
-                host_seconds_held=host, host_us_per_level_held=us_level,
-                held=held, card_ms_per_level=card_ms_level,
-                card_ms_per_forward=card_ms_level / 3,
-                recorded=runner.recorded, windows=windows)
+                card_ms_per_level=card_ms_level,
+                card_ms_per_forward=card_ms_level / 3, recorded=rec,
+                windows={"graph": window})
 
 
 def per_forward(rows, dtype):
@@ -3547,7 +3513,6 @@ def main():
     from score_based_channels_torch.diffusion.sampling import (
         annealed_langevin_posterior_c2,
     )
-    from score_based_channels_torch.diffusion import sampling
     from score_based_channels_torch.diffusion.sigmas import get_sigmas
     from score_based_channels_torch.comms.link import main as link_main
     from score_based_channels_torch.eval.estimate import (
@@ -3615,7 +3580,7 @@ def main():
         cfg = Config(data=DataConfig(source="file", data_dir=tmp))
         stride = 64
         kernels.reset_counts()
-        sampling.reset_stats()
+        reset_stats()
         t0 = time.perf_counter()
         chan = os.path.join(tmp, "channels.npz")
         res = run_estimation(counting(score_bf16, calls), cfg,
@@ -3648,7 +3613,8 @@ def main():
     assert launches["max_pool_5x5"] == {"launches": 12 * nfe, "plain": 0,
                                         "autograd": 0}, launches
 
-    # bench.py workload on a truncated schedule
+    # bench.py workload on a truncated schedule: its launch counts (the
+    # deepest.estimate.bf16 benchmark cell times this path)
     levels = 24
     mcfg = ModelConfig(num_classes=levels)
     sigmas = get_sigmas(mcfg.sigma_begin, mcfg.sigma_end, levels)
@@ -3666,39 +3632,21 @@ def main():
             alpha_step=3e-11, beta_noise=0.01, steps_each=3, oracle=X)
 
     bench(sigmas[:2])  # warm-up
-    bench_runs = []  # the host-bound est/s varies between runs: several
-    for _ in range(BENCH_RUNS):  # each call captures its own graph
-        torch.cuda.synchronize()
-        kernels.reset_counts()
-        sampling.reset_stats()
-        calls = [0]
-        t0 = time.perf_counter()
-        _, trace = bench(sigmas, counting(score_bf16, calls))
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        bench_counts = kernels.counts()
-        fw = graph_forwards(calls[0], runs=1)
-        assert fw == levels * 3 and torch.isfinite(trace).all()
-        assert bench_counts["conv2d_taps"] == {"launches": 113 * fw,
-                                               "plain": 0}, bench_counts
-        assert bench_counts["instance_norm_plus"] == {"launches": 25 * fw,
-                                                      "plain": 0}
-        assert bench_counts["max_pool_5x5"] == {
-            "launches": 12 * fw, "plain": 0, "autograd": 0}, bench_counts
-        bench_runs.append(dict(seconds=dt,
-                               est_per_s=BATCH / dt * levels / 2311.0,
-                               ms_per_forward=dt * 1e3 / (levels * 3),
-                               capture_seconds=sampling.STATS[
-                                   "capture_seconds"]))
-        print(f"# bench workload: {dt:.3f} s for {BATCH} estimates x "
-              f"{levels} levels, capture included "
-              f"({BATCH * levels * 3 / dt:.0f} NFE/s, "
-              f"{bench_runs[-1]['ms_per_forward']:.3f} ms per forward, "
-              f"{bench_runs[-1]['est_per_s']:.4f} full-schedule est/s) on "
-              f"{card}")
-    est_per_s = float(np.median([r["est_per_s"] for r in bench_runs]))
-    print(f"# bench median of {BENCH_RUNS} runs: {est_per_s:.4f} full-schedule "
-          f"est/s")
+    kernels.reset_counts()
+    reset_stats()
+    calls = [0]
+    _, trace = bench(sigmas, counting(score_bf16, calls))
+    bench_counts = kernels.counts()
+    fw = graph_forwards(calls[0], runs=1)
+    assert fw == levels * 3 and torch.isfinite(trace).all()
+    assert bench_counts["conv2d_taps"] == {"launches": 113 * fw,
+                                           "plain": 0}, bench_counts
+    assert bench_counts["instance_norm_plus"] == {"launches": 25 * fw,
+                                                  "plain": 0}
+    assert bench_counts["max_pool_5x5"] == {
+        "launches": 12 * fw, "plain": 0, "autograd": 0}, bench_counts
+    print(f"# bench workload: {BATCH} estimates x {levels} levels, {fw} "
+          f"forwards; launches {bench_counts}")
 
     graph = graph_phase(score_bf16, A, Y, X, x0, noise_power, sigmas, card)
     win = graph["windows"]["graph"]
@@ -3848,8 +3796,8 @@ def main():
         forward_rel_err_f32=fwd_err32,
         forward_rel_err_bf16=fwd_err16, estimation_seconds=est_s,
         estimation_forwards=nfe, estimation_best_nmse_db=
-        res.best_nmse_db().ravel().tolist(), bench_runs=bench_runs,
-        bench_levels=levels, bench_est_per_s_full=est_per_s, graph=graph,
+        res.best_nmse_db().ravel().tolist(), bench_counts=bench_counts,
+        bench_levels=levels, graph=graph,
         profile_wall_ms=wall_ms, profile_busy_ms=busy, profile_top=top,
         profile_ms_per_forward=path_ms, train=train, eval=evals,
         **later,

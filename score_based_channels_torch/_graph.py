@@ -1,20 +1,53 @@
-"""The two steps that the port's CUDA-graph runners share (the sampler's
-`PosteriorRunner`, the trainers' `TrainChunkRunner` and
+"""The port's one capture-and-replay path for its CUDA graphs (the
+sampler's `PosteriorRunner`, the trainers' `TrainChunkRunner` and
 `LDAMPStepRunner`, the baselines' iterations, the other samplers' steps,
 the link's receiver and decoder): a warm-up run on a side stream, and the
 capture of one step with its kernel counts taken back (a capture records
 launches and runs none). `Replayer` runs one step a call through both,
-then its replays; `run_steps` runs a loop of such steps."""
+then its replays; `run_steps` runs a loop of such steps. Under `eager()`
+every `Replayer` calls its step on the current stream: the yardstick a
+graph is held against. STATS counts the captures and replays of every
+graph the port makes."""
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import inspect
 import time
-from typing import Callable, List, NamedTuple, Optional, Sequence
+import weakref
+from typing import Callable, Iterator, List, NamedTuple, Optional, Sequence
 
 import torch
 
 from . import kernels
 from .utils.spans import span
+
+# Counts since `reset_stats`: graph captures and replays, seconds spent
+# capturing and the largest graph memory pool (bytes a capture reserved
+# for one step's intermediates).
+STATS = dict(captures=0, replays=0, capture_seconds=0.0, pool_bytes=0)
+_eager = False  # set by `eager()`
+
+
+def reset_stats() -> None:
+    """Set the counts in STATS to 0."""
+    for k in STATS:
+        STATS[k] = type(STATS[k])(0)
+
+
+@contextlib.contextmanager
+def eager() -> Iterator[None]:
+    """While the block runs, every `Replayer` call runs its step eagerly on
+    the current stream (no warm-up, capture or replay): the same steps the
+    graph runs, the yardstick it is held against. Nests; the state before
+    the block comes back when it ends, by an exception too."""
+    global _eager
+    saved, _eager = _eager, True
+    try:
+        yield
+    finally:
+        _eager = saved
 
 
 class Capture(NamedTuple):
@@ -60,10 +93,17 @@ def capture(fn: Callable[[], None], generator: Optional[torch.Generator],
         # thread_local: another thread's CUDA calls (NCCL's watchdog under
         # torch.distributed) may not invalidate the capture; autograd's
         # device thread records its backward into the capturing stream all
-        # the same
-        with torch.cuda.graph(graph, stream=torch.cuda.Stream(device),
-                              capture_error_mode="thread_local"):
-            fn()
+        # the same. The garbage collector waits: a dead graph it frees
+        # during the capture (cudaGraphExecDestroy) invalidates it.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(device),
+                                  capture_error_mode="thread_local"):
+                fn()
+        finally:
+            if collecting:
+                gc.enable()
         seconds = time.perf_counter() - t0
         after, after_grad = kernels.counts(), kernels.grad_counts()
         launches = {k: after[k]["launches"] - before[k]["launches"]
@@ -75,6 +115,9 @@ def capture(fn: Callable[[], None], generator: Optional[torch.Generator],
         pool = torch.cuda.memory_reserved(device) - reserved
         if generator is not None:
             generator.set_state(rng)
+        STATS["captures"] += 1
+        STATS["capture_seconds"] += seconds
+        STATS["pool_bytes"] = max(STATS["pool_bytes"], pool)
         return Capture(graph, launches, grad, seconds, pool)
 
 
@@ -85,32 +128,35 @@ class Replayer:
     second captures it (`capture`, the generator registered when fn
     draws) and replays the graph, every later call replays it, and each
     replay adds the captured counts to `kernels.counts()` and
-    `kernels.grad_counts()`. A capture that fails raises. `_capture =
-    False` runs every call eagerly on the current stream: the yardstick
-    beside the graph, not a user option."""
+    `kernels.grad_counts()`. A capture that fails raises; nothing falls
+    back to the eager step. Under `eager()`, fn() on the current stream.
+
+    A bound method is held weakly: its object owns the replayer, and a
+    reference cycle would keep a dead runner's graph and pool until the
+    garbage collector ran."""
 
     def __init__(self, fn: Callable[[], None], device,
                  generator: Optional[torch.Generator] = None):
-        self.fn = fn
+        self._fn = (weakref.WeakMethod(fn) if inspect.ismethod(fn)
+                    else lambda: fn)
         self.device = torch.device(device)
         self.generator = generator
         self.cap: Optional[Capture] = None
         self.warm = False
-        self.replays = 0
-        self._capture = True
 
     def __call__(self) -> None:
-        if self.device.type != "cuda" or not self._capture:
-            self.fn()
+        fn = self._fn()
+        if self.device.type != "cuda" or _eager:
+            fn()
         elif not self.warm:
-            on_side_stream(self.fn, self.device)
+            on_side_stream(fn, self.device)
             self.warm = True
         else:
             if self.cap is None:
-                self.cap = capture(self.fn, self.generator, self.device)
+                self.cap = capture(fn, self.generator, self.device)
             with span("graph.replay"):
                 self.cap.graph.replay()
-            self.replays += 1
+            STATS["replays"] += 1
             kernels.add_launches(self.cap.launches)
             kernels.add_grad_counts(self.cap.grad)
 

@@ -227,8 +227,8 @@ class MinsumDecoder:
     `num_iters` iterations, the column sums, the hard decision) through a
     `_graph.Replayer`: on the CPU the plain loop; on the card the first
     call eagerly on a side stream, the second captured as one CUDA graph
-    and replayed, every later call replayed (`replayer._capture = False`
-    runs each call eagerly: the yardstick). `decode` reads no host value,
+    and replayed, every later call replayed (under `_graph.eager()` each
+    call runs eagerly: the yardstick). `decode` reads no host value,
     so a caller may also record it inside a graph of its own
     (`comms.link.LinkReceiver` does). A call returns the decoder's own
     `bits` and `post`, which the next call overwrites.

@@ -73,8 +73,8 @@ class LinkReceiver:
     Each call copies its inputs in and runs `receive` through a
     `_graph.Replayer`: on the CPU directly; on the card the first call
     eagerly on a side stream, the second captured as one CUDA graph and
-    replayed, every later call replayed (`replayer._capture = False`: the
-    eager yardstick). A call returns the buffer `bits`, which the next
+    replayed, every later call replayed (under `_graph.eager()` every
+    call eagerly: the yardstick). A call returns the buffer `bits`, which the next
     call overwrites. The noise variance must lie on the device (a host
     value would be copied from pageable memory at each call).
     """

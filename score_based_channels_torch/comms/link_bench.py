@@ -25,30 +25,12 @@ import time
 import numpy as np
 import torch
 
-from .. import cplx
+from .. import _graph, cplx
 from .._device import resolve_device
 from . import link
 from .ldpc import make_wifi_ldpc
 
 SNRS = np.arange(-10, 12.5, 2.5)
-
-
-@contextlib.contextmanager
-def eager_receivers():
-    """`run_link_simulation` with its receivers run eagerly on the card
-    (`replayer._capture = False`): the yardstick of the receiver graph."""
-
-    class Eager(link.LinkReceiver):
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            self.replayer._capture = False
-
-    saved = link.LinkReceiver
-    link.LinkReceiver = Eager
-    try:
-        yield
-    finally:
-        link.LinkReceiver = saved
 
 
 def channels(packets: int, seed: int = 3):
@@ -62,17 +44,16 @@ def channels(packets: int, seed: int = 3):
     return H, (H + np.sqrt(0.1) * cn()).astype(np.complex64)
 
 
-def call_ms(H, H_est, detector: str, capture: bool, dev) -> list:
+def call_ms(H, H_est, detector: str, graph: bool, dev) -> list:
     """ms of each receiver call over one sweep (the card synchronised
     around each call), through one receiver as `run_link_simulation`
-    keeps it."""
+    keeps it: through its graph, or (graph False) under `_graph.eager()`."""
     from ..eval.estimate import derive_seed
 
     code = make_wifi_ldpc()
     Ht, He = cplx.from_complex(H).to(dev), cplx.from_complex(H_est).to(dev)
     rx = link.LinkReceiver(code, H.shape[0], H.shape[1], detector=detector,
                            device=dev)
-    rx.replayer._capture = capture
     inner, ms = rx.replayer, []
 
     def timed():
@@ -83,10 +64,11 @@ def call_ms(H, H_est, detector: str, capture: bool, dev) -> list:
         ms.append((time.perf_counter() - t0) * 1e3)
 
     rx.replayer = timed
-    for i, snr in enumerate(SNRS):
-        gen = torch.Generator(device=dev).manual_seed(derive_seed(0, i))
-        link.simulate_packets(gen, Ht, He, float(snr), code,
-                              detector=detector, receiver=rx)
+    with contextlib.nullcontext() if graph else _graph.eager():
+        for i, snr in enumerate(SNRS):
+            gen = torch.Generator(device=dev).manual_seed(derive_seed(0, i))
+            link.simulate_packets(gen, Ht, He, float(snr), code,
+                                  detector=detector, receiver=rx)
     return ms
 
 
@@ -98,7 +80,7 @@ def sweep_pairs(H, H_est, detector: str, pairs: int, dev) -> dict:
                                  detector=detector, device=dev)
 
     def eager():
-        with eager_receivers():
+        with _graph.eager():
             sweep()
 
     secs = {"eager": [], "graph": []}
@@ -131,8 +113,8 @@ def main(argv=None) -> None:
     H, H_est = channels(args.packets)
     n_pk = args.packets * len(SNRS)
     for det in args.detectors:
-        for way, capture in (("eager", False), ("graph", True)):
-            ms = call_ms(H, H_est, det, capture, dev)
+        for way in ("eager", "graph"):
+            ms = call_ms(H, H_est, det, way == "graph", dev)
             print(f"{det} {way}: receiver ms a call, first {ms[0]:.2f}, "
                   f"second {ms[1]:.2f}, the other {len(ms) - 2} median "
                   f"{np.median(ms[2:]):.2f} (range {min(ms[2:]):.2f}-"

@@ -3,8 +3,7 @@
 from .sampling import (
     PosteriorRunner, annealed_langevin_inpainting,
     annealed_langevin_interpolation, annealed_langevin_posterior,
-    annealed_langevin_posterior_c2, annealed_langevin_posterior_c2_plain,
-    annealed_langevin_unconditional,
+    annealed_langevin_posterior_c2, annealed_langevin_unconditional,
 )
 from .sigmas import (
     get_sigmas, sigmas_from_config, song_step_size, subsample_schedule,
@@ -13,6 +12,5 @@ from .sigmas import (
 __all__ = ["PosteriorRunner", "annealed_langevin_inpainting",
            "annealed_langevin_interpolation", "annealed_langevin_posterior",
            "annealed_langevin_posterior_c2",
-           "annealed_langevin_posterior_c2_plain",
            "annealed_langevin_unconditional", "get_sigmas",
            "sigmas_from_config", "song_step_size", "subsample_schedule"]

@@ -17,11 +17,12 @@ level comes from device tensors (a level counter that the level advances
 itself, sigma by index_select, the start gate, the capture latch, the
 trace rows), so the same work serves every level. On the CPU the level
 runs L times. On the card it is captured once in a CUDA graph and
-replayed for every level, so the host no longer launches the ~1,000
-kernels of a level one by one: a Python loop over levels with no host
-synchronisation (`annealed_langevin_posterior_c2_plain`, the plain
-version) still left the host setting the pace, at 5.3-10 ms of host time
-against ~4.3 ms of card time per bf16 forward at batch 256.
+replayed for every level (`_graph.Replayer`), so the host no longer
+launches the ~1,000 kernels of a level one by one: a Python loop over
+levels with no host synchronisation still left the host setting the
+pace, at 5.3-10 ms of host time against ~4.3 ms of card time per bf16
+forward at batch 256. Under `_graph.eager()` the same level runs
+eagerly: the yardstick the graph is held against.
 
 The JAX package runs each of the other samplers as one `lax.scan` over
 levels of a `lax.fori_loop` over inner steps (sampling.py:232/235,
@@ -32,19 +33,18 @@ counter), on the card captured once and replayed for every step.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from .. import _graph, cplx, kernels
+from .. import _graph, cplx
 from ..utils.spans import span
 
 # Counts of the posterior runner since `reset_stats`: forwards and levels
-# run on the device (eager or replayed), graph captures and replays,
-# seconds spent capturing and the largest graph memory pool (bytes the
-# capture reserved for one level's intermediates).
-STATS = dict(forwards=0, levels=0, captures=0, replays=0,
-             capture_seconds=0.0, pool_bytes=0)
+# run on the device (eager or replayed); its graphs' captures and replays
+# are `_graph.STATS`'.
+STATS = dict(forwards=0, levels=0)
 
 
 def reset_stats() -> None:
@@ -70,53 +70,62 @@ class PosteriorRunner:
     """The c2 posterior schedule as one level step on static buffers.
 
     `run` copies its inputs into the runner's buffers, resets the level
-    counter and runs the L levels of `sigmas`:
-    - on the CPU (or any device but CUDA), by calling the level L times;
+    counter and calls the level once a level of `sigmas` through one
+    `_graph.Replayer`:
+    - on the CPU (or any device but CUDA), and under `_graph.eager()`,
+      the level runs eagerly;
     - on the card, at its first run, level 0 eagerly on a side stream (so
       the first launch of every conv and norm shape of the level, with
       its build, `cudaFuncSetAttribute` and occupancy query, happens
-      outside a capture), then one level captured in a
-      `torch.cuda.CUDAGraph`, replayed for levels 1..L-1; every later run
-      replays it for all L levels.
+      outside a capture), then one level captured in a CUDA graph,
+      replayed for levels 1..L-1; every later run replays it for all L
+      levels.
     Nothing inside the level makes a tensor from host data, reads a
     Python int of the level or synchronises with the host, so the replays
     give the bits of the eager level. A capture that fails raises:
-    nothing falls back to the eager loop.
+    nothing falls back to the eager level.
 
     The generator draws the Langevin noise on the state's device; on the
     card it is registered with the graph, so each replay draws on from
-    where the last one stopped, as the plain loop does. Re-seeding it
+    where the last one stopped, as the eager levels do. Re-seeding it
     between runs (`langevin_chunked` does, per chunk) starts the next
-    run's draws from that seed. The capture reads the score network's
-    parameters in place: a network whose parameters are copied into
-    keeps its graph; one whose parameter tensors are replaced needs a new
-    runner. Each `annealed_langevin_posterior_c2` and `langevin_chunked`
-    call builds its own runner, so it captures anew.
+    run's draws from that seed. `noise_fn(level, step)`, when given,
+    makes the draws in its place (a test injects another sampler's
+    draws); a draw made in Python cannot be replayed, so such a runner
+    runs every level eagerly, reading the level from the host's loop.
+
+    The capture reads the score network's parameters in place: a network
+    whose parameters are copied into keeps its graph; one whose parameter
+    tensors are replaced needs a new runner. Each
+    `annealed_langevin_posterior_c2` and `langevin_chunked` call builds
+    its own runner, so it captures anew.
 
     Every run takes the same inputs (shapes and which options are given)
     as the first. `run` returns the runner's own buffers (the final or
     captured iterate, the trace): the next run overwrites them.
 
-    Launch counts: the capture records the kernel launches of a level
-    (the wrappers count them as they are recorded); the runner takes them
-    back, since a capture launches nothing, and adds them once per
-    replay (`recorded`), so `kernels.counts()` holds what ran on the
-    card. STATS counts the forwards and levels run.
+    Launch counts: `kernels.counts()` holds what ran on the card (the
+    replayer adds a level's captured launches once a replay). STATS counts
+    the forwards and levels run.
     """
 
     def __init__(self, score_fn: Callable[[torch.Tensor, torch.Tensor],
                                           torch.Tensor],
-                 sigmas: torch.Tensor, generator: torch.Generator,
+                 sigmas: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
                  steps_each: int = 3,
-                 noise_rows: Optional[Tuple[int, torch.Tensor]] = None):
+                 noise_rows: Optional[Tuple[int, torch.Tensor]] = None,
+                 noise_fn: Optional[Callable[[int, int],
+                                             torch.Tensor]] = None):
         self.score_fn = score_fn
         self.sigmas = sigmas
         self.generator = generator
         self.steps_each = steps_each
         self.noise_rows = noise_rows
+        self.noise_fn = noise_fn
         self.buf = None          # name -> static input buffer
-        self.graph = None
-        self.recorded = None     # kernel name -> launches a replay makes
+        self.replayer = None     # the level's `_graph.Replayer`
+        self.at = 0              # the level the host's loop is at
 
     @torch.no_grad()
     def run(self, A: torch.Tensor, Y: torch.Tensor, noise_power,
@@ -129,7 +138,8 @@ class PosteriorRunner:
         `annealed_langevin_posterior_c2`) -> (x_final or the captured
         iterate, trace or None), the runner's buffers."""
         dev = x_init.device
-        _check_generator(self.generator, dev)
+        if self.noise_fn is None:
+            _check_generator(self.generator, dev)
         with span("sampler.run"):
             with span("sampler.load"):
                 self._load(dev, A=A, Y=Y, noise_power=noise_power,
@@ -137,33 +147,16 @@ class PosteriorRunner:
                            beta_noise=beta_noise, oracle=oracle,
                            capture_level=capture_level,
                            start_level=start_level, coef_cap=coef_cap)
-            L = self.sigmas.shape[0]
-            if dev.type != "cuda":
-                for _ in range(L):
+            with (_graph.eager() if self.noise_fn is not None
+                  else contextlib.nullcontext()):
+                for lvl in range(self.sigmas.shape[0]):
+                    self.at = lvl
                     with span("sampler.level"):
-                        self._level()
-                    self._ran()
-            else:
-                done = 0
-                if self.graph is None:
-                    with span("sampler.level"):
-                        self._warm_up()
-                    self._ran()
-                    done = 1
-                    if L > 1:
-                        self._capture()
-                for _ in range(done, L):
-                    with span("sampler.level"):
-                        self.graph.replay()
-                    kernels.add_launches(self.recorded)
-                    self._ran(replay=True)
+                        self.replayer()
+                    STATS["levels"] += 1
+                    STATS["forwards"] += self.steps_each
         out = self.x_cap if self.x_cap is not None else self.x
         return out, self.trace
-
-    def _ran(self, replay: bool = False) -> None:
-        STATS["levels"] += 1
-        STATS["forwards"] += self.steps_each
-        STATS["replays"] += replay
 
     def _load(self, dev: torch.device, **given) -> None:
         """Copy the inputs into the static buffers (made at the first run,
@@ -197,6 +190,7 @@ class PosteriorRunner:
                                       dtype=torch.float32, device=dev)
                           if "oracle" in t else None)
             self.lvl = torch.zeros((), dtype=torch.int64, device=dev)
+            self.replayer = _graph.Replayer(self._level, dev, self.generator)
         elif set(t) != set(self.buf):
             raise ValueError("a runner's runs take the same inputs: got "
                              f"{sorted(t)}, first {sorted(self.buf)}")
@@ -207,7 +201,9 @@ class PosteriorRunner:
             self.x_cap.copy_(x0)
         self.lvl.zero_()
 
-    def _draw(self, x: torch.Tensor) -> torch.Tensor:
+    def _draw(self, x: torch.Tensor, step: int) -> torch.Tensor:
+        if self.noise_fn is not None:
+            return self.noise_fn(self.at, step).to(x.device)
         if self.noise_rows is None:
             return cplx.randn(self.generator, x.shape[:-1])
         n, keep = self.noise_rows
@@ -231,7 +227,7 @@ class PosteriorRunner:
         for step in range(S):
             score = self.score_fn(x, sigma)
             meas_grad = cplx.matmul(b["Ah"], cplx.matmul(b["A"], x) - b["Y"])
-            z = self._draw(x)
+            z = self._draw(x, step)
             x = (x + cplx.scale(score, alpha) - cplx.scale(meas_grad, coef)
                  + cplx.scale(z, noise_scale))
             if self.trace is not None:
@@ -243,18 +239,6 @@ class PosteriorRunner:
             self.x_cap.copy_(torch.where(latch, x, self.x_cap))
         self.x.copy_(x)
         lvl.add_(1)
-
-    def _warm_up(self) -> None:
-        """Level 0 eagerly, on a side stream."""
-        _graph.on_side_stream(self._level, self.x.device)
-
-    def _capture(self) -> None:
-        """Capture one level (`_graph.capture`)."""
-        cap = _graph.capture(self._level, self.generator, self.x.device)
-        self.graph, self.recorded = cap.graph, cap.launches
-        STATS["captures"] += 1
-        STATS["capture_seconds"] += cap.seconds
-        STATS["pool_bytes"] = max(STATS["pool_bytes"], cap.pool_bytes)
 
 
 @torch.no_grad()
@@ -293,110 +277,23 @@ def annealed_langevin_posterior_c2(
         level per sample (before it the sample holds its init).
       noise_fn: optional (level, step) -> z (B, Nt, Nr, 2) in place of the
         generator's draws (lets a test inject another sampler's draws);
-        with it the plain loop runs (`annealed_langevin_posterior_c2_plain`),
-        since a draw made in Python cannot be replayed by a graph.
+        with it every level runs eagerly, since a draw made in Python
+        cannot be replayed by a graph.
       noise_rows: (n, keep): each step draws z for n rows and keeps rows
         `keep` (a data-parallel rank's rows of its chunk), so a row's
         noise does not depend on how the chunk is split.
 
-    Without noise_fn the schedule runs in a `PosteriorRunner` (on the
-    card, one captured level replayed L times).
+    The schedule runs in a `PosteriorRunner` (on the card, one captured
+    level replayed L times).
 
     Returns (x_final or the captured iterate, nmse trace or None).
     """
-    if noise_fn is not None:
-        return annealed_langevin_posterior_c2_plain(
-            score_fn, A, Y, sigmas, noise_power, x_init, generator,
-            alpha_step=alpha_step, beta_noise=beta_noise,
-            steps_each=steps_each, oracle=oracle,
-            capture_level=capture_level, coef_cap=coef_cap,
-            start_level=start_level, noise_fn=noise_fn,
-            noise_rows=noise_rows)
     runner = PosteriorRunner(score_fn, sigmas, generator,
-                             steps_each=steps_each, noise_rows=noise_rows)
+                             steps_each=steps_each, noise_rows=noise_rows,
+                             noise_fn=noise_fn)
     return runner.run(A, Y, noise_power, x_init, alpha_step, beta_noise,
                       oracle=oracle, capture_level=capture_level,
                       start_level=start_level, coef_cap=coef_cap)
-
-
-@torch.no_grad()
-def annealed_langevin_posterior_c2_plain(
-    score_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
-    A: torch.Tensor,
-    Y: torch.Tensor,
-    sigmas: torch.Tensor,
-    noise_power,
-    x_init: torch.Tensor,
-    generator: Optional[torch.Generator] = None,
-    alpha_step=3e-11,
-    beta_noise=0.01,
-    steps_each: int = 3,
-    oracle: Optional[torch.Tensor] = None,
-    capture_level: Optional[torch.Tensor] = None,
-    coef_cap=None,
-    start_level: Optional[torch.Tensor] = None,
-    noise_fn: Optional[Callable[[int, int], torch.Tensor]] = None,
-    noise_rows: Optional[Tuple[int, torch.Tensor]] = None,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The plain version of `annealed_langevin_posterior_c2`, with the same
-    arguments: a Python loop over levels and steps that indexes sigma and
-    the trace with Python ints. It runs for `noise_fn` callers; the tests
-    and chip_smoke.py hold the runner against it."""
-    dev = x_init.device
-    if noise_fn is None:
-        _check_generator(generator, dev)
-    A, Y = A.to(dev), Y.to(dev)
-    sigmas = sigmas.to(dev, torch.float32)
-    sigma_end = sigmas[-1]
-    Ah = cplx.conj_transpose(A)
-    np_b = _per_sample(noise_power, x_init)
-    alpha_b = _per_sample(alpha_step, x_init)
-    beta_b = _per_sample(beta_noise, x_init)
-    cap_b = _per_sample(coef_cap, x_init) if coef_cap is not None else None
-    start = (torch.as_tensor(start_level, device=dev)
-             if start_level is not None else None)
-    cap_lvl = (torch.as_tensor(capture_level, device=dev)
-               if capture_level is not None else None)
-
-    L = sigmas.shape[0]
-    B = x_init.shape[0]
-    x = x_init.to(torch.float32)
-    x_cap = x.clone() if cap_lvl is not None else None
-    trace = None
-    if oracle is not None:
-        oracle = oracle.to(dev)
-        oracle_energy = cplx.sum_abs2(oracle, dim=(-1, -2))
-        trace = torch.empty((L * steps_each, B), dtype=torch.float32,
-                            device=dev)
-
-    for lvl in range(L):
-        sigma = sigmas[lvl]
-        alpha = alpha_b * (sigma / sigma_end) ** 2
-        if start is not None:
-            alpha = alpha * _per_sample((start <= lvl).float(), x_init)
-        coef = alpha / (np_b / 2.0 + sigma ** 2)
-        if cap_b is not None:
-            coef = torch.minimum(coef, cap_b)
-        noise_scale = torch.sqrt(2.0 * alpha * beta_b)
-        for step in range(steps_each):
-            score = score_fn(x, sigma)
-            meas_grad = cplx.matmul(Ah, cplx.matmul(A, x) - Y)
-            if noise_fn is not None:
-                z = noise_fn(lvl, step).to(dev)
-            elif noise_rows is None:
-                z = cplx.randn(generator, x.shape[:-1])
-            else:
-                z = cplx.randn(generator, (noise_rows[0],)
-                               + tuple(x.shape[1:-1]))[noise_rows[1]]
-            x = (x + cplx.scale(score, alpha) - cplx.scale(meas_grad, coef)
-                 + cplx.scale(z, noise_scale))
-            if trace is not None:
-                err = cplx.sum_abs2(x - oracle, dim=(-1, -2))
-                trace[lvl * steps_each + step] = err / oracle_energy
-        if x_cap is not None:
-            latch = (cap_lvl == lvl).reshape(B, 1, 1, 1)
-            x_cap = torch.where(latch, x, x_cap)
-    return (x_cap if x_cap is not None else x), trace
 
 
 def annealed_langevin_posterior(

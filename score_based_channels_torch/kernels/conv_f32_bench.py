@@ -152,7 +152,8 @@ def sweep(reps: int) -> List[dict]:
     256 and at each forward and dgrad shape at batch 32, with the plan's
     time and rank among them."""
     from . import conv
-    from .conv_probe import SPIN_CYCLES, device_ms
+    from .conv_probe import device_ms
+    from .launch_cost import spin_cycles
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(1)
@@ -180,7 +181,7 @@ def sweep(reps: int) -> List[dict]:
             cands = sorted(cands, key=_brief)
             # a short spin: it covers the host's queueing of `reps` calls
             times = [device_ms(lambda: conv._launch(x, w, None, d, False, p),
-                               dev, reps, spin=SPIN_CYCLES // 4)
+                               dev, reps, spin=spin_cycles(5.0))
                      for p in cands]
             timed = sorted(zip(times, cands), key=lambda t: t[0])
             plan_ms = next(ms for ms, p in timed if p == p0)

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from . import conv, conv_chain, conv_im2col
+from .launch_cost import spin_cycles
 
 CASES = [  # name, H, W, Cin, Cout, dilation (conv_probe.py:295-301)
     ("64x16 c32  d1", 64, 16, 32, 32, 1),
@@ -45,7 +46,7 @@ CASES = [  # name, H, W, Cin, Cout, dilation (conv_probe.py:295-301)
 ]
 CHAIN = (8, 2, 128, 1)   # H, W, C, dilation of the chain cases
 CHAIN_NS = (4, 8)
-SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's boost clock
+HOLD_MS = 20.0  # the spin that holds the card while the host queues calls
 
 
 def live_taps(k: int, dilation: int, H: int,
@@ -83,11 +84,12 @@ def conv_oracle(x_sbc: torch.Tensor, w: torch.Tensor,
 
 
 def device_ms(fn, device: torch.device, reps: int, warmup: int = 2,
-              spin: int = SPIN_CYCLES) -> float:
+              spin: Optional[int] = None) -> float:
     """Median time of fn() in ms: on the card, CUDA events around each call
-    while a spin kernel of `spin` cycles holds the device (long enough for
-    the host to queue every call), so the calls run back to back and the
-    events time the device; on the CPU, the host's clock."""
+    while a spin kernel of `spin` cycles (None: `launch_cost.spin_cycles`
+    of HOLD_MS) holds the device, long enough for the host to queue every
+    call, so the calls run back to back and the events time the device;
+    on the CPU, the host's clock."""
     for _ in range(warmup):
         fn()
     if device.type != "cuda":
@@ -97,8 +99,9 @@ def device_ms(fn, device: torch.device, reps: int, warmup: int = 2,
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
+    cycles = spin_cycles(HOLD_MS) if spin is None else spin
     torch.cuda.synchronize()
-    torch.cuda._sleep(spin)
+    torch.cuda._sleep(cycles)
     events = []
     for _ in range(reps):
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))

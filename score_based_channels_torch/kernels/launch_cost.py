@@ -3,11 +3,11 @@
     python -m score_based_channels_torch.kernels.launch_cost [--reps 10]
 
 Runs the full-width NCSNv2-Deepest forward in bf16 at batch 256 (random
-weights from seed 0, as chip_smoke.py's bench phase) while a spin kernel
-holds the device, so no launch waits for the card. The host's time for a
-forward is then what the host alone spends on it (Python, the modules, the
-wrappers, the launches), and a timer around every `conv.conv2d` call gives
-the conv wrapper's share of it. Events around the queued forward give its
+weights from seed 0) while a spin kernel holds the device, so no launch
+waits for the card. The host's time for a forward is then what the host
+alone spends on it (Python, the modules, the wrappers, the launches), and
+a timer around every `conv.conv2d` call gives the conv wrapper's share of
+it. Events around the queued forward give its
 device time, and forwards run back to back without the spin give the wall
 time per forward the two together allow.
 
@@ -31,16 +31,22 @@ import torch
 HOLD_MS = 300.0  # the spin kernel's time: far longer than a forward's host time
 
 
+_CYCLES_PER_MS: List[float] = []  # the spin's rate, probed once a process
+
+
 def spin_cycles(ms: float) -> int:
-    """Cycles of torch.cuda._sleep that hold the device for about ms."""
-    probe = 20_000_000
-    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    s.record()
-    torch.cuda._sleep(probe)
-    e.record()
-    e.synchronize()
-    return int(probe * ms / s.elapsed_time(e))
+    """Cycles of torch.cuda._sleep that hold the device for about ms (the
+    rate probed by a 20M-cycle spin at the first call)."""
+    if not _CYCLES_PER_MS:
+        probe = 20_000_000
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        s.record()
+        torch.cuda._sleep(probe)
+        e.record()
+        e.synchronize()
+        _CYCLES_PER_MS.append(probe / s.elapsed_time(e))
+    return int(_CYCLES_PER_MS[0] * ms)
 
 
 def main(argv: Optional[List[str]] = None) -> dict:

@@ -30,7 +30,7 @@ from typing import (
 import numpy as np
 import torch
 
-from .. import _graph, cplx, kernels
+from .. import _graph, cplx
 from .._device import resolve_device
 from ..config import Config, OptimConfig
 from ..data.dataset import ChannelDataset
@@ -177,17 +177,19 @@ class LDAMPStepRunner:
     (the divergence directions it draws); the step's (mse, nmse) go into
     row k of a (rows, 2) device buffer at a 0-d device counter k, which
     each run starts at 0. It returns the buffer's first n rows (the next
-    run overwrites them) and advances `opt.count` once a step.
-    - On the CPU, and on the card when `capture` is False (the eager loop
-      the graph is held against), it calls the step once a step.
-    - On the card, at the first step, the step runs eagerly on a side
+    run overwrites them) and advances `opt.count` once a step. The step
+    goes through one `_graph.Replayer`:
+    - on the CPU, and under `_graph.eager()` (the eager loop the graph is
+      held against), it runs eagerly once a step;
+    - on the card, at the first step, the step runs eagerly on a side
       stream (the first launch of every conv and dgrad shape, of cuDNN's
       transposed conv, its algorithm choice and the weight gradients,
-      happens outside a capture) and the gradients are dropped; then one
-      step (forward with its divergence probes, losses, backward, the
-      optimizer) is captured in a `torch.cuda.CUDAGraph`, with the
-      generator registered, and replayed for every later step of every
-      run.
+      happens outside a capture); then one step (forward with its
+      divergence probes, losses, backward, the optimizer) is captured in
+      a CUDA graph, with the generator registered, and replayed for
+      every later step of every run. `ldamp_update` drops the gradients
+      before its backward, so the captured backward makes its own in the
+      graph's pool.
     The batch's form is the first step's: `ldamp_batch`'s draws, which
     the step assembles on the device first (`ldamp_inputs`, counted in
     `stats["assembled"]`), or a batch that carries eig1 (as the JAX
@@ -206,24 +208,21 @@ class LDAMPStepRunner:
     loop. Every step takes batches of the first step's shapes, with
     directions or without as the first.
 
-    Counts: the capture records one step's kernel launches and gradient
-    work; the runner takes them back (a capture launches nothing) and
-    adds them once a replay, so `kernels.counts()` and
-    `kernels.grad_counts()` hold what ran on the card (`pilot_eigmax`
-    once a step on draws). `stats` counts the steps, the steps whose
-    batch the step assembled, captures and replays, the capture's seconds
-    and its graph pool's bytes.
+    Counts: `kernels.counts()` and `kernels.grad_counts()` hold what ran
+    on the card (the replayer adds a step's captured launches and
+    gradient work once a replay; `pilot_eigmax` once a step on draws).
+    `stats` counts the steps and the steps whose batch the step
+    assembled.
     """
 
     def __init__(self, model: LDAMP, opt: Optimizer,
-                 generator: torch.Generator, rows: int, updates: int,
-                 capture: bool = True):
+                 generator: torch.Generator, rows: int, updates: int):
         dev = opt.count_t.device
         if generator.device.type != dev.type:
             raise ValueError("the generator lies on another device than "
                              "the model")
         self.model, self.opt, self.generator = model, opt, generator
-        self.capture = capture and dev.type == "cuda"
+        self.replayer = _graph.Replayer(self._step, dev, generator)
         self.buf: Optional[Dict[str, torch.Tensor]] = None
         self.dirs: Optional[torch.Tensor] = None
         self.shapes = None         # the first step's input shapes
@@ -231,12 +230,7 @@ class LDAMPStepRunner:
         self.landed = None         # an event after the last staged copies
         self.losses = torch.zeros((rows, 2), dtype=torch.float32, device=dev)
         self.k = torch.zeros((), dtype=torch.int64, device=dev)
-        self.warmed = False
-        self.graph = None
-        self.recorded = None       # kernel name -> launches a replay makes
-        self.recorded_grad = None  # kernel name -> gradient work a replay
-        self.stats = dict(steps=0, assembled=0, captures=0, replays=0,
-                          capture_seconds=0.0, pool_bytes=0)
+        self.stats = dict(steps=0, assembled=0)
         opt.reserve(updates)
         opt.count_t.fill_(opt.count)
         self.table = opt.table
@@ -261,20 +255,7 @@ class LDAMPStepRunner:
                 with span("ldamp.step"):
                     self.opt.reserve_in(1, self.table)
                     self.generator.manual_seed(seed)
-                    if not self.capture:
-                        self._step()
-                    elif not self.warmed:
-                        _graph.on_side_stream(self._step, self.k.device)
-                        # the capture makes its own in its pool
-                        self.opt.zero_grad()
-                        self.warmed = True
-                    else:
-                        if self.graph is None:
-                            self._capture()
-                        self.graph.replay()
-                        kernels.add_launches(self.recorded)
-                        kernels.add_grad_counts(self.recorded_grad)
-                        self.stats["replays"] += 1
+                    self.replayer()
                 self.stats["steps"] += 1
                 self.stats["assembled"] += int("eig1" not in self.buf)
                 self.opt.count += 1
@@ -339,16 +320,6 @@ class LDAMPStepRunner:
                                 torch.stack([mse, nmse]).view(1, 2))
         self.k.add_(1)
 
-    def _capture(self) -> None:
-        """Capture one step (`_graph.capture`)."""
-        cap = _graph.capture(self._step, self.generator, self.k.device)
-        self.graph = cap.graph
-        self.recorded, self.recorded_grad = cap.launches, cap.grad
-        self.stats["captures"] += 1
-        self.stats["capture_seconds"] += cap.seconds
-        self.stats["pool_bytes"] = max(self.stats["pool_bytes"],
-                                       cap.pool_bytes)
-
 
 def train_ldamp_snr(
     config: Config,
@@ -362,14 +333,13 @@ def train_ldamp_snr(
     _init: Optional[dict] = None,
     _batches: Optional[Callable[[int], dict]] = None,
     _directions: Optional[Callable[[int], Sequence[torch.Tensor]]] = None,
-    _capture: bool = True,
 ) -> Tuple[LDAMP, dict]:
     """Train one LDAMP at one SNR on `device` (None: the card); returns
     (model, logs). The steps run through one `LDAMPStepRunner` (on the
-    card one captured step, replayed); `_capture` False runs the same
-    steps eagerly, the loop the graph is held against. `_init` (a state
-    dict), `_batches(step)` and `_directions(step)` replace the run's own
-    draws (a test feeds the JAX package's through them)."""
+    card one captured step, replayed; under `_graph.eager()` the same
+    steps eagerly). `_init` (a state dict), `_batches(step)` and
+    `_directions(step)` replace the run's own draws (a test feeds the JAX
+    package's through them)."""
     dev = resolve_device(device)
     n_epochs = n_epochs if n_epochs is not None else tc.n_epochs
     num_pilots = int(config.data.num_tx * tc.alpha)
@@ -386,8 +356,7 @@ def train_ldamp_snr(
         model.load_state_dict(_init, strict=True)
     opt = make_ldamp_optimizer(model, tc, max(1, len(ds) // tc.batch_size))
     runner = LDAMPStepRunner(model, opt, torch.Generator(device=dev),
-                             steps_per_epoch, n_epochs * steps_per_epoch,
-                             capture=_capture)
+                             steps_per_epoch, n_epochs * steps_per_epoch)
 
     def batch(s):  # made on the host
         return (_batches(s) if _batches is not None else ldamp_batch(

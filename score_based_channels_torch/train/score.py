@@ -48,7 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import _graph, kernels
+from .. import _graph
 from .._device import resolve_device
 from ..config import Config
 from ..data.dataset import ChannelDataset
@@ -336,11 +336,9 @@ def make_score_train_step(sigmas: torch.Tensor, ema_rate: float,
 
 
 # Counts of the training runner since `reset_stats`: steps run on the
-# device (eager or replayed), graph captures and replays, seconds spent
-# capturing and the largest graph memory pool (bytes the capture reserved
-# for one step's activations, gradients and temporaries).
-STATS = dict(steps=0, captures=0, replays=0, capture_seconds=0.0,
-             pool_bytes=0)
+# device (eager or replayed); its graphs' captures and replays are
+# `_graph.STATS`'.
+STATS = dict(steps=0)
 
 
 def reset_stats() -> None:
@@ -361,17 +359,20 @@ class TrainChunkRunner:
     labels and noise of the step), the loss written into its row of the
     loss buffer, the counter advanced. It returns the loss buffer's first
     n rows (the next run overwrites them) and advances the host's counts
-    (`state.step`, `state.opt.count`) once a step.
-    - On the CPU, and on the card when `capture` is False (the eager loop
-      the graph is held against), it calls the step once a step.
-    - On the card, at the first run, step 0 runs eagerly on a side stream
+    (`state.step`, `state.opt.count`) once a step. The step goes through
+    one `_graph.Replayer`:
+    - on the CPU, and under `_graph.eager()` (the eager loop the graph is
+      held against), it runs eagerly once a step;
+    - on the card, at the first run, step 0 runs eagerly on a side stream
       (so the first launch of every conv, dgrad and norm shape and of
       every cuDNN weight gradient, with its build, `cudaFuncSetAttribute`,
       occupancy query and algorithm choice, happens outside a capture);
-      then one step is captured in a `torch.cuda.CUDAGraph`, with the
-      generator registered, and replayed for every later step of every
-      run. Re-seeding the generator before a replay starts that replay's
-      draws from the seed, as the eager step's.
+      then one step is captured in a CUDA graph, with the generator
+      registered, and replayed for every later step of every run.
+      Re-seeding the generator before a replay starts that replay's draws
+      from the seed, as the eager step's. The update drops the gradients
+      before its backward (`make_score_update`), so the captured backward
+      makes its own in the graph's pool.
     Nothing inside the step makes a tensor from host data, reads a Python
     value that changes between steps or synchronises with the host: the
     optimizer's bias corrections and a schedule's learning rate come from
@@ -388,34 +389,27 @@ class TrainChunkRunner:
     unit noise to use in place of the generator's draws), at most
     chunk_len steps of `batch` rows.
 
-    Counts: the capture records one step's kernel launches and gradient
-    work (the wrappers count them as they are recorded); the runner takes
-    them back, since a capture launches nothing, and adds them once a
-    replay (`recorded`), so `kernels.counts()` and `kernels.grad_counts()`
-    hold what ran on the card. STATS counts the steps run.
+    Counts: `kernels.counts()` and `kernels.grad_counts()` hold what ran on
+    the card (the replayer adds a step's captured launches and gradient
+    work once a replay). STATS counts the steps run.
     """
 
     def __init__(self, update: Callable, state: ScoreTrainState,
                  x_all: torch.Tensor, batch: int, chunk_len: int,
-                 generator: torch.Generator, updates: int,
-                 capture: bool = True):
+                 generator: torch.Generator, updates: int):
         dev = x_all.device
         if generator.device.type != dev.type:
             raise ValueError("the generator lies on another device than "
                              "x_all")
         self.update, self.state, self.x_all = update, state, x_all
         self.generator = generator
-        self.capture = capture and dev.type == "cuda"
+        self.replayer = _graph.Replayer(self._step, dev, generator)
         self.idx = torch.zeros((chunk_len, batch), dtype=torch.int64,
                                device=dev)
         self.losses = torch.zeros(chunk_len, dtype=torch.float32, device=dev)
         self.k = torch.zeros((), dtype=torch.int64, device=dev)
         self.draws = None        # (labels, noise) buffers, when given
         self.runs = 0
-        self.warmed = False
-        self.graph = None
-        self.recorded = None     # kernel name -> launches a replay makes
-        self.recorded_grad = None  # kernel name -> gradient work a replay
         state.opt.reserve(updates)
         state.opt.count_t.fill_(state.opt.count)
         self.table = state.opt.table
@@ -440,17 +434,7 @@ class TrainChunkRunner:
             for seed in seeds:
                 with span("dsm.step"):
                     self.generator.manual_seed(seed)
-                    if not self.capture:
-                        self._step()
-                    elif not self.warmed:
-                        self._warm_up()
-                    else:
-                        if self.graph is None:
-                            self._capture()
-                        self.graph.replay()
-                        kernels.add_launches(self.recorded)
-                        kernels.add_grad_counts(self.recorded_grad)
-                        STATS["replays"] += 1
+                    self.replayer()
                 STATS["steps"] += 1
                 opt.count += 1
                 self.state.step += 1
@@ -489,22 +473,6 @@ class TrainChunkRunner:
         loss = self.update(self.state, x, self.generator, labels, noise)
         self.losses.index_copy_(0, row, loss.view(1))
         self.k.add_(1)
-
-    def _warm_up(self) -> None:
-        """Step 0 eagerly on a side stream, then the gradients dropped, so
-        that the captured backward makes its own in the graph's pool."""
-        _graph.on_side_stream(self._step, self.k.device)
-        self.state.opt.zero_grad()
-        self.warmed = True
-
-    def _capture(self) -> None:
-        """Capture one step (`_graph.capture`)."""
-        cap = _graph.capture(self._step, self.generator, self.k.device)
-        self.graph = cap.graph
-        self.recorded, self.recorded_grad = cap.launches, cap.grad
-        STATS["captures"] += 1
-        STATS["capture_seconds"] += cap.seconds
-        STATS["pool_bytes"] = max(STATS["pool_bytes"], cap.pool_bytes)
 
 
 def make_eval_loss(sigmas: torch.Tensor, anneal_power: float,
@@ -568,9 +536,6 @@ class ScoreTrainer:
         self.train_step = make_score_train_step(
             self.sigmas, config.model.ema_rate, config.training.anneal_power,
             self.mesh)
-        # `train` captures its step on the card; False runs the same steps
-        # eagerly, the loop the graph is held against (tests, chip_smoke)
-        self._capture = True
         self.eval_loss = make_eval_loss(self.sigmas,
                                         config.training.anneal_power,
                                         self.mesh)
@@ -651,8 +616,7 @@ class ScoreTrainer:
         with matmul_precision(cfg.training.matmul_precision):
             runner = TrainChunkRunner(self.update, state, x_all, batch,
                                       chunk_len, gen,
-                                      max(0, total_steps - done),
-                                      capture=self._capture)
+                                      max(0, total_steps - done))
             while done < total_steps:
                 steps = range(done, min(done + chunk_len, total_steps))
                 idx = []

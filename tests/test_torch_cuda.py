@@ -7,6 +7,7 @@ PyTorch versions. Skipped without a card; on the card, run
 need not have; this file imports no JAX).
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -18,13 +19,12 @@ from torch.profiler import ProfilerActivity, profile
 
 import numpy as np
 
-from score_based_channels_torch import cplx, physics
+from score_based_channels_torch import _graph, cplx, physics
 from score_based_channels_torch.comms.ldpc import make_wifi_ldpc, minsum_decode
 from score_based_channels_torch.config import ModelConfig
 from score_based_channels_torch.diffusion import sampling
 from score_based_channels_torch.diffusion.sampling import (
     PosteriorRunner, annealed_langevin_posterior_c2,
-    annealed_langevin_posterior_c2_plain,
 )
 from score_based_channels_torch.diffusion.sigmas import get_sigmas
 from score_based_channels_torch.eval.estimate import (
@@ -1119,33 +1119,37 @@ def _posterior_case(card, dtype, B=8, levels=5):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_graph_equals_plain_loop_bitwise_over_two_chunks(card, dtype):
     """langevin_chunked (one capture, replayed for every level of both
-    chunks) against the plain loop run chunk by chunk, at beta 0.01: the
-    same bits, and launches of 113 convs and 25 norms a forward."""
+    chunks) against a runner per chunk run eagerly (`_graph.eager()`), at
+    beta 0.01: the same bits, and launches of 113 convs and 25 norms a
+    forward."""
     B, chunk, levels, steps, seed = 8, 4, 5, 2, 3
     score, A, Y, X, x0, npow, sig = _posterior_case(card, dtype, B, levels)
     cap = torch.arange(B) % levels
     reset_counts()
     sampling.reset_stats()
+    _graph.reset_stats()
     xg, tg = langevin_chunked(score, A, Y, sig, npow, x0, seed, 3e-11, 0.01,
                               steps_each=steps, oracle2=X, chunk_size=chunk,
                               capture_level=cap, device=card)
-    n, st = counts(), dict(sampling.STATS)
+    n, st, gst = counts(), dict(sampling.STATS), dict(_graph.STATS)
     assert st["forwards"] == steps * levels * (B // chunk)
-    assert (st["captures"], st["replays"]) == (1, levels * 2 - 1)
+    assert (gst["captures"], gst["replays"]) == (1, levels * 2 - 1)
     assert n["conv2d_taps"] == {"launches": 113 * st["forwards"], "plain": 0}
     assert n["instance_norm_plus"] == {"launches": 25 * st["forwards"],
                                        "plain": 0}
     xs, ts = [], []
-    for start in range(0, B, chunk):
-        rows = slice(start, start + chunk)
-        xf, tr = annealed_langevin_posterior_c2_plain(
-            score, A[rows], Y[rows], sig, npow, x0[rows],
-            torch.Generator(device=card).manual_seed(derive_seed(seed,
-                                                                 start)),
-            alpha_step=3e-11, beta_noise=0.01, steps_each=steps,
-            oracle=X[rows], capture_level=cap[rows].to(card))
-        xs.append(cplx.to_complex(xf))
-        ts.append(tr.cpu().numpy())
+    with _graph.eager():
+        for start in range(0, B, chunk):
+            rows = slice(start, start + chunk)
+            xf, tr = PosteriorRunner(
+                score, sig, torch.Generator(device=card).manual_seed(
+                    derive_seed(seed, start)), steps_each=steps).run(
+                A[rows], Y[rows], npow, x0[rows], alpha_step=3e-11,
+                beta_noise=0.01, oracle=X[rows],
+                capture_level=cap[rows].to(card))
+            xs.append(cplx.to_complex(xf))
+            ts.append(tr.cpu().numpy())
+    assert _graph.STATS["captures"] == 1
     np.testing.assert_array_equal(xg, np.concatenate(xs))
     np.testing.assert_array_equal(tg, np.concatenate(ts, axis=1))
 
@@ -1185,21 +1189,21 @@ def test_graph_launch_counts_are_captured_times_replays(card):
                              torch.Generator(device=card).manual_seed(0),
                              steps_each=steps)
     reset_counts()
-    sampling.reset_stats()
+    _graph.reset_stats()
     runner.run(A, Y, npow, x0, oracle=X)
-    rec = runner.recorded
+    rec = runner.replayer.cap.launches
     assert rec["conv2d_taps"] == 113 * steps
     assert rec["instance_norm_plus"] == 25 * steps
-    assert sampling.STATS["replays"] == levels - 1
+    assert _graph.STATS["replays"] == levels - 1
     for k in ("conv2d_taps", "instance_norm_plus"):  # eager level 0 + replays
         assert counts()[k]["launches"] == rec[k] * levels
     runner.run(A, Y, npow, x0, oracle=X)  # every level replayed
-    assert sampling.STATS["replays"] == 2 * levels - 1
-    assert sampling.STATS["captures"] == 1
+    assert _graph.STATS["replays"] == 2 * levels - 1
+    assert _graph.STATS["captures"] == 1
     for k in ("conv2d_taps", "instance_norm_plus"):
         assert counts()[k]["launches"] == rec[k] * 2 * levels
         assert counts()[k]["plain"] == 0
-    assert sampling.STATS["pool_bytes"] > 0
+    assert _graph.STATS["pool_bytes"] > 0
 
 
 def test_capture_with_a_host_sync_raises(card):
@@ -1217,7 +1221,7 @@ def test_capture_with_a_host_sync_raises(card):
             torch.ones(2, 64, 16, 2, device=card))
     with pytest.raises(RuntimeError):
         runner.run(*args)
-    assert runner.graph is None
+    assert runner.replayer.cap is None
     ok, _ = PosteriorRunner(lambda x, s: torch.zeros_like(x), torch.ones(3),
                             torch.Generator(device=card).manual_seed(0),
                             steps_each=1).run(*args, beta_noise=0.0)
@@ -1287,12 +1291,13 @@ def _near_their_events(got, marks):
 
 
 def test_posterior_runner_spans_share_the_profilers_clock(card):
-    """A new bf16 runner under a CUDA profiler records one warm-up, one
-    capture and a level span for each of its L levels, inside its run;
-    each span lies near its "sbc:" event (`_near_their_events`); the L-1 graph
-    launches lie inside the replayed levels' spans, and the replays'
-    device operations start after the first of them began and end before
-    the profiler's last synchronise returned."""
+    """A new bf16 runner under a CUDA profiler records a level span for
+    each of its L levels, inside its run: the first holds the warm-up, the
+    second the capture and a replay, each later one a replay; each span
+    lies near its "sbc:" event (`_near_their_events`); the L-1 graph
+    launches lie inside the replay spans, and the replays' device
+    operations start after the first of them began and end before the
+    profiler's last synchronise returned."""
     levels = 4
     score, A, Y, X, x0, npow, sig = _posterior_case(card, torch.bfloat16,
                                                     levels=levels)
@@ -1304,25 +1309,31 @@ def test_posterior_runner_spans_share_the_profilers_clock(card):
     names = [r.name for r in got]
     assert {n: names.count(n) for n in set(names)} == {
         "sampler.run": 1, "sampler.load": 1, "graph.warm_up": 1,
-        "graph.capture": 1, "sampler.level": levels}
+        "graph.capture": 1, "graph.replay": levels - 1,
+        "sampler.level": levels}
     run, first = got[0], got[2]
     assert (run.name, first.name) == ("sampler.run", "sampler.level")
     assert run.parent is None
+    level_of = [r.index for r in got if r.name == "sampler.level"]
     for r in got[1:]:
         assert run.start_ns <= r.start_ns <= r.end_ns <= run.end_ns
-        assert r.parent == (first.index if r.name == "graph.warm_up"
-                            else run.index)
+        if r.name in ("sampler.load", "sampler.level"):
+            assert r.parent == run.index
+        else:  # the replayer's spans nest in the levels
+            assert r.parent in level_of, r
+    warm, capture = (next(r for r in got if r.name == n)
+                     for n in ("graph.warm_up", "graph.capture"))
+    assert (warm.parent, capture.parent) == tuple(level_of[:2])
     _near_their_events(got, marks)
 
-    capture = next(r for r in got if r.name == "graph.capture")
-    replayed = [r for r in got if r.name == "sampler.level"
-                and r.start_ns >= capture.end_ns]
-    assert len(replayed) == levels - 1 == len(launches)
-    for (_, s, e), r in zip(sorted(launches, key=lambda t: t[1]), replayed):
+    replays = [r for r in got if r.name == "graph.replay"]
+    assert len(replays) == levels - 1 == len(launches)
+    assert [r.parent for r in replays] == level_of[1:]
+    for (_, s, e), r in zip(sorted(launches, key=lambda t: t[1]), replays):
         assert r.start_ns <= s <= e <= r.end_ns
     after = [t for t in device if t[1] >= capture.end_ns]
     assert after, "no device operation after the capture"
-    assert min(s for _, s, _ in after) >= replayed[0].start_ns
+    assert min(s for _, s, _ in after) >= replays[0].start_ns
     assert max(e for _, _, e in after) <= synced
 
 
@@ -1330,16 +1341,15 @@ def test_replayer_spans_warm_up_capture_and_replays(card):
     """A `Replayer` records its warm-up, its capture and each replay, one
     "sbc:" event each and near it, each replay's graph launch inside its
     span."""
-    from score_based_channels_torch import _graph
-
     buf = torch.ones(1024, device=card)
     rep = _graph.Replayer(lambda: buf.mul_(1.5), card)
+    _graph.reset_stats()
     got, marks, launches, _, _ = _profiled(
         lambda: [rep() for _ in range(5)])
     names = [r.name for r in got]
     assert names == ["graph.warm_up", "graph.capture"] + ["graph.replay"] * 4
     assert sorted(m[0] for m in marks) == sorted(names)
-    assert len(launches) == 4 and rep.replays == 4
+    assert len(launches) == 4 and _graph.STATS["replays"] == 4
     for (_, s, e), r in zip(sorted(launches, key=lambda t: t[1]), got[2:]):
         assert r.start_ns <= s <= e <= r.end_ns
     _near_their_events(got, marks)
@@ -1379,10 +1389,10 @@ def test_train_graph_equals_the_eager_loop_bitwise(card, deterministic):
     from score_based_channels_torch.train import ScoreTrainer
 
     runs = []
-    for capture in (True, False):
+    for eager in (False, True):
         trainer = ScoreTrainer(_train_graph_config(), device=card)
-        trainer._capture = capture
-        runs.append(trainer.train(log_fn=lambda s: None))
+        with _graph.eager() if eager else contextlib.nullcontext():
+            runs.append(trainer.train(log_fn=lambda s: None))
     (a, la), (b, lb) = runs
     assert a.step == b.step == 12 and a.opt.count == b.opt.count == 12
     for m, n in ((a.model, b.model), (a.ema, b.ema)):
@@ -1405,9 +1415,10 @@ def test_train_graph_counts_its_launches_and_gradient_work(card):
 
     reset_counts()
     train_score.reset_stats()
+    _graph.reset_stats()
     state, logs = ScoreTrainer(_train_graph_config(), device=card).train(
         log_fn=lambda s: None)
-    st = dict(train_score.STATS)
+    st = dict(train_score.STATS, **_graph.STATS)
     assert (st["steps"], st["captures"], st["replays"]) == (12, 1, 11)
     assert st["pool_bytes"] > 0 and st["capture_seconds"] > 0
     steps, n_val = state.step, len(logs["val_loss"])
@@ -1436,7 +1447,7 @@ def test_train_runner_refuses_inputs_that_change_between_runs(card):
                               torch.Generator(device=card), 20)
     idx = torch.arange(16).view(2, 8)
     runner.run(idx, [1, 2])  # step 0 eager, the capture, step 1 replayed
-    assert runner.graph is not None
+    assert runner.replayer.cap is not None
     with pytest.raises(ValueError):
         runner.run(torch.zeros(2, 4, dtype=torch.int64), [1, 2])
     with pytest.raises(ValueError):
@@ -1464,7 +1475,7 @@ def test_train_capture_with_a_host_sync_raises(card):
                               torch.Generator(device=card), 20)
     with pytest.raises(RuntimeError):
         runner.run(torch.arange(16).view(2, 8), [1, 2])
-    assert runner.graph is None
+    assert runner.replayer.cap is None
     ok = TrainChunkRunner(trainer.update, trainer.init_state(1), x_all, 8, 3,
                           torch.Generator(device=card), 20)
     assert torch.isfinite(ok.run(torch.arange(16).view(2, 8), [1, 2])).all()
@@ -1482,8 +1493,9 @@ def _ldamp_tiny():
 
 
 def _ldamp_runs(card, capture, steps=6):
-    """(model, optimizer, (steps, 2) rows, runner) of `steps` runner steps
-    on the tiny LDAMP, one run an epoch of 2 steps."""
+    """(model, optimizer, (steps, 2) rows, runner, replays) of `steps`
+    runner steps on the tiny LDAMP, one run an epoch of 2 steps, through
+    the graph or (capture False) under `_graph.eager()`."""
     from score_based_channels_torch.data import ChannelDataset
     from score_based_channels_torch.train.ldamp import (
         LDAMPStepRunner, ldamp_batch, make_ldamp_model, make_ldamp_optimizer,
@@ -1495,21 +1507,23 @@ def _ldamp_runs(card, capture, steps=6):
     model = make_ldamp_model(tc, card)
     opt = make_ldamp_optimizer(model, tc, 2)
     runner = LDAMPStepRunner(model, opt, torch.Generator(device=card), 2,
-                             steps, capture=capture)
+                             steps)
     rows = []
-    for run in range(steps // 2):
-        s = range(2 * run, 2 * run + 2)
-        rows.append(runner.run(
-            (ldamp_batch(ds, torch.Generator().manual_seed(i), 4, "cpu")
-             for i in s), [100 + i for i in s]).clone())
-    return model, opt, torch.cat(rows), runner
+    _graph.reset_stats()
+    with contextlib.nullcontext() if capture else _graph.eager():
+        for run in range(steps // 2):
+            s = range(2 * run, 2 * run + 2)
+            rows.append(runner.run(
+                (ldamp_batch(ds, torch.Generator().manual_seed(i), 4, "cpu")
+                 for i in s), [100 + i for i in s]).clone())
+    return model, opt, torch.cat(rows), runner, _graph.STATS["replays"]
 
 
 def test_ldamp_graph_equals_the_eager_loop_bitwise(card, deterministic):
     """6 steps over 3 epochs, across two drops of the rate: parameters,
     Adam moments, count and every (mse, nmse) row, bit for bit."""
     a, b = _ldamp_runs(card, True), _ldamp_runs(card, False)
-    assert a[3].stats["replays"] == 5 and b[3].stats["replays"] == 0
+    assert a[4] == 5 and b[4] == 0
     for p, q in zip(a[0].parameters(), b[0].parameters()):
         assert torch.equal(p, q)
     for key in ("mu", "nu"):
@@ -1527,10 +1541,11 @@ def test_ldamp_graph_counts_what_the_eager_loop_launches(card):
 
     cfg, tc = _ldamp_tiny()
     seen = []
-    for capture in (True, False):
+    for eager in (False, True):
         reset_counts()
-        _, logs = train_ldamp_snr(cfg, 10.0, tc, log_fn=lambda s: None,
-                                  device=card, _capture=capture)
+        with _graph.eager() if eager else contextlib.nullcontext():
+            _, logs = train_ldamp_snr(cfg, 10.0, tc, log_fn=lambda s: None,
+                                      device=card)
         seen.append((counts(), grad_counts()))
         assert np.isfinite(logs["loss_log"]).all()
         assert len(logs["loss_log"]) == 6
@@ -1643,17 +1658,20 @@ def test_ldamp_runner_assembles_the_draws_in_its_graph(card, deterministic):
         model.load_state_dict(weights)
         opt = make_ldamp_optimizer(model, tc, 1)
         runner = LDAMPStepRunner(model, opt, torch.Generator(device=card),
-                                 1, 3, capture=capture)
+                                 1, 3)
         reset_counts()
+        _graph.reset_stats()
         rows, g1 = [], None
-        for s in range(3):
-            rows.append(runner.run([batch(s)], [50 + s]).clone())
-            if g1 is None:
-                g1 = [(mu / (1 - 0.9)).cpu() for mu in opt.moments["mu"]]
+        with contextlib.nullcontext() if capture else _graph.eager():
+            for s in range(3):
+                rows.append(runner.run([batch(s)], [50 + s]).clone())
+                if g1 is None:
+                    g1 = [(mu / (1 - 0.9)).cpu() for mu in opt.moments["mu"]]
         change = [(p.detach().cpu() - weights[k])
                   for k, p in model.named_parameters()]
         got[name] = (torch.cat(rows).cpu(), list(zip(g1, g1)),
-                     list(zip(g1, change)), runner.stats,
+                     list(zip(g1, change)),
+                     dict(runner.stats, replays=_graph.STATS["replays"]),
                      counts()["pilot_eigmax"])
     g, e, hb = got["graph"], got["eager"], got["host"]
     assert torch.equal(g[0], e[0]) and torch.isfinite(g[0]).all()
@@ -1747,21 +1765,23 @@ def _link_case(card, seed, B=256, Nr=16, Nt=64, Ns=4):
 @pytest.mark.parametrize("detector", ["ml", "kbest", "zf-sic"])
 def test_receiver_graph_equals_the_eager_receiver(card, detector):
     """One receiver through its graph (call 1 eager, then one capture and
-    replays) against one run eagerly on the card (`_capture = False`),
-    at 256 packets: the same bits at every call; 25 `ldpc_minsum`
-    launches a call, none plain."""
+    replays) against one run eagerly on the card (`_graph.eager()`), at
+    256 packets: the same bits at every call; 25 `ldpc_minsum` launches a
+    call, none plain."""
     from score_based_channels_torch.comms import link
 
     code = make_wifi_ldpc()
     graph = link.LinkReceiver(code, 256, 16, detector=detector, device=card)
     eager = link.LinkReceiver(code, 256, 16, detector=detector, device=card)
-    eager.replayer._capture = False
     reset_counts()
+    _graph.reset_stats()
     for seed in range(4):
         y, H, nv = _link_case(card, seed)
-        assert torch.equal(graph(y, H, nv), eager(y, H, nv))
+        with _graph.eager():
+            want = eager(y, H, nv)
+        assert torch.equal(graph(y, H, nv), want)
         assert torch.equal(graph.decoder.post, eager.decoder.post)
-    assert graph.replayer.replays == 3 and eager.replayer.cap is None
+    assert _graph.STATS["replays"] == 3 and eager.replayer.cap is None
     assert graph.replayer.cap.launches["ldpc_minsum"] == 25
     assert counts()["ldpc_minsum"] == {"launches": 2 * 4 * 25, "plain": 0}
 
@@ -1774,12 +1794,13 @@ def test_decoder_replays_equal_eager_decodes(card):
     code = make_wifi_ldpc()
     dec = MinsumDecoder(code.H, 256, device=card)
     reset_counts()
+    _graph.reset_stats()
     for seed in range(4):
         _, llr, _ = _ldpc_inputs(256, card, seed=seed)
         bits, post = dec(llr)
         want_bits, want_post = minsum_decode(llr, code.H, num_iters=25)
         assert torch.equal(bits, want_bits) and torch.equal(post, want_post)
-    assert dec.replayer.replays == 3
+    assert _graph.STATS["replays"] == 3
     assert dec.replayer.cap.launches == {"conv2d_taps": 0,
                                          "instance_norm_plus": 0,
                                          "ldpc_minsum": 25, "conv_im2col": 0,
@@ -1790,8 +1811,7 @@ def test_decoder_replays_equal_eager_decodes(card):
     assert counts()["ldpc_minsum"] == {"launches": 2 * 4 * 25, "plain": 0}
 
 
-def test_link_sweep_through_the_graph_equals_the_eager_sweep(card,
-                                                             monkeypatch):
+def test_link_sweep_through_the_graph_equals_the_eager_sweep(card):
     """`run_link_simulation` (one receiver, one capture, 2 x 3 - 2
     replays) against the same sweep with the receiver eager: equal BER
     and BLER, 25 launches a decode either way."""
@@ -1807,13 +1827,9 @@ def test_link_sweep_through_the_graph_equals_the_eager_sweep(card,
     got = link.run_link_simulation(H, H_est, snr_range=snrs, device=card)
     assert counts()["ldpc_minsum"] == {"launches": 2 * 3 * 25, "plain": 0}
 
-    class Eager(link.LinkReceiver):
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            self.replayer._capture = False
-
-    monkeypatch.setattr(link, "LinkReceiver", Eager)
-    want = link.run_link_simulation(H, H_est, snr_range=snrs, device=card)
+    with _graph.eager():
+        want = link.run_link_simulation(H, H_est, snr_range=snrs,
+                                        device=card)
     for key in ("ber_ideal", "ber_est", "bler_ideal", "bler_est"):
         np.testing.assert_array_equal(getattr(got, key), getattr(want, key))
 

@@ -14,7 +14,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from score_based_channels_torch import cplx, physics
+from score_based_channels_torch import _graph, cplx, physics
 from score_based_channels_torch.config import ModelConfig
 from score_based_channels_torch.diffusion import sampling
 from score_based_channels_torch.diffusion.dsm import anneal_dsm_loss
@@ -150,9 +150,10 @@ def test_a_captured_sampler_level_counts_12_launches_a_forward(card):
                              steps_each=steps)
     reset_counts()
     sampling.reset_stats()
+    _graph.reset_stats()
     runner.run(A.to(card), Y.to(card), npow, x0.to(card), oracle=X.to(card))
-    assert runner.recorded["max_pool_5x5"] == 12 * steps
-    assert sampling.STATS["replays"] == levels - 1
+    assert runner.replayer.cap.launches["max_pool_5x5"] == 12 * steps
+    assert _graph.STATS["replays"] == levels - 1
     assert counts()["max_pool_5x5"] == {
         "launches": 12 * sampling.STATS["forwards"], "plain": 0,
         "autograd": 0}

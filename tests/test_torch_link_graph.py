@@ -186,19 +186,19 @@ def test_sweep_builds_its_constants_once(code, monkeypatch):
 
 
 def test_eager_receivers_give_the_graph_sweeps_bits(code):
-    """`link_bench.eager_receivers` (the graph's yardstick) swaps in
-    receivers that run eagerly; on the CPU both ways run the same step,
-    so the sweeps agree, and the swap is undone on leaving."""
+    """Under `_graph.eager()` (the graph's yardstick) the receivers run
+    eagerly; on the CPU both ways run the same step, so the sweeps agree,
+    and the switch is off again on leaving."""
+    from score_based_channels_torch import _graph
     from score_based_channels_torch.comms import link_bench
 
     H, H_est = link_bench.channels(B)
     kw = dict(snr_range=np.array([-5.0, 5.0]), num_bp_iters=3, device="cpu")
     want = link.run_link_simulation(H, H_est, **kw)
-    with link_bench.eager_receivers():
-        rx = link.LinkReceiver(code, B, NR, device="cpu")
-        assert rx.replayer._capture is False
+    with _graph.eager():
+        assert _graph._eager
         got = link.run_link_simulation(H, H_est, **kw)
-    assert link.LinkReceiver(code, B, NR, device="cpu").replayer._capture
+    assert not _graph._eager
     for key in ("ber_ideal", "ber_est", "bler_ideal", "bler_est"):
         np.testing.assert_array_equal(getattr(got, key), getattr(want, key))
 

@@ -1,13 +1,15 @@
 """The posterior runner (`PosteriorRunner`: the schedule as one level step
-on static buffers, a CUDA graph on the card) on the CPU, against the plain
-loop it replaces and the JAX sampler.
+on static buffers, a CUDA graph on the card) on the CPU, against itself
+fed its draws through noise_fn, a fresh runner per chunk and the JAX
+sampler.
 
-On the CPU the runner calls its level L times. Its arithmetic is the plain
-loop's, op for op, so the two agree bit for bit, with and without each
+On the CPU the runner calls its level L times. A runner whose noise_fn
+draws what the generator draws (the eager path a `noise_fn` caller takes)
+gives the bits of the runner with the generator, with and without each
 option; `langevin_chunked` reuses one runner for every chunk, so it must
-equal the plain loop run chunk by chunk on fresh tensors, bit for bit.
-Against the JAX sampler the bar is test_torch_sampler.py's 1e-5 of the
-largest magnitude (two conv and matmul orders in f32 over 72 steps).
+equal a fresh runner per chunk on fresh tensors, bit for bit. Against the
+JAX sampler the bar is test_torch_sampler.py's 1e-5 of the largest
+magnitude (two conv and matmul orders in f32 over 72 steps).
 """
 
 import jax
@@ -28,11 +30,10 @@ from score_based_channels_tpu.models import make_score_model as jax_model
 from score_based_channels_tpu.models.torch_compat import (
     torch_state_dict_to_flax,
 )
+from score_based_channels_torch import _graph, cplx
 from score_based_channels_torch.config import ModelConfig
 from score_based_channels_torch.diffusion import sampling
-from score_based_channels_torch.diffusion.sampling import (
-    PosteriorRunner, annealed_langevin_posterior_c2_plain,
-)
+from score_based_channels_torch.diffusion.sampling import PosteriorRunner
 from score_based_channels_torch.diffusion.sigmas import get_sigmas
 from score_based_channels_torch.eval.estimate import (
     _generator, langevin_chunked, score_fn_from_params,
@@ -100,18 +101,32 @@ def _inputs(s, opts, beta):
     return args, kw
 
 
+def _draws_like_the_runner(generator, noise_rows):
+    """noise_fn drawing from `generator` what the runner's level draws."""
+    def noise_fn(lvl, step):
+        if noise_rows is None:
+            return cplx.randn(generator, (B, 64, 16))
+        n, keep = noise_rows
+        return cplx.randn(generator, (n, 64, 16)).index_select(0, keep)
+    return noise_fn
+
+
 @pytest.mark.parametrize("option", list(OPTIONS))
 def test_runner_equals_plain_loop_bitwise(setup, option):
+    """The runner with its generator against the runner fed the same
+    draws by noise_fn (every level eager, the level from the host's
+    loop): the same bits."""
     opts = OPTIONS[option]
     args, kw = _inputs(setup, opts, beta=0.5)
     noise_rows = opts.get("noise_rows")
-    want_x, want_t = annealed_langevin_posterior_c2_plain(
-        *args, generator=torch.Generator().manual_seed(5),
-        noise_rows=noise_rows, **kw)
     score_fn, A, Y, sig, npow, x0 = args
+    steps = kw.pop("steps_each")
+    want_x, want_t = PosteriorRunner(
+        score_fn, sig, steps_each=steps, noise_fn=_draws_like_the_runner(
+            torch.Generator().manual_seed(5), noise_rows)).run(
+        A, Y, npow, x0, **kw)
     runner = PosteriorRunner(score_fn, sig, torch.Generator().manual_seed(5),
-                             steps_each=kw.pop("steps_each"),
-                             noise_rows=noise_rows)
+                             steps_each=steps, noise_rows=noise_rows)
     got_x, got_t = runner.run(A, Y, npow, x0, **kw)
     assert torch.equal(got_x, want_x)
     if want_t is None:
@@ -145,6 +160,7 @@ def test_chunked_runner_equals_plain_loop_per_chunk(setup):
         return score_fn(x, sigma)
 
     sampling.reset_stats()
+    _graph.reset_stats()
     x_got, tr_got = langevin_chunked(
         counted, t(s["A"]), t(s["Y"]), sig, per_row["noise_power"],
         t(s["x0"]), seed, per_row["alpha_step"], per_row["beta_noise"],
@@ -156,19 +172,19 @@ def test_chunked_runner_equals_plain_loop_per_chunk(setup):
     assert sampling.STATS["forwards"] == steps * levels * n_chunks
     assert sampling.STATS["forwards"] == calls[0]
     assert sampling.STATS["levels"] == levels * n_chunks
-    assert sampling.STATS["captures"] == sampling.STATS["replays"] == 0
+    assert _graph.STATS["captures"] == _graph.STATS["replays"] == 0
 
     xs, trs = [], []
     for start in range(0, B, chunk):
         rows = slice(start, min(start + chunk, B))
         pad = lambda v: pad_to_multiple(v[rows], chunk)[0]
-        xf, tr = annealed_langevin_posterior_c2_plain(
-            score_fn, pad(t(s["A"])), pad(t(s["Y"])), sig,
-            pad(per_row["noise_power"]), pad(t(s["x0"])),
-            generator=_generator(seed, start),
-            alpha_step=pad(per_row["alpha_step"]),
-            beta_noise=pad(per_row["beta_noise"]), steps_each=steps,
-            oracle=pad(t(s["X"])), capture_level=pad(per_row["capture_level"]),
+        runner = PosteriorRunner(score_fn, sig, _generator(seed, start),
+                                 steps_each=steps)
+        xf, tr = runner.run(
+            pad(t(s["A"])), pad(t(s["Y"])), pad(per_row["noise_power"]),
+            pad(t(s["x0"])), alpha_step=pad(per_row["alpha_step"]),
+            beta_noise=pad(per_row["beta_noise"]), oracle=pad(t(s["X"])),
+            capture_level=pad(per_row["capture_level"]),
             start_level=pad(per_row["start_level"]),
             coef_cap=pad(per_row["coef_cap"]))
         n = rows.stop - rows.start

@@ -29,7 +29,7 @@ from score_based_channels_tpu.diffusion.sigmas import (
 )
 from score_based_channels_tpu.models import make_score_model as jax_model
 from score_based_channels_tpu.train import score as jax_train
-from score_based_channels_torch import kernels
+from score_based_channels_torch import _graph, kernels
 from score_based_channels_torch.config import Config, ModelConfig, OptimConfig
 from score_based_channels_torch.data import ChannelDataset
 from score_based_channels_torch.eval.estimate import derive_seed
@@ -427,10 +427,12 @@ def test_runner_counts_its_steps_on_the_cpu():
     capture, no replay, 113 conv and 25 norm plain calls a forward."""
     kernels.reset_counts()
     port_train.reset_stats()
+    _graph.reset_stats()
     trainer = ScoreTrainer(_cfg(Config), device="cpu")
     state, logs = trainer.train(n_epochs=1, log_fn=_quiet)
-    assert port_train.STATS == dict(steps=4, captures=0, replays=0,
-                                    capture_seconds=0.0, pool_bytes=0)
+    assert port_train.STATS == dict(steps=4)
+    assert _graph.STATS == dict(captures=0, replays=0, capture_seconds=0.0,
+                                pool_bytes=0)
     n = kernels.counts()
     # 4 steps and 2 validations, one forward each
     assert n["conv2d_taps"] == {"launches": 0, "plain": 113 * 6}
