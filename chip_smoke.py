@@ -17,15 +17,18 @@ Phases (any failure propagates and the exit code is non-zero):
      min-sum iteration against its plain version, bit for bit over 25
      iterations at 1, 5, 100 and 256 packets of the 802.11n (648, 324)
      code, timed at 100 and 256 (events and device time) beside a
-     Tensor.zero_ of its output; the 5x5 max-pool kernel at every pool
-     shape of NCSNv2-Deepest at ngf 32 (batch 256, bf16 and f32) and ngf
-     128 (batch 8, bf16) against F.max_pool2d (torch.equal), its device
-     time per forward beside F.max_pool2d's and the bytes bound;
+     Tensor.zero_ of its output; the 5x5 max-pool and 2x2 mean-pool
+     kernels at every pool shape of NCSNv2-Deepest at ngf 32 (batch 256,
+     bf16 and f32) and ngf 128 (batch 8, bf16) against F.max_pool2d and
+     F.avg_pool2d (torch.equal; the mean pool also at the LDAMP U-Net's),
+     their device time per forward beside the library's and the bytes
+     bound;
   4. estimate path: the full-width 5,890,082-parameter network from a
      seed; its kernel forward against the plain forward; `run_estimation`
      (the `estimate` entry point) on a small file dataset written here,
-     with the launch counts of that run (12 max-pool launches a forward,
-     no plain or autograd pool), saving its channel estimates;
+     with the launch counts of that run (12 max-pool and 6 mean-pool
+     launches a forward, no plain or autograd pool), saving its
+     channel estimates;
      the `link` command on that file; the bench.py workload (batch 256, 38
      pilots, 10 dB, alpha 3e-11, beta 0.01, bf16 network, f32 state) on a
      truncated schedule with its launch counts (the `deepest.estimate.bf16`
@@ -198,6 +201,9 @@ SOURCES = {
     # replaces no Pallas kernel: the JAX package pools with XLA's
     # reduce_window
     "max_pool_5x5": ("score_based_channels_torch/csrc/max_pool5.cu", None),
+    # replaces no Pallas kernel: the JAX package's mean pool is a reshape
+    # and a mean
+    "mean_pool_2x2": ("score_based_channels_torch/csrc/mean_pool2.cu", None),
 }
 ROUTE = {torch.bfloat16: "wgmma", torch.float32: "fma"}  # the convs' routes
 LINK_PACKETS = 256
@@ -477,31 +483,41 @@ def check_ldpc(g):
 
 
 def check_pools():
-    """The max-pool kernel against F.max_pool2d (torch.equal) at every
-    pool shape of one forward of NCSNv2-Deepest at ngf 32 (batch 256, bf16
-    and f32) and ngf 128 (batch 8, bf16), and the device time of the
-    forward's 12 pools (kernels/max_pool.py::per_forward: launches captured
-    in a CUDA graph) beside F.max_pool2d's and the bytes bound."""
-    from score_based_channels_torch.kernels import max_pool
+    """The pool kernels against the library (torch.equal) at every pool
+    shape of one forward of NCSNv2-Deepest at ngf 32 (batch 256, bf16 and
+    f32) and ngf 128 (batch 8, bf16): the 5x5 max pool against
+    F.max_pool2d and the 2x2 mean pool against F.avg_pool2d (also at the
+    LDAMP U-Net's, batch 128, f32), and the device time of a forward's 12
+    max and 6 mean pools (kernels/pool_bench.py::per_forward: launches
+    captured in a CUDA graph) beside the library's and the bytes bound."""
+    from score_based_channels_torch.kernels import (max_pool, mean_pool,
+                                                    pool_bench)
 
     out = {}
-    for model, B, dt in (("ngf32", BATCH, torch.bfloat16),
-                         ("ngf32", BATCH, torch.float32),
-                         ("ngf128", WIDE_BATCH, torch.bfloat16)):
-        f = max_pool.per_forward(model, B, dt)
-        for r in f["rows"]:
-            H, W, C = r["shape"]
-            print(f"pool {H}x{W}x{C} {f['dtype']:8s} B={B} "
-                  f"x{r['per_forward']}: equal {r['equal']}  "
-                  f"{r['kernel_ms']:.4f} ms  F.max_pool2d "
-                  f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} (bytes)",
+    for kind, mod, lib in (("max", max_pool, "F.max_pool2d"),
+                           ("mean", mean_pool, "F.avg_pool2d")):
+        runs = [("ngf32", BATCH, torch.bfloat16),
+                ("ngf32", BATCH, torch.float32),
+                ("ngf128", WIDE_BATCH, torch.bfloat16)]
+        if kind == "mean":  # the LDAMP U-Net's pools too
+            runs.append(("unet", 128, torch.float32))
+        for model, B, dt in runs:
+            f = pool_bench.per_forward(mod, model, B, dt)
+            for r in f["rows"]:
+                H, W, C = r["shape"]
+                print(f"{kind} pool {H}x{W}x{C} {f['dtype']:8s} B={B} "
+                      f"x{r['per_forward']}: equal {r['equal']}  "
+                      f"{r['kernel_ms']:.4f} ms  {lib} "
+                      f"{r['library_ms']:.4f}  bound {r['bound_ms']:.4f} "
+                      "(bytes)", flush=True)
+            n = sum(r["per_forward"] for r in f["rows"])
+            print(f"# {n} {kind} pools of one {model} {f['dtype']} forward "
+                  f"at batch {B}: {f['kernel_ms']:.4f} ms, {lib} "
+                  f"{f['library_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms "
+                  f"({100 * f['bound_ms'] / f['kernel_ms']:.1f}%)",
                   flush=True)
-        print(f"# max pools of one {model} {f['dtype']} forward at batch {B}: "
-              f"{f['kernel_ms']:.4f} ms, F.max_pool2d {f['library_ms']:.4f} "
-              f"ms, bound {f['bound_ms']:.4f} ms "
-              f"({100 * f['bound_ms'] / f['kernel_ms']:.1f}%)", flush=True)
-        assert f["equal"], f
-        out[f"{model}.{f['dtype']}"] = f
+            assert f["equal"], f
+            out[f"{kind}.{model}.{f['dtype']}"] = f
     return out
 
 
@@ -937,6 +953,8 @@ def fused_forward_phase(model, g):
     assert n["instance_norm_plus"] == {"launches": 25, "plain": 0}, n
     assert n["max_pool_5x5"] == {"launches": 12, "plain": 0,
                                  "autograd": 0}, n
+    assert n["mean_pool_2x2"] == {"launches": 6, "autograd": 0,
+                                  "plain": 0}, n
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     equal = torch.equal(got, want)
     print(f"# fused_forward, batch {BATCH} bf16: launches {n}; equal to the "
@@ -1279,6 +1297,9 @@ def train_phase(convs, norms, card, g, ck_path):
     # the kernel
     pool = n["max_pool_5x5"]
     assert pool["launches"] == 12 * n_val and pool["plain"] == 0 \
+        and pool["autograd"] > 0, n
+    pool = n["mean_pool_2x2"]
+    assert pool["launches"] == 6 * n_val and pool["plain"] == 0 \
         and pool["autograd"] > 0, n
 
     # the card's gradient against the plain CPU gradient, batch 4, at
@@ -3212,7 +3233,9 @@ def wide_phase(g):
             "instance_norm_plus": {"launches": n_norm * nfe, "plain": 0},
             "instance_norm_plus.two_pass": {"launches": n_norm * nfe},
             "max_pool_5x5": {"launches": 12 * nfe, "plain": 0,
-                             "autograd": 0}}
+                             "autograd": 0},
+            "mean_pool_2x2": {"launches": 6 * nfe, "autograd": 0,
+                              "plain": 0}}
     assert {k: n[k] for k in want} == want, n
     print(f"# wide inpainting: NCSNv2-Deepest ngf 128, {B} rows of "
           f"256x256x3, {WIDE_LEVELS} levels x 3 steps in {secs:.2f} s "
@@ -3612,6 +3635,8 @@ def main():
                                               "plain": 0}
     assert launches["max_pool_5x5"] == {"launches": 12 * nfe, "plain": 0,
                                         "autograd": 0}, launches
+    assert launches["mean_pool_2x2"] == {"launches": 6 * nfe, "autograd": 0,
+                                         "plain": 0}, launches
 
     # bench.py workload on a truncated schedule: its launch counts (the
     # deepest.estimate.bf16 benchmark cell times this path)
@@ -3645,6 +3670,8 @@ def main():
                                                   "plain": 0}
     assert bench_counts["max_pool_5x5"] == {
         "launches": 12 * fw, "plain": 0, "autograd": 0}, bench_counts
+    assert bench_counts["mean_pool_2x2"] == {
+        "launches": 6 * fw, "autograd": 0, "plain": 0}, bench_counts
     print(f"# bench workload: {BATCH} estimates x {levels} levels, {fw} "
           f"forwards; launches {bench_counts}")
 
@@ -3769,7 +3796,7 @@ def main():
     # the max pool: per bf16 forward at batch 256 and per FFHQ forward at
     # batch 8 (`ffhq_*`); its plain version is F.max_pool2d itself, and
     # check_pools held it equal (max_abs_err 0)
-    pb, pf = pools["ngf32.bfloat16"], pools["ngf128.bfloat16"]
+    pb, pf = pools["max.ngf32.bfloat16"], pools["max.ngf128.bfloat16"]
     kernel_json.append(dict(
         name="max_pool_5x5", route="cuda", source=SOURCES["max_pool_5x5"][0],
         replaces=SOURCES["max_pool_5x5"][1],
@@ -3779,6 +3806,19 @@ def main():
         library_ms=pb["library_ms"], ffhq_ms=pf["kernel_ms"],
         ffhq_bound_ms=pf["bound_ms"], ffhq_library_ms=pf["library_ms"],
         ffhq_launches=later["wide"]["inpaint"]["counts"]["max_pool_5x5"][
+            "launches"]))
+    # the mean pool, the same way; its plain version is F.avg_pool2d
+    pb, pf = pools["mean.ngf32.bfloat16"], pools["mean.ngf128.bfloat16"]
+    kernel_json.append(dict(
+        name="mean_pool_2x2", route="cuda",
+        source=SOURCES["mean_pool_2x2"][0],
+        replaces=SOURCES["mean_pool_2x2"][1],
+        launches=launches["mean_pool_2x2"]["launches"], max_abs_err=0.0,
+        ms=pb["kernel_ms"], plain_ms=pb["library_ms"],
+        bound_ms=pb["bound_ms"], bound_by="bytes",
+        library_ms=pb["library_ms"], ffhq_ms=pf["kernel_ms"],
+        ffhq_bound_ms=pf["bound_ms"], ffhq_library_ms=pf["library_ms"],
+        ffhq_launches=later["wide"]["inpaint"]["counts"]["mean_pool_2x2"][
             "launches"]))
 
     out_dir = ROOT / "chiprun_out"

@@ -1,12 +1,12 @@
 """Hand-written Hopper kernels of the port, each beside its plain version."""
 
 from . import (conv, conv_chain, conv_im2col, eigmax, instance_norm,
-               ldpc_minsum, max_pool)
+               ldpc_minsum, max_pool, mean_pool)
 
 KERNEL_MODULES = {"conv2d_taps": conv, "instance_norm_plus": instance_norm,
                   "ldpc_minsum": ldpc_minsum, "conv_im2col": conv_im2col,
                   "conv_chain": conv_chain, "pilot_eigmax": eigmax,
-                  "max_pool_5x5": max_pool}
+                  "max_pool_5x5": max_pool, "mean_pool_2x2": mean_pool}
 GRAD_MODULES = {"conv2d_taps": conv, "instance_norm_plus": instance_norm}
 # launches of a kernel's second route, counted among the kernel's own
 ROUTE_COUNTS = {"conv2d_taps.wide": conv.WIDE_COUNTS,
@@ -31,8 +31,9 @@ def _launch_counts(name: str) -> dict:
 def counts() -> dict:
     """{kernel name: {"launches": n, "plain": n}} since the last reset
     ("max_pool_5x5" also {"autograd": n}, its calls on the library's pool
-    under grad), and {route name: {"launches": n}} of each kernel's second
-    route (those launches are counted under the kernel's name too)."""
+    under grad; "mean_pool_2x2" too), and {route name: {"launches": n}} of
+    each kernel's second route (those launches are counted under the
+    kernel's name too)."""
     out = {name: dict(mod.COUNTS) for name, mod in KERNEL_MODULES.items()}
     out.update({name: dict(c) for name, c in ROUTE_COUNTS.items()})
     return out

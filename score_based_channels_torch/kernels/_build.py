@@ -62,6 +62,7 @@ _SIGNATURES = {
     "sbc_pilot_eigmax_fits": [_I, _I],
     "sbc_pilot_eigmax_max_sweeps": [],
     "sbc_max_pool5": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sbc_mean_pool2": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

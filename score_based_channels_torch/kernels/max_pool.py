@@ -32,10 +32,9 @@ The kernel's output equals `F.max_pool2d`'s bit for bit, up to the sign of
 a zero where +0 and -0 tie and the bits of a NaN (a window with a NaN gives
 NaN in both: the canonical NaN here, the input's there).
 
-`per_forward` times the kernel and `F.max_pool2d` on the card (device
-time, launches captured in a CUDA graph) at every pool shape of one forward
-of NCSNv2-Deepest at ngf 32 (64x16) or ngf 128 (256x256), beside the bytes
-bound; chip_smoke.py prints it at batch 256 (bf16, f32) and 8 (bf16).
+`POOLS` holds the pool shapes of one forward of NCSNv2-Deepest at ngf 32
+(64x16) and ngf 128 (256x256); `pool_bench.per_forward` times the kernel
+and `library` there on the card.
 """
 
 from __future__ import annotations
@@ -132,10 +131,15 @@ def launch_plan(B: int, H: int, W: int, C: int, dtype: torch.dtype) -> Plan:
     return p
 
 
-def max_pool_5x5_plain(x: torch.Tensor) -> torch.Tensor:
+def library(x: torch.Tensor) -> torch.Tensor:
     """MaxPool2d(kernel 5, stride 1, padding 2): F.max_pool2d."""
-    COUNTS["plain"] += 1
     return F.max_pool2d(x, 5, stride=1, padding=2)
+
+
+def max_pool_5x5_plain(x: torch.Tensor) -> torch.Tensor:
+    """MaxPool2d(kernel 5, stride 1, padding 2): `library`, counted."""
+    COUNTS["plain"] += 1
+    return library(x)
 
 
 def _check_cuda(x: torch.Tensor) -> None:
@@ -175,7 +179,7 @@ def max_pool_5x5(x: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"max_pool_5x5: no kernel for {x.device}")
     if torch.is_grad_enabled() and x.requires_grad:
         COUNTS["autograd"] += 1
-        return F.max_pool2d(x, 5, stride=1, padding=2)
+        return library(x)
     _check_cuda(x)
     B, C, H, W = x.shape
     return _launch(x, launch_plan(B, H, W, C, x.dtype))
@@ -194,54 +198,3 @@ POOLS = {"ngf32": [((64, 16, 32), 2), ((32, 8, 32), 2), ((16, 4, 64), 2),
                     ((64, 64, 256), 2), ((32, 32, 256), 4),
                     ((32, 32, 512), 2)]}
 
-
-def graph_ms(fn, reps: int = 20) -> float:
-    """Device ms a call of fn: `reps` calls captured in one CUDA graph,
-    timed by CUDA events around a replay. A launch's host work (tens of us
-    through ctypes) is left out, as in the samplers' captured levels."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def measure(B: int, H: int, W: int, C: int, dtype: torch.dtype,
-            reps: int = 20) -> dict:
-    """The kernel and F.max_pool2d on one random card input: device ms a
-    call each (`graph_ms`), whether they agree (torch.equal), and the bytes
-    bound in ms."""
-    g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn(B, C, H, W, device="cuda", generator=g).to(dtype) \
-        .contiguous(memory_format=torch.channels_last)
-    p = launch_plan(B, H, W, C, dtype)
-    fns = {"kernel": lambda: _launch(x, p),
-           "library": lambda: F.max_pool2d(x, 5, stride=1, padding=2)}
-    out = {"plan": dataclasses.asdict(p),
-           "equal": bool(torch.equal(fns["kernel"](), fns["library"]())),
-           "bound_ms": bytes_moved(B, H, W, C, dtype) / 3.35e12 * 1e3}
-    for name, fn in fns.items():
-        out[f"{name}_ms"] = graph_ms(fn, reps)
-    return out
-
-
-def per_forward(model: str, B: int, dtype: torch.dtype,
-                reps: int = 20) -> dict:
-    """`measure` at each pool shape of one forward of `model` ("ngf32" or
-    "ngf128"), and the sums over the forward's pools."""
-    rows = []
-    for (H, W, C), n in POOLS[model]:
-        m = measure(B, H, W, C, dtype, reps)
-        rows.append(dict(shape=[H, W, C], per_forward=n, **m))
-    tot = {k: sum(r[k] * r["per_forward"] for r in rows)
-           for k in ("kernel_ms", "library_ms", "bound_ms")}
-    return dict(model=model, batch=B, dtype=str(dtype).split(".")[-1],
-                rows=rows, equal=all(r["equal"] for r in rows), **tot)

@@ -2,12 +2,12 @@
 the JAX package's models/layers.py:49-496.
 
 Tensors are NCHW in torch.channels_last memory, which is the JAX package's
-NHWC layout; every conv, InstanceNorm++ and 5x5 max pool goes through the
-kernel wrappers of `..kernels`, which launch the Hopper kernels on the card
-and run their plain versions on the CPU (the pool keeps the library's under
-autograd). Module and parameter names follow the reference state dict
-(`res1.0.conv1.weight`, RCU's `{i}_{j}_conv`), so a converted JAX parameter
-tree loads with strict=True.
+NHWC layout; every conv, InstanceNorm++, 5x5 max pool and 2x2 mean pool goes
+through the kernel wrappers of `..kernels`, which launch the Hopper kernels
+on the card and run their plain versions on the CPU (the pools keep the
+library's under autograd). Module and parameter names follow the reference
+state dict (`res1.0.conv1.weight`, RCU's `{i}_{j}_conv`), so a converted JAX
+parameter tree loads with strict=True.
 
 Activations and norms come from the config (`get_act`, `get_normalization`,
 the JAX package's layers.py:35,222). With ELU, the default, every norm
@@ -30,6 +30,7 @@ from torch import nn
 from ..kernels import conv as conv_kernel
 from ..kernels import instance_norm as norm_kernel
 from ..kernels import max_pool as pool_kernel
+from ..kernels import mean_pool as mean_pool_kernel
 
 Act = Callable[[torch.Tensor], torch.Tensor]
 
@@ -214,10 +215,10 @@ def avg_pool_5x5(x: torch.Tensor) -> torch.Tensor:
 
 
 def mean_pool_2x2(x: torch.Tensor) -> torch.Tensor:
-    """4-phase 2x mean-downsample (layers.py:254); needs even H, W."""
-    if x.shape[-2] % 2 or x.shape[-1] % 2:
-        raise ValueError("mean_pool_2x2 requires even spatial dims")
-    return F.avg_pool2d(x, 2)
+    """4-phase 2x mean-downsample (layers.py:254); needs even H, W. The
+    kernel on a card tensor that autograd does not need, the library's pool
+    on one it does, the plain version on the CPU (`kernels.mean_pool`)."""
+    return mean_pool_kernel.mean_pool_2x2(x)
 
 
 def resize_bilinear_align_corners(x: torch.Tensor,

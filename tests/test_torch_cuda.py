@@ -1536,7 +1536,10 @@ def test_ldamp_graph_equals_the_eager_loop_bitwise(card, deterministic):
 def test_ldamp_graph_counts_what_the_eager_loop_launches(card):
     """train_ldamp_snr through the graph (step 0 eager, one capture, 5
     replays) counts the conv launches and gradient work of the same 6
-    steps run eagerly, with no plain call."""
+    steps run eagerly, with no plain call; the mean pool's launches (the
+    divergence forwards) too, while its "autograd" count (the graded
+    forwards) holds the calls its wrapper sees: every step's eagerly, the
+    eager step's and the capture's through the graph."""
     from score_based_channels_torch.train.ldamp import train_ldamp_snr
 
     cfg, tc = _ldamp_tiny()
@@ -1549,7 +1552,12 @@ def test_ldamp_graph_counts_what_the_eager_loop_launches(card):
         seen.append((counts(), grad_counts()))
         assert np.isfinite(logs["loss_log"]).all()
         assert len(logs["loss_log"]) == 6
+    pools = [c.pop("mean_pool_2x2") for c, _ in seen]
     assert seen[0] == seen[1]
+    per_step = 2 * 2  # unrolls x pools of a 2-pool U-Net apply
+    assert pools[1] == {"launches": per_step * 6, "autograd": per_step * 6,
+                        "plain": 0}
+    assert pools[0] == dict(pools[1], autograd=per_step * 2)
     fwd = 2 * 11  # unrolls x convs of a 2-pool U-Net apply
     assert seen[0][0]["conv2d_taps"] == {"launches": (3 * fwd - 1) * 6,
                                          "plain": 0}
@@ -1807,7 +1815,8 @@ def test_decoder_replays_equal_eager_decodes(card):
                                          "conv_chain": 0, "pilot_eigmax": 0,
                                          "conv2d_taps.wide": 0,
                                          "instance_norm_plus.two_pass": 0,
-                                         "max_pool_5x5": 0}
+                                         "max_pool_5x5": 0,
+                                         "mean_pool_2x2": 0}
     assert counts()["ldpc_minsum"] == {"launches": 2 * 4 * 25, "plain": 0}
 
 

@@ -135,7 +135,7 @@ def _graph_builders(tree):
 def test_only_the_graph_module_builds_cuda_graphs():
     """Every CUDA graph of the port goes through `_graph` (its capture and
     Replayer); `kernels/` may build its own for micro-benchmarks
-    (`max_pool.graph_ms`)."""
+    (`pool_bench.graph_ms`)."""
     outside = {}
     for path in sorted(PACKAGE.rglob("*.py")):
         rel = path.relative_to(PACKAGE)
