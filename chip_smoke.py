@@ -141,6 +141,16 @@ Phases (any failure propagates and the exit code is non-zero):
      `annealed_langevin_inpainting` run of that model (2 levels x 3 steps)
      with its launch counts: every conv and norm on the new routes, every
      max pool on its kernel;
+ 15b. wide_train: the wide f32 conv2d_taps route, forward and input
+     gradient, at every conv of one FFHQ training step at batch 16 (the
+     cell's plans) against conv2d_plain and its autograd (1e-5 of
+     max|plain|, two launches equal bits), timed beside conv2d_plain,
+     cuDNN (TF32 off) and the bound, summed over the step's 104 + 103
+     wide launches (the `conv2d_taps.f32_wide` entry of the kernels
+     line); the two-pass norm under grad against the plain autograd, and
+     three DSM steps of that model at batch 2 through `TrainChunkRunner`
+     (step 0 eager, step 1 captured, step 2 replayed) with their launch
+     counts by route, none plain, and the card ms of a replayed step;
  16. distributed: parallel/mp_smoke.run_smoke on NCCL at world size 1 (2
      data-parallel DSM steps at batch 32 in f32, the checkpoint round trip,
      a sweep chunk on every 100th level from the restored EMA) against the
@@ -3247,6 +3257,197 @@ def wide_phase(g):
                              counts={k: n[k] for k in want}))
 
 
+WIDE_TRAIN_BATCH = 16   # the FFHQ training cell's rows a card
+WIDE_TRAIN_REPS = 5
+
+
+def ffhq_train_config(batch: int):
+    """The port's `Config` of the FFHQ recipe's training half
+    (ermongroup/ncsnv2 configs/ffhq.yml): NCSNv2-Deepest ngf 128 on 3
+    channels, sigmas geometric 348 -> 0.01 over 2311, Adam 1e-4 eps 1e-8,
+    EMA 0.999, f32 (TF32 off), `batch` rows."""
+    import dataclasses
+
+    from score_based_channels_torch.config import default_score_config
+
+    c = default_score_config("CDL-C")
+    return c.replace(
+        model=dataclasses.replace(
+            c.model, ngf=128, sigma_begin=348.0, num_classes=2311,
+            sigma_rate=(0.01 / 348.0) ** (1.0 / 2310), ema_rate=0.999),
+        optim=dataclasses.replace(c.optim, lr=1e-4, eps=1e-8),
+        training=dataclasses.replace(c.training, batch_size=batch,
+                                     anneal_power=2.0,
+                                     matmul_precision="highest"),
+        data=dataclasses.replace(c.data, channels=3))
+
+
+def wide_train_phase(g):
+    """Phase 15b: the FFHQ model's training path in f32 (TF32 off). Every
+    forward and input-gradient conv shape of one training step
+    (`conv_f32_bench.step_launches`, the model's census) at the cell's
+    batch of WIDE_TRAIN_BATCH, through the conv's autograd Function
+    against `conv2d_plain` and autograd through it (1e-5 of max|plain|),
+    each kernel launch, forward and dgrad, twice for equal bits; each
+    timed (CUDA events, median) beside `conv2d_plain`, cuDNN and the
+    bound, summed per step over the wide route's launches. Every FFHQ norm
+    shape through the norm's Function (two-pass forward, closed-form
+    backward) against the plain autograd at batch 2; then three DSM steps
+    at batch 2 through `TrainChunkRunner` with the launch counts of every
+    route and the card ms of a replayed step."""
+    from score_based_channels_torch import kernels
+    from score_based_channels_torch.kernels import conv, instance_norm
+    from score_based_channels_torch.kernels.conv_f32_bench import (
+        bound_ms, step_launches)
+    from score_based_channels_torch.train.score import TrainChunkRunner
+
+    dev, B, reps = torch.device("cuda"), WIDE_TRAIN_BATCH, WIDE_TRAIN_REPS
+    gc = torch.Generator(device=dev).manual_seed(15)
+    worst = {"conv": 0.0, "dgrad": 0.0, "norm": 0.0}
+    rows, fwd = [], [r for r in step_launches("ffhq", "cuda")
+                     if r[-1] == "fwd"]
+    for H, W, Cin, Cout, k, d, bias, n, _ in fwd:
+        pad = d * (k // 2)
+        x = torch.randn(B, Cin, H, W, generator=gc, device=dev).contiguous(
+            memory_format=torch.channels_last)
+        w = conv.kernel_layout(torch.randn(Cout, Cin, k, k, generator=gc,
+                                           device=dev) / (k * k * Cin) ** 0.5)
+        b = torch.randn(Cout, generator=gc, device=dev) if bias else None
+        gout = torch.randn(B, Cout, H, W, generator=gc, device=dev)
+        xa, xb = (x.clone().requires_grad_() for _ in range(2))
+        got, want = conv.conv2d(xa, w, b, d, True), conv.conv2d_plain(
+            xb, w, b, d, True)
+        got.backward(gout)
+        want.backward(gout)
+        e = [float((a - c).abs().max() / c.abs().max())
+             for a, c in ((got, want), (xa.grad, xb.grad))]
+        a_err = [float((a - c).abs().max())
+                 for a, c in ((got, want), (xa.grad, xb.grad))]
+        assert max(e) <= 1e-5, ((H, W, Cin, Cout, k, d), e)
+        del got, want, xa, xb
+        g_cl = gout.contiguous(memory_format=torch.channels_last)
+        wt = conv.transposed_weight(w)
+        assert torch.equal(conv.conv2d(x, w, b, d, True),
+                           conv.conv2d(x, w, b, d, True))
+        assert torch.equal(conv.conv2d(g_cl, wt, None, d),
+                           conv.conv2d(g_cl, wt, None, d))
+        worst["conv"], worst["dgrad"] = (max(worst["conv"], e[0]),
+                                         max(worst["dgrad"], e[1]))
+        T = len(conv.live_taps(k, d, H, W))
+        m = 0 if Cin == 3 else n  # the conv reading the data: no dgrad
+        for kind, count, ci, co, err, fn, plain, lib in (
+                ("fwd", n, Cin, Cout, a_err[0],
+                 lambda: conv.conv2d(x, w, b, d, True),
+                 lambda: conv.conv2d_plain(x, w, b, d, True),
+                 lambda: F.conv2d(x, w, b, padding=pad, dilation=d)),
+                ("dgrad", m, Cout, Cin, a_err[1],
+                 lambda: conv.conv2d(g_cl, wt, None, d),
+                 lambda: conv.conv2d_plain(g_cl, wt, None, d),
+                 lambda: torch.ops.aten.convolution_backward(
+                     g_cl, x, w, None, [1, 1], [pad, pad], [d, d], False,
+                     [0, 0], 1, [True, False, False]))):
+            if not count:
+                continue
+            rows.append(dict(
+                kind=kind, shape=[H, W, ci, co, k, d], count=count,
+                wide=conv.takes_wide(W, ci, co), max_abs_err=err,
+                ms=cuda_ms(fn, reps), plain_ms=cuda_ms(plain, reps),
+                library_ms=cuda_ms(lib, reps),
+                bound_ms=bound_ms(B, H, W, ci, co, T,
+                                  bias and kind == "fwd"),
+                ops_ms=2 * B * H * W * T * ci * co / 67e12 * 1e3,
+                bytes_ms=4 * (B * H * W * (ci + co) + T * ci * co + co)
+                / PEAK_BYTES * 1e3))
+            r = rows[-1]
+            print(f"f32 {kind:5s} {H}x{W} {ci}->{co} k{k} d{d} x{count:<2d} "
+                  f"{'wide' if r['wide'] else 'resident'} {r['ms']:.4f} ms "
+                  f"plain {r['plain_ms']:.4f} cudnn {r['library_ms']:.4f} "
+                  f"bound {r['bound_ms']:.4f}", flush=True)
+        del x, w, b, gout, g_cl, wt
+    torch.cuda.empty_cache()
+    launches = {kind: sum(r["count"] for r in rows
+                          if r["kind"] == kind and r["wide"])
+                for kind in ("fwd", "dgrad")}
+    assert launches == {"fwd": 104, "dgrad": 103}, launches
+    wide = [r for r in rows if r["wide"]]
+    step = {key: sum(r[key] * r["count"] for r in wide)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "ops_ms", "bytes_ms")}
+    step["bound_by"] = ("bytes" if step["bytes_ms"] >= step["ops_ms"]
+                        else "operations")
+    step.update({f"{kind}_{key}": sum(r[key] * r["count"] for r in wide
+                                      if r["kind"] == kind)
+                 for kind in ("fwd", "dgrad")
+                 for key in ("ms", "library_ms", "bound_ms")})
+    step["max_abs_err"] = max(r["max_abs_err"] for r in wide)
+    print(f"# wide_train: the f32 wide route's {launches['fwd']} forward + "
+          f"{launches['dgrad']} dgrad launches of an FFHQ training step at "
+          f"batch {B}: {step['ms']:.3f} ms (forward {step['fwd_ms']:.3f}, "
+          f"dgrad {step['dgrad_ms']:.3f}), cuDNN {step['library_ms']:.3f} "
+          f"(forward {step['fwd_library_ms']:.3f}, dgrad "
+          f"{step['dgrad_library_ms']:.3f}), plain {step['plain_ms']:.3f}, "
+          f"bound {step['bound_ms']:.3f} ms ({step['bound_by']}, "
+          f"{100 * step['bound_ms'] / step['ms']:.1f}%); worst rel err "
+          f"{worst}", flush=True)
+
+    table = json.loads((ROOT / "perfbench" / "shapes" /
+                        "ncsnv2_deepest_ffhq256.json").read_text())
+    for H, W, C, _ in table["norms"]:
+        x = (torch.randn(2, C, H, W, generator=g) * 2 + 0.5).to(
+            dev).contiguous(memory_format=torch.channels_last)
+        ps = [(torch.randn(C, generator=g) * 0.1 + 1).to(dev)
+              for _ in range(3)]
+        gout = torch.randn(x.shape, generator=g).to(dev)
+        leaves = [t.clone().requires_grad_() for t in [x] + ps]
+        ref = [t.clone().requires_grad_() for t in [x] + ps]
+        instance_norm.instance_norm_plus(*leaves, elu=True).backward(gout)
+        instance_norm.instance_norm_plus_plain(*ref, elu=True).backward(gout)
+        for a, c in zip(leaves, ref):  # sums over up to 65,536 pixels
+            e = float((a.grad - c.grad).abs().max() / c.grad.abs().max())
+            assert e <= 1e-4 and float((a.grad - c.grad).norm()
+                                       / c.grad.norm()) <= 1e-5, (H, W, C)
+            worst["norm"] = max(worst["norm"], e)
+    print(f"# wide_train: two-pass norm under grad at batch 2: worst rel "
+          f"err {worst['norm']:.2e}", flush=True)
+
+    from score_based_channels_torch.diffusion.ema import ema_init
+    from score_based_channels_torch.models.ncsnv2 import NCSNv2Deepest
+    from score_based_channels_torch.train.score import (
+        ScoreTrainer, ScoreTrainState, make_optimizer)
+
+    cfg = ffhq_train_config(2)
+    model = NCSNv2Deepest(cfg.model, 3)
+    model.init_parameters(g)
+    model = model.to(dev)
+    state = ScoreTrainState(model=model, ema=ema_init(model),
+                            opt=make_optimizer(model, cfg.optim), step=0)
+    trainer = ScoreTrainer(cfg, device=dev)
+    x_all = torch.rand(4, 256, 256, 3, generator=g).to(dev)
+    runner = TrainChunkRunner(trainer.update, state, x_all, 2, 3,
+                              torch.Generator(device=dev), 10)
+    kernels.reset_counts()
+    losses = runner.run(torch.tensor([[0, 1], [2, 3], [1, 2]]), [1, 2, 3])
+    n = kernels.counts()
+    assert torch.isfinite(losses).all()
+    assert n["conv2d_taps"] == {"launches": 3 * 225, "plain": 0}, n
+    assert n["conv2d_taps.f32_wide"] == {"launches": 3 * 104}, n
+    assert n["conv2d_taps.f32_wide.dgrad"] == {"launches": 3 * 103}, n
+    assert n["instance_norm_plus"] == {"launches": 75, "plain": 0}, n
+    assert n["instance_norm_plus.two_pass"] == {"launches": 75}, n
+    routes = {k: n[k] for k in ("conv2d_taps", "conv2d_taps.f32_wide",
+                                "conv2d_taps.f32_wide.dgrad",
+                                "instance_norm_plus",
+                                "instance_norm_plus.two_pass")}
+    ms = cuda_ms(lambda: runner.run(torch.tensor([[0, 1]]), [4]), reps=3)
+    print(f"# wide_train: 3 FFHQ DSM steps at batch 2 through the runner, "
+          f"launches {routes}; a replayed step {ms:.1f} ms (card, events)",
+          flush=True)
+    del runner, state, trainer, model
+    torch.cuda.empty_cache()
+    return dict(rows=rows, step=step, batch=B, worst_rel_err=worst,
+                counts=routes, replay_ms=ms, losses=losses.tolist())
+
+
 def distributed_phase():
     """parallel/mp_smoke.run_smoke on NCCL at world size 1 (tcp on
     127.0.0.1): DIST_STEPS data-parallel DSM steps of the full-width
@@ -3711,6 +3912,7 @@ def main():
                       ("native_cdl", native_phase),
                       ("variants", lambda: variants_phase(g)),
                       ("wide", lambda: wide_phase(g)),
+                      ("wide_train", lambda: wide_train_phase(g)),
                       ("distributed", distributed_phase),
                       ("trace", lambda: trace_phase(model))):
         t0 = time.perf_counter()
@@ -3744,6 +3946,19 @@ def main():
             max_abs_err=f["max_abs_err"], ms=f["ms"],
             plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
             bound_by=f["bound_by"], library_ms=f["library_ms"]))
+    # the f32 wide route: its launches of one FFHQ training step at batch
+    # 16, forward and dgrad (phase 15b)
+    f = later["wide_train"]["step"]
+    kernel_json.append(dict(
+        name="conv2d_taps.f32_wide", route="cuda",
+        source=SOURCES["conv2d_taps"][0], replaces=SOURCES["conv2d_taps"][1],
+        launches=(later["wide_train"]["counts"]["conv2d_taps.f32_wide"]
+                  ["launches"]
+                  + later["wide_train"]["counts"]
+                  ["conv2d_taps.f32_wide.dgrad"]["launches"]),
+        max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
+        bound_ms=f["bound_ms"], bound_by=f["bound_by"],
+        library_ms=f["library_ms"]))
     big = ldpc_rows[-1]  # the link path's 256 packets
     kernel_json.append(dict(
         name="ldpc_minsum", route="cuda", source=SOURCES["ldpc_minsum"][0],

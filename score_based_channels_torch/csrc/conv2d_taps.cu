@@ -88,6 +88,12 @@
 //        ELU (expm1f), one store.
 //      - The weight is read in place (kernel_layout); a block reads only
 //        its chunks of its BN channels, once.
+//      - Wide route (the kernel's SEG instance): layers of up to 512
+//        channels and rows of up to 256 pixels (NCSNv2-Deepest's training
+//        at its FFHQ widths) take tiles of TH rows of a segment of WS
+//        columns (WS dividing W), so a wide row's halo stays small; more
+//        channels are more channel tiles and more chunks. The arithmetic
+//        and the fixed order of K are the same.
 //
 // Both tile plans are computed by the Python wrapper (kernels/conv.py:
 // `plan` for float32, `wgmma_plan` for bf16), which the CPU tests reach.
@@ -116,7 +122,8 @@ constexpr int TN = 4;             // output channels a thread
 // One launch of the f32 kernel, as kernels/conv.py::plan gives it.
 struct F32Plan {
   int B, H, W, Cin, Cout;
-  int SB, TH, py, px;  // tile SB samples x TH rows x W; halo rows, columns
+  int SB, TH, py, px;  // tile SB samples x TH rows x WS; halo rows, columns
+  int WS;              // tile columns: W, or a segment of a wide row
   int BM, BN;          // block tile: BM pixels x BN (4..32) channels
   int stages, CL;      // ring stages; blocks of a cluster (the K split)
   int nchunks;         // chunks of BK input channels
@@ -132,7 +139,7 @@ struct F32Layout {
   int TR, TW, HP, AST, SS, tables, floats;
   __host__ __device__ F32Layout(const F32Plan& p, int T, int BK) {
     TR = p.TH + 2 * p.py;
-    TW = p.W + 2 * p.px;
+    TW = p.WS + 2 * p.px;
     HP = p.SB * TR * TW;
     AST = BK + 4;
     SS = HP * AST + T * BK * p.BN;
@@ -144,10 +151,14 @@ struct F32Layout {
 };
 
 // Block blockIdx.x is rank blockIdx.x % CL of the cluster of output tile
-// blockIdx.x / CL (channel tile fastest). A warp holds 8 WM pixels x BN
-// channels: WN = BN / 4 lanes along the channels, WM = 32 / WN along the
-// pixels; lane l the pixels qb + WM m (m < 8), the channels nb .. nb + 3.
-template <int BK>
+// blockIdx.x / CL (channel tile fastest; with SEG, then the segment of the
+// row). A warp holds 8 WM pixels x BN channels: WN = BN / 4 lanes along the
+// channels, WM = 32 / WN along the pixels; lane l the pixels qb + WM m
+// (m < 8), the channels nb .. nb + 3. SEG (the wide route): a tile is TH
+// rows of a segment of WS = W / nseg columns starting at w0; without it a
+// tile holds whole rows (WS = W, w0 = 0) and the code is the resident
+// route's as it was.
+template <int BK, bool SEG>
 __global__ void __launch_bounds__(kF32Threads)
     conv2d_taps_f32_kernel(const float* __restrict__ x,
                            const float* __restrict__ w,
@@ -167,14 +178,16 @@ __global__ void __launch_bounds__(kF32Threads)
   const int CL = p.CL, rank = blockIdx.x % CL, tile = blockIdx.x / CL;
   const int ntn = (p.Cout + p.BN - 1) / p.BN;
   const int n0 = (tile % ntn) * p.BN;
-  const conv_sm90::Tile tl(tile / ntn, p.H, p.TH, p.SB);
-  const int tile_px = p.TH * p.W, P = p.SB * tile_px;
+  const int WS = SEG ? p.WS : p.W, nseg = SEG ? p.W / p.WS : 1;
+  const int mt = tile / ntn, w0 = SEG ? (mt % nseg) * WS : 0;
+  const conv_sm90::Tile tl(SEG ? mt / nseg : mt, p.H, p.TH, p.SB);
+  const int tile_px = p.TH * WS, P = p.SB * tile_px;
 
   for (int hp = tid; hp < L.HP; hp += NT) {
     const int sb = hp / (L.TR * L.TW), rem = hp - sb * L.TR * L.TW;
     const int r = rem / L.TW;
     const int b = tl.b0 + sb, h = tl.h0 - p.py + r;
-    const int wc = rem - r * L.TW - p.px;
+    const int wc = w0 + rem - r * L.TW - p.px;
     gofs[hp] = b < p.B && h >= 0 && h < p.H && wc >= 0 && wc < p.W
                    ? ((b * p.H + h) * p.W + wc) * p.Cin
                    : -1;
@@ -238,8 +251,8 @@ __global__ void __launch_bounds__(kF32Threads)
   for (int m = 0; m < TM; ++m) {
     int q = qb + WM * m;
     if (q >= P) q = P - 1;  // past the tile: reads a real pixel, not stored
-    const int sb = q / tile_px, rem = q - sb * tile_px, r = rem / p.W;
-    hoff[m] = ((sb * L.TR + r + p.py) * L.TW + rem - r * p.W + p.px) * L.AST;
+    const int sb = q / tile_px, rem = q - sb * tile_px, r = rem / WS;
+    hoff[m] = ((sb * L.TR + r + p.py) * L.TW + rem - r * WS + p.px) * L.AST;
   }
   float acc[TM][TN];
 #pragma unroll
@@ -307,7 +320,7 @@ __global__ void __launch_bounds__(kF32Threads)
   for (int e = rank * E / CL + tid; e < (rank + 1) * E / CL; e += NT) {
     const int q = e >> lq, n = n0 + 4 * (e & (NQ - 1));
     if (q >= P || n >= p.Cout) continue;
-    const int sb = q / tile_px, rem = q - sb * tile_px, r = rem / p.W;
+    const int sb = q / tile_px, rem = q - sb * tile_px, r = rem / WS;
     const int b = tl.b0 + sb, h = tl.h0 + r;
     if (b >= p.B || h >= p.H) continue;
     const float* src = part + q * PS + n - n0;
@@ -327,7 +340,7 @@ __global__ void __launch_bounds__(kF32Threads)
       if (p.elu) v[j] = v[j] > 0.f ? v[j] : expm1f(v[j]);
     }
     float* o =
-        out + ((size_t)(b * p.H + h) * p.W + rem - r * p.W) * p.Cout + n;
+        out + ((size_t)(b * p.H + h) * p.W + w0 + rem - r * WS) * p.Cout + n;
     if (p.o16) {
       *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
     } else {
@@ -339,11 +352,11 @@ __global__ void __launch_bounds__(kF32Threads)
   if (CL > 1) sm90::cluster_sync();  // the peers' reads of this tile are done
 }
 
-template <int BK>
+template <int BK, bool SEG>
 cudaError_t launch_f32(const F32Plan& p, const Taps& taps, const float* x,
                        const float* w, const float* bias, float* out,
                        int threads, int smem, cudaStream_t s) {
-  auto kernel = conv2d_taps_f32_kernel<BK>;
+  auto kernel = conv2d_taps_f32_kernel<BK, SEG>;
   static int smem_set = 0;  // the opt-in limit set so far
   if (smem > smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -355,8 +368,8 @@ cudaError_t launch_f32(const F32Plan& p, const Taps& taps, const float* x,
     if (e != cudaSuccess) return e;
     smem_set = smem;
   }
-  const int tiles = (p.H + p.TH - 1) / p.TH * ((p.B + p.SB - 1) / p.SB) *
-                    ((p.Cout + p.BN - 1) / p.BN);
+  const int tiles = p.W / p.WS * ((p.H + p.TH - 1) / p.TH) *
+                    ((p.B + p.SB - 1) / p.SB) * ((p.Cout + p.BN - 1) / p.BN);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * p.CL);
   cfg.blockDim = dim3(threads);
@@ -624,14 +637,15 @@ cudaError_t launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap,
 
 }  // namespace
 
-// float32 route, with the plan of kernels/conv.py::plan. A 16-byte copy the
-// plan asks for and a pointer cannot take is an error, as is a cluster the
-// card refuses; nothing falls back.
+// float32 route, with the plan of kernels/conv.py::plan: tiles of TH rows x
+// WS columns, WS = W (whole rows), or a segment of a wide row (the SEG
+// instance). A 16-byte copy the plan asks for and a pointer cannot take is
+// an error, as is a cluster the card refuses; nothing falls back.
 extern "C" int sbc_conv2d_taps(const void* x, const void* w, const void* bias,
                                void* out, int B, int H, int W, int Cin,
                                int Cout, int ntaps, const int* dy,
                                const int* dx, const int* wi, int SB, int TH,
-                               int py, int px, int BM, int BN, int BK,
+                               int WS, int py, int px, int BM, int BN, int BK,
                                int stages, int CL, int x16, int w16,
                                int threads, int smem_bytes, int elu,
                                void* stream) {
@@ -647,8 +661,8 @@ extern "C" int sbc_conv2d_taps(const void* x, const void* w, const void* bias,
   if (!bn || (BK != 4 && BK != 8 && BK != 16) ||
       BM % (TM * 32 / (BN / TN)) != 0 || stages < 2 || stages > 4 ||
       (CL != 1 && CL != 2 && CL != 4 && CL != 8) || SB < 1 || TH < 1 ||
-      SB * TH * W > BM || threads != BM * BN / TM / TN ||
-      threads > kF32Threads)
+      WS < 1 || W % WS != 0 || (WS < W && SB != 1) || SB * TH * WS > BM ||
+      threads != BM * BN / TM / TN || threads > kF32Threads)
     return (int)cudaErrorInvalidValue;
   const int nchunks = (Cin + BK - 1) / BK;
   if (nchunks < CL) return (int)cudaErrorInvalidValue;
@@ -658,9 +672,10 @@ extern "C" int sbc_conv2d_taps(const void* x, const void* w, const void* bias,
   if ((x16 && (Cin % 4 != 0 || !a16(x))) ||
       (w16 && (Cout % 4 != 0 || !a16(w))))
     return (int)cudaErrorMisalignedAddress;
-  const F32Plan p = {B,  H,  W,      Cin, Cout, SB,  TH,
-                     py, px, BM,     BN,  stages, CL, nchunks,
-                     x16, w16, Cout % 4 == 0 && a16(out), elu};
+  const F32Plan p = {B,  H,  W,  Cin,    Cout, SB,       TH,
+                     py, px, WS, BM,     BN,   stages,   CL,
+                     nchunks,    x16,    w16,  Cout % 4 == 0 && a16(out),
+                     elu};
   const int need = F32Layout(p, ntaps, BK).bytes();
   if (smem_bytes < need) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -668,9 +683,11 @@ extern "C" int sbc_conv2d_taps(const void* x, const void* w, const void* bias,
   const float* wf = static_cast<const float*>(w);
   const float* bf = static_cast<const float*>(bias);
   float* of = static_cast<float*>(out);
-  const auto launch = BK == 4   ? launch_f32<4>
-                     : BK == 8 ? launch_f32<8>
-                               : launch_f32<16>;
+  const bool seg = WS < W;  // the wide route's row segments
+  const auto launch =
+      BK == 4   ? (seg ? launch_f32<4, true> : launch_f32<4, false>)
+      : BK == 8 ? (seg ? launch_f32<8, true> : launch_f32<8, false>)
+                : (seg ? launch_f32<16, true> : launch_f32<16, false>);
   return (int)launch(p, taps, xf, wf, bf, of, threads, smem_bytes, s);
 }
 

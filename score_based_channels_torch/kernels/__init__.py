@@ -10,6 +10,8 @@ KERNEL_MODULES = {"conv2d_taps": conv, "instance_norm_plus": instance_norm,
 GRAD_MODULES = {"conv2d_taps": conv, "instance_norm_plus": instance_norm}
 # launches of a kernel's second route, counted among the kernel's own
 ROUTE_COUNTS = {"conv2d_taps.wide": conv.WIDE_COUNTS,
+                "conv2d_taps.f32_wide": conv.F32_WIDE_COUNTS,
+                "conv2d_taps.f32_wide.dgrad": conv.F32_WIDE_DGRAD_COUNTS,
                 "instance_norm_plus.two_pass": instance_norm.TWO_PASS_COUNTS}
 
 

@@ -37,7 +37,7 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "sbc_conv2d_taps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _IP, _IP,
                         _IP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _P],
+                        _I, _I, _I, _P],
     "sbc_conv2d_taps_wgmma": [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                               _IP, _IP, _IP, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _P],

@@ -41,19 +41,23 @@ is how models/layers.py Conv2d stores its parameter. It reads the live
 taps' matrices only, so no packed copy of the weight is kept that could go
 stale when the parameter changes.
 
-Wide route (bf16 only): a layer with more than 128 input or output
-channels, or an image wider than 128 pixels (NCSNv2-Deepest at its
-published FFHQ widths), goes to csrc/conv2d_taps_wide.cu, tile plan
-`wide_plan`: the same wgmma on a halo tile, the weight slices streamed
-through a ring instead of kept resident, a wide row cut into segments of
-at most 128 pixels, up to 512 channels. Every other shape keeps the route
-and plan above. The f32 route and the input gradient keep their cap of
-128 channels and raise beyond it.
+Wide routes: a layer with more than 128 input or output channels, or an
+image wider than 128 pixels (NCSNv2-Deepest at its published FFHQ
+widths), takes a wide route, up to 512 channels and rows of 256 pixels.
+In bf16 that is csrc/conv2d_taps_wide.cu, tile plan `wide_plan`: the same
+wgmma on a halo tile, the weight slices streamed through a ring instead of
+kept resident, a wide row cut into segments of at most 128 pixels. In f32
+(training at those widths, forward and input gradient) it is the FMA
+implicit GEMM above with the same `plan`, on tiles of TH rows x WS =
+F32_SEGMENT columns, a segment of the row (the kernel's segment instance):
+the same arithmetic, K summed in the same fixed order, no atomics. Every
+other shape keeps the route and plan above (WS = W).
 
 `conv2d` dispatches on the tensor's device: a CPU tensor goes to
 `conv2d_plain`; a CUDA tensor launches the kernel or raises. Both count
-their calls in COUNTS; WIDE_COUNTS counts the launches of the wide route
-among them.
+their calls in COUNTS; WIDE_COUNTS counts the launches of the bf16 wide
+route among them, F32_WIDE_COUNTS the forwards and F32_WIDE_DGRAD_COUNTS
+the input gradients of an f32 shape that `takes_wide`.
 
 Gradients (training): on a CUDA tensor with grad enabled and an input that
 requires grad, `conv2d` launches through `_Conv2dFunction`, whose backward
@@ -78,6 +82,8 @@ import torch.nn.functional as F
 
 COUNTS = {"launches": 0, "plain": 0}
 WIDE_COUNTS = {"launches": 0}
+F32_WIDE_COUNTS = {"launches": 0}        # the forwards
+F32_WIDE_DGRAD_COUNTS = {"launches": 0}  # the input gradients
 GRAD_COUNTS = {"functions": 0, "dgrad": 0}
 
 MAX_CHANNELS = 128
@@ -94,6 +100,7 @@ F32_CLUSTERS = (1, 2, 4, 8)
 F32_MAX_TAPS = 9           # the tap tables' length (kMaxTaps)
 F32_WARPS = 1024           # the grid's warps the plan splits K to reach
 TWO_BLOCKS_SMEM = 113 * 1024  # two blocks an SM (228 KB, 1 KB each reserved)
+F32_SEGMENT = 16           # the wide f32 route's tile columns in a wide row
 
 # bf16 route (wgmma): must match csrc/conv2d_taps.cu, csrc/conv_sm90.cuh
 WG_ROWS = 64               # output pixels of one consumer warpgroup
@@ -133,16 +140,18 @@ def has_kernel_layout(weight: torch.Tensor) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """One f32 launch: output tiles of SB samples x TH whole rows x W
-    columns (at most BM pixels) by BN channels, a thread 8 pixels x 4
-    channels, chunks of BK input channels through a ring of `stages`, each
-    tile's chunks split over a cluster of CL blocks. x16 / w16: 16-byte
-    copies of x / the weight (else 4-byte). The grid is tiles[0] * tiles[1]
-    * tiles[2] * CL blocks; `why` says why it falls short of the card's
-    SMS, or is empty."""
+    """One f32 launch: output tiles of SB samples x TH rows x WS columns
+    (at most BM pixels) by BN channels, a thread 8 pixels x 4 channels,
+    chunks of BK input channels through a ring of `stages`, each tile's
+    chunks split over a cluster of CL blocks. WS = W (whole rows), or on
+    the wide route a segment of a wide row (then SB = 1). x16 / w16:
+    16-byte copies of x / the weight (else 4-byte). The grid is tiles[0] *
+    tiles[1] * tiles[2] * CL blocks; `why` says why it falls short of the
+    card's SMS, or is empty."""
 
     SB: int
     TH: int
+    WS: int        # tile columns
     py: int        # halo rows
     px: int        # halo columns
     BM: int
@@ -155,7 +164,8 @@ class Plan:
     threads: int
     smem: int      # dynamic shared bytes
     nchunks: int   # chunks of BK input channels
-    tiles: Tuple[int, int, int]  # (row tiles, sample groups, channel tiles)
+    tiles: Tuple[int, int, int]  # (row tiles x segments, sample groups,
+                                 #  channel tiles)
     why: str = ""
 
     @property
@@ -198,55 +208,70 @@ def tile_rows(B: int, H: int, W: int, BM: int) -> Tuple[int, int]:
 
 def f32_config(B: int, H: int, W: int, Cin: int, Cout: int, dy, dx,
                BN: int, BM: int, BK: int, CL: int = 1,
-               stages: Optional[int] = None) -> Optional[Plan]:
+               stages: Optional[int] = None,
+               WS: Optional[int] = None) -> Optional[Plan]:
     """The f32 launch with these choices, or None where the kernel cannot
     take them: BN in F32_BN, BM a multiple of a warp's pixels holding a
-    row, at most 256 threads, CL <= the chunks. Without `stages`: three
-    where they fit the budget, else two; the budget is two blocks an SM
-    where a ring of two stages allows it, else one."""
+    row of WS (by default W) columns, WS dividing W, at most 256 threads,
+    CL <= the chunks. Tiles: SB whole images or TH whole rows where WS = W
+    (`tile_rows`), else min(BM / WS, H) rows of one segment. Without
+    `stages`: three where they fit the budget, else two; the budget is two
+    blocks an SM where a ring of two stages allows it, else one."""
+    WS = W if WS is None else WS
     if BN not in F32_BN or BK not in F32_BK or CL not in F32_CLUSTERS:
         return None
     threads = BM * BN // (F32_TM * F32_TN)
-    if (BM % f32_warp_pixels(BN) or BM < W or BM > F32_MAX_BM
-            or threads > F32_MAX_THREADS or -(-Cin // BK) < CL):
+    if (BM % f32_warp_pixels(BN) or BM < WS or BM > F32_MAX_BM or WS < 1
+            or W % WS or threads > F32_MAX_THREADS or -(-Cin // BK) < CL):
         return None
     T = len(dy)
     py, px = max(abs(v) for v in dy), max(abs(v) for v in dx)
-    SB, TH = tile_rows(B, H, W, BM)
-    smem = lambda s: f32_smem(SB, TH + 2 * py, W + 2 * px, T, BM, BN, BK, s)
+    SB, TH = tile_rows(B, H, W, BM) if WS == W else (1, min(BM // WS, H))
+    smem = lambda s: f32_smem(SB, TH + 2 * py, WS + 2 * px, T, BM, BN, BK, s)
     if stages is None:
         budget = (TWO_BLOCKS_SMEM if smem(2) <= TWO_BLOCKS_SMEM
                   else MAX_SMEM_OPTIN)
         stages = 3 if smem(3) <= budget else 2
     if smem(stages) > MAX_SMEM_OPTIN:
         return None
-    return Plan(SB, TH, py, px, BM, BN, BK, stages, CL, Cin % 4 == 0,
+    return Plan(SB, TH, WS, py, px, BM, BN, BK, stages, CL, Cin % 4 == 0,
                 Cout % 4 == 0, threads, smem(stages), -(-Cin // BK),
-                (-(-H // TH), -(-B // SB), -(-Cout // BN)))
+                (-(-H // TH) * (W // WS), -(-B // SB), -(-Cout // BN)))
 
 
 def plan(B: int, H: int, W: int, Cin: int, Cout: int, dy, dx) -> Plan:
     """Tile plan of one f32 launch; raises on a shape the kernel does not
-    take. BN is the power of 2 that holds Cout, at most 32; BK the largest
-    chunk (16 at most) whose ring of two stages leaves room for two blocks
-    an SM, else the largest that fits. The block starts at 256 threads
-    (at most 512 pixels, no more than the batch holds). Then, while the
-    grid has fewer than F32_WARPS warps, each tile's chunks are split over
-    a cluster twice as large (BK halved down to 8 where the chunks run
-    out); and while it has fewer blocks than the card has SMs, the block's
-    pixels are halved, else its chunks split further. These rules come
-    from timing every configuration at every f32 shape of the score model
-    at batch 256 and 32 (`kernels.conv_f32_bench --sweep`)."""
-    if not (1 <= Cin <= MAX_CHANNELS and 1 <= Cout <= MAX_CHANNELS):
+    take (1..512 channels, rows of at most 256 pixels). Tiles hold whole
+    rows (WS = W) unless the shape `takes_wide`: then segments of
+    F32_SEGMENT columns of a wider row. BN is the power of 2 that holds
+    Cout, at most 32; BK the largest chunk (16 at most) whose ring of two
+    stages leaves room for two blocks an SM, else the largest that fits.
+    The block starts at 256 threads (at most 512 pixels, no more than the
+    batch holds). Then, while the grid has fewer than F32_WARPS warps,
+    each tile's chunks are split over a cluster twice as large (BK halved
+    down to 8 where the chunks run out); and while it has fewer blocks
+    than the card has SMs, the block's pixels are halved, else its chunks
+    split further. These rules come from timing every configuration at
+    every f32 shape of the score model at batch 256 and 32, and of the
+    FFHQ model's training step at batch 16 (`kernels.conv_f32_bench
+    --sweep`)."""
+    if not (1 <= Cin <= WIDE_MAX_CHANNELS and 1 <= Cout <= WIDE_MAX_CHANNELS):
         raise ValueError(f"conv2d_taps: the float32 route takes "
-                         f"1..{MAX_CHANNELS} channels (only bf16 takes up "
-                         f"to {WIDE_MAX_CHANNELS}), got Cin={Cin} "
+                         f"1..{WIDE_MAX_CHANNELS} channels, got Cin={Cin} "
                          f"Cout={Cout}")
+    if W > WIDE_MAX_WIDTH:
+        raise ValueError(f"conv2d_taps: image width {W} is wider than "
+                         f"{WIDE_MAX_WIDTH} pixels")
     if not 1 <= len(dy) <= F32_MAX_TAPS:
         raise ValueError(f"conv2d_taps takes 1..9 live taps, got {len(dy)}")
     if B * H * W * max(Cin, Cout) >= 2 ** 31:
         raise ValueError("conv2d_taps: the f32 route's 32-bit offsets cannot "
                          "address this tensor")
+    WS = min(W, F32_SEGMENT) if takes_wide(W, Cin, Cout) else W
+    if W % WS:
+        raise ValueError(f"conv2d_taps: a {W}-pixel row does not cut into "
+                         f"segments of {WS}")
+    BN = min(max(_pow2_at_least(Cout), F32_BN[0]), F32_BN[-1])
     bk_top = max(F32_BK[-1], min(F32_BK[0], _pow2_at_least(Cin)))
 
     def first(BM, CL, bk, least=F32_BK[-1]):
@@ -254,7 +279,7 @@ def plan(B: int, H: int, W: int, Cin: int, Cout: int, dy, dx) -> Plan:
         two blocks an SM, else that fits; or None."""
         fits = [p for BK in F32_BK if least <= BK <= bk
                 for p in [f32_config(B, H, W, Cin, Cout, dy, dx, BN, BM, BK,
-                                     CL)] if p is not None]
+                                     CL, WS=WS)] if p is not None]
         two = [p for p in fits if p.smem <= TWO_BLOCKS_SMEM]
         return (two or fits or [None])[0]
 
@@ -264,15 +289,14 @@ def plan(B: int, H: int, W: int, Cin: int, Cout: int, dy, dx) -> Plan:
         return first(p.BM, 2 * p.CL, p.BK, min(8, bk_top))
 
     def halve(p):
-        if p.BM // 2 < max(W, f32_warp_pixels(BN)):
+        if p.BM // 2 < max(WS, f32_warp_pixels(BN)):
             return None
         return first(p.BM // 2, p.CL, p.BK)
 
-    BN = min(max(_pow2_at_least(Cout), F32_BN[0]), F32_BN[-1])
     BM = min(F32_MAX_THREADS * F32_TM * F32_TN // BN, F32_MAX_BM)
-    while BM > f32_warp_pixels(BN) and BM // 2 >= max(W, B * H * W):
+    while BM > f32_warp_pixels(BN) and BM // 2 >= max(WS, B * H * W):
         BM //= 2
-    if W > BM:
+    if WS > BM:
         raise ValueError(f"conv2d_taps: image width {W} is wider than a "
                          f"{BM}-pixel tile")
     p = first(BM, 1, bk_top)
@@ -288,7 +312,7 @@ def plan(B: int, H: int, W: int, Cin: int, Cout: int, dy, dx) -> Plan:
         if q is None:
             return dataclasses.replace(p, why=(
                 f"{p.blocks} blocks: {B * H * W} pixels in tiles of "
-                f"{p.SB * p.TH * W}, {Cout} channels in tiles of {p.BN}, "
+                f"{p.SB * p.TH * p.WS}, {Cout} channels in tiles of {p.BN}, "
                 f"{p.nchunks} chunks of {p.BK} input channels split "
                 f"{p.CL} ways"))
         p = q
@@ -396,9 +420,9 @@ class WidePlan(NamedTuple):
 
 
 def takes_wide(W: int, Cin: int, Cout: int) -> bool:
-    """Whether a bf16 launch must go to the wide route: more than
-    MAX_CHANNELS channels, or a row wider than the resident route's
-    tile."""
+    """Whether a launch goes to the wide route (bf16: `wide_plan`; f32:
+    `plan`'s row segments): more than MAX_CHANNELS channels, or a row
+    wider than the resident bf16 route's tile."""
     return max(Cin, Cout) > MAX_CHANNELS or W > MAX_WG * WG_ROWS
 
 
@@ -481,8 +505,8 @@ def wide_plan(B: int, H: int, W: int, Cin: int, Cout: int, dy, dx,
 @functools.lru_cache(maxsize=None)
 def _launch_args(B: int, H: int, W: int, Cin: int, Cout: int, k: int,
                  dilation: int, bf16: bool = False) -> tuple:
-    """Plan (for bf16 `wgmma_plan`, or `wide_plan` where `takes_wide` or
-    the resident plan `resident_is_cut`; for f32 `plan`) and ctypes tap
+    """Plan (for f32 `plan`; for bf16 `wide_plan` where `takes_wide` or the
+    resident plan `resident_is_cut`, else `wgmma_plan`) and ctypes tap
     arrays of one launch shape, made once."""
     taps = live_taps(k, dilation, H, W)
     dy, dx = [t[2] for t in taps], [t[3] for t in taps]
@@ -582,13 +606,14 @@ def conv2d_backward(x: torch.Tensor, weight: torch.Tensor, has_bias: bool,
         grad = grad * torch.where(out > 0, 1.0, out + 1.0).to(grad.dtype)
     dx = dw = db = None
     if needs[0]:
-        if max(weight.shape[:2]) > MAX_CHANNELS:
-            raise ValueError(f"conv2d_taps: the input gradient takes "
-                             f"1..{MAX_CHANNELS} channels, got "
-                             f"{tuple(weight.shape[:2])}")
         GRAD_COUNTS["dgrad"] += 1
-        dx = conv2d(grad.contiguous(memory_format=torch.channels_last),
-                    transposed_weight(weight), None, dilation)
+        g = grad.contiguous(memory_format=torch.channels_last)
+        wt = transposed_weight(weight)
+        if g.device.type == "cuda":
+            _check_cuda(g, wt)
+            dx = _launch(g, wt, None, dilation, False, dgrad=True)
+        else:
+            dx = conv2d(g, wt, None, dilation)
     if needs[1] or (has_bias and needs[2]):
         rows, cols, pad = _live_window(weight.shape[-1], dilation,
                                        *x.shape[-2:])
@@ -649,10 +674,11 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
 
 def _launch(x: torch.Tensor, weight: torch.Tensor,
             bias: Optional[torch.Tensor], dilation: int, elu: bool,
-            p=None) -> torch.Tensor:
+            p=None, dgrad: bool = False) -> torch.Tensor:
     """The kernel on checked card tensors, launched as `p` says (by default
     the shape's plan; the card tests pass others, made with
-    dataclasses.replace)."""
+    dataclasses.replace). `dgrad`: an input gradient (`conv2d_backward`),
+    counted apart on the f32 wide route."""
     B, Cin, H, W = x.shape
     Cout, k = weight.shape[0], weight.shape[-1]
     bf16 = x.dtype == torch.bfloat16
@@ -684,9 +710,12 @@ def _launch(x: torch.Tensor, weight: torch.Tensor,
     else:
         rc = lib.sbc_conv2d_taps(
             x.data_ptr(), weight.data_ptr(), b_ptr, out.data_ptr(), B, H, W,
-            Cin, Cout, T, dy, dx, wi, p.SB, p.TH, p.py, p.px, p.BM, p.BN,
-            p.BK, p.stages, p.CL, int(p.x16), int(p.w16), p.threads, p.smem,
-            int(elu), stream)
+            Cin, Cout, T, dy, dx, wi, p.SB, p.TH, p.WS, p.py, p.px, p.BM,
+            p.BN, p.BK, p.stages, p.CL, int(p.x16), int(p.w16), p.threads,
+            p.smem, int(elu), stream)
+        if takes_wide(W, Cin, Cout):
+            (F32_WIDE_DGRAD_COUNTS if dgrad
+             else F32_WIDE_COUNTS)["launches"] += 1
     _build.check("conv2d_taps", rc)
     COUNTS["launches"] += 1
     return out

@@ -1814,6 +1814,8 @@ def test_decoder_replays_equal_eager_decodes(card):
                                          "ldpc_minsum": 25, "conv_im2col": 0,
                                          "conv_chain": 0, "pilot_eigmax": 0,
                                          "conv2d_taps.wide": 0,
+                                         "conv2d_taps.f32_wide": 0,
+                                         "conv2d_taps.f32_wide.dgrad": 0,
                                          "instance_norm_plus.two_pass": 0,
                                          "max_pool_5x5": 0,
                                          "mean_pool_2x2": 0}

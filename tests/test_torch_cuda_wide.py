@@ -113,16 +113,28 @@ def test_wide_conv_takes_a_resident_shape(card):
 
 
 def test_wide_route_refuses_f32_and_dgrad(card):
-    x = torch.randn(1, 256, 8, 8, device=card).contiguous(
+    """The f32 route and the input gradient take 256 channels on the f32
+    wide route (forward and dgrad counted apart) and, like the bf16 wide
+    route, refuse more than 512."""
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(1, 256, 8, 8, generator=g, device=card).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    w = conv.kernel_layout(torch.randn(256, 256, 3, 3, generator=g,
+                                       device=card))
+    reset_counts()
+    conv.conv2d(x, w).sum().backward()
+    n = counts()
+    assert n["conv2d_taps.f32_wide"] == {"launches": 1}
+    assert n["conv2d_taps.f32_wide.dgrad"] == {"launches": 1}
+    big = torch.randn(1, 520, 8, 8, generator=g, device=card).contiguous(
         memory_format=torch.channels_last)
-    w = conv.kernel_layout(torch.randn(256, 256, 3, 3, device=card))
+    wb = conv.kernel_layout(torch.randn(520, 520, 3, 3, generator=g,
+                                        device=card))
     with pytest.raises(ValueError, match="float32 route"):
-        conv.conv2d(x, w)
-    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
-    xb.requires_grad_(True)
-    y = conv.conv2d(xb, wb)
-    with pytest.raises(ValueError, match="input gradient"):
-        y.float().sum().backward()
+        conv.conv2d(big, wb)
+    xb = big.to(torch.bfloat16).requires_grad_(True)
+    with pytest.raises(ValueError, match="channels"):
+        conv.conv2d(xb, wb.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 8e-3),

@@ -116,10 +116,11 @@ def test_wide_plan_at_every_ffhq_conv(row):
     assert p.nwg == 2 or rows * groups * ntiles >= conv.MIN_BLOCKS
     assert p.smem == conv.wide_smem(p.SB, p.TH + 2 * p.py, p.WS + 2 * p.px,
                                     p.KS, p.BN, p.stages)
-    # the f32 route keeps its cap of 128 channels and says so
-    if max(Cin, Cout) > 128:
-        with pytest.raises(ValueError, match="float32 route"):
-            conv._launch_args(B, H, W, Cin, Cout, k, d, False)
+    # the f32 route takes it too, on its wide route: tiles of whole rows
+    # or of segments of a wide row, as many channel tiles as Cout needs
+    if conv.takes_wide(W, Cin, Cout):
+        q = conv._launch_args(B, H, W, Cin, Cout, k, d, False)[0]
+        assert type(q) is conv.Plan and W % q.WS == 0
 
 
 def test_wide_plan_refuses_what_the_kernel_does_not_take():
@@ -176,7 +177,12 @@ def test_todays_shapes_keep_their_conv_plans(model):
                 continue
             p = conv._launch_args(B, H, W, Ci, Co, k, d, bf16)[0]
             assert not isinstance(p, conv.WidePlan), r
-            got = (list(p) if bf16 else list(dataclasses.astuple(p)))
+            if bf16:
+                got = list(p)
+            else:  # recorded before the f32 plan had tile columns WS
+                got = dataclasses.asdict(p)
+                assert got.pop("WS") == W, r
+                got = list(got.values())
             assert json.loads(json.dumps(got)) == want, (r["shape"], key)
 
 
